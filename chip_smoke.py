@@ -19,7 +19,29 @@ Phases (each prints one JSON line):
                kernels' launch counts in the measured ticks (must be > 0);
                then the planning windows of the kernel schedule against the
                plain schedule on those envs' maps (equal short-term-goal
-               decisions), and a small solve against the heap-marching oracle.
+               decisions), and a small solve against the heap-marching oracle;
+  5. kernel  — roi_window_pool (B3) at the four window shapes of one
+               random-weight R101-FPN detect of 8 FakeNavEnv frames at
+               800x1088 (square p=7 and p=14, x- and y-elongated p=7), in
+               float32 and bfloat16 against its plain version within 2e-5
+               of the largest |value| (both sides contract the same
+               rounded operands), bfloat16 also within the elementwise
+               rtol/atol 2e-2 of tests/test_roi_window.py, and a pool
+               that skips rounding A_y must miss the bar; kernel, plain
+               and library (window gather + two torch.bmm) times beside
+               the bound.  Then nms_keep (the greedy NMS kernel) on the
+               RPN's and the box head's suppression matrices of that
+               detect, bit-equal to its plain version, with times;
+  6. detect  — the whole detect in float32 through the kernel against the
+               plain ROI path (the golden-test bar, masks compared as
+               probabilities within 1e-4 and IoU on the decided pixels),
+               then frames/s in bfloat16 at batch 8 with the stage split
+               and peak memory;
+  7. slice_seg — BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=0,
+               only_explore=1, switch_step=999, serve_bf16=True): steps/s,
+               tick times, stages (detect included), peak memory and the
+               launches of B1, B2, B3 and nms_keep in the measured ticks
+               (all > 0).
 Then the kernels line, the nvidia-smi line and, last, the result line.  Any
 failed phase exits non-zero without the result line.  Without a card, or
 without the repository beside this script, it fails.
@@ -134,6 +156,431 @@ def bound(cells: int, bytes_per_cell: float, ops: float):
             else "operations")
 
 
+# ---------------------------------------------------------------------------
+# Mask R-CNN (kernel B3 and the use_gt_seg=0 slice)
+
+# B3 against its plain version, relative to the largest |value|: both sides
+# contract the same (bf16-rounded) operands in float32 and differ only in
+# association, in bfloat16 as in float32
+ROI_TOL = 2e-5
+ROI_TOL_BF16_ELEMENTWISE = 2e-2     # rtol = atol, tests/test_roi_window.py
+SEG_TICKS = 10       # measured ticks of slice_seg
+ROI_SHAPES = ("square_p7_n8000", "x_elongated_p7", "y_elongated_p7",
+              "square_p14_n800")
+NMS_CALLS = ("rpn_40x1000", "box_8x1000")
+
+
+class Patch:
+    """Within the block, ``module.name`` is ``wrap(original)``."""
+
+    def __init__(self, module, name, wrap):
+        self.module, self.name, self.wrap = module, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.wrap(self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def capture(module, name, calls):
+    """Records the arguments of every call of ``module.name`` in ``calls``:
+    for roi_window_pool in a detect, box stage square, x-, y-elongated,
+    then the mask stage the same; for nms_keep, the RPN, then the box
+    head."""
+    def wrap(fn):
+        def recorded(*a):
+            calls.append(a)
+            return fn(*a)
+        return recorded
+    return Patch(module, name, wrap)
+
+
+def roi_support(w: torch.Tensor):
+    """First index and length of each ROI's nonzero-weight span."""
+    nz = (w != 0).any(1)
+    idx = torch.arange(nz.shape[1], device=w.device)
+    lo = torch.where(nz, idx, nz.shape[1]).amin(1)
+    hi = torch.where(nz, idx, -1).amax(1) + 1
+    return lo, torch.clamp(hi - lo, min=0)
+
+
+def roi_bound(flat, ay, ax, row0, col0, p):
+    """Least time for these inputs: the distinct buffer cells the windows'
+    weighted supports cover read once + hat matrices + origins + output
+    written once, at 3.35 TB/s; or 2 C p R X + 2 C p^2 min(R, X) float32
+    operations per ROI over its R x X support (the cheaper contraction
+    order), at 67 TFLOP/s (the kernel's float32 FMA units)."""
+    n, c = ay.shape[0], flat.shape[-1]
+    hs, ws = flat.shape[0], flat.shape[1]
+    ylo, rows = roi_support(ay.to(flat.dtype))
+    xlo, cols = roi_support(ax)
+    ok = (rows > 0) & (cols > 0)
+    ops = float((2 * c * p * rows * cols
+                 + 2 * c * p * p * torch.minimum(rows, cols))[ok].double()
+                .sum())
+    r0 = (row0 + ylo).clamp(0, hs)[ok].long()
+    r1 = (row0 + ylo + rows).clamp(0, hs)[ok].long()
+    c0 = (col0 + xlo).clamp(0, ws)[ok].long()
+    c1 = (col0 + xlo + cols).clamp(0, ws)[ok].long()
+    diff = torch.zeros((hs + 1, ws + 1), dtype=torch.int64, device=ay.device)
+    for rr, cc, v in ((r0, c0, 1), (r0, c1, -1), (r1, c0, -1), (r1, c1, 1)):
+        diff.index_put_((rr, cc), torch.full_like(rr, v), accumulate=True)
+    cells = int((diff.cumsum(0).cumsum(1)[:hs, :ws] > 0).sum())
+    nbytes = (cells * c * flat.element_size()
+              + 4 * (ay.numel() + ax.numel() + 2 * n) + 4 * n * p * p * c)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", cells, ops)
+
+
+def library_pool(padded, pad, ay, ax, row0, col0, win_y, win_x):
+    """The yardstick: gather each window of a zero-padded copy of the buffer
+    (made beforehand), then two torch.bmm."""
+    n, p = ay.shape[0], ay.shape[1]
+    c = padded.shape[-1]
+    dev = padded.device
+    rows = (row0.long() + pad)[:, None] + torch.arange(win_y, device=dev)
+    cols = (col0.long() + pad)[:, None] + torch.arange(win_x, device=dev)
+    win = padded[rows[:, :, None], cols[:, None, :]]       # (n, wy, wx, C)
+    t = torch.bmm(ay.to(padded.dtype), win.reshape(n, win_y, win_x * c))
+    t = t.reshape(n, p, win_x, c).transpose(1, 2).reshape(n, win_x, p * c)
+    return torch.bmm(ax, t.float())                          # (n, px, py*C)
+
+
+def check_pool(call, timed: bool):
+    """Kernel vs plain version on one captured call, within ROI_TOL of the
+    largest |value|: with random weights the pooled sums reach ~4e4 and
+    the two sum in other orders, so an element that cancels to near zero
+    carries the rounding of its large partial sums.  In bfloat16 also the
+    elementwise bar of tests/test_roi_window.py, and the plain version
+    over a float32 copy of the buffer (A_y left unrounded) must miss the
+    ROI_TOL bar, or the bar could not tell a kernel that skips the
+    rounding.  With ``timed``, kernel/plain/library ms and the bound."""
+    from peanut_tpu_torch.kernels.roi_window import (
+        roi_window_pool, roi_window_pool_reference)
+    flat, ay, ax, row0, col0, win_y, win_x = call
+    got = roi_window_pool(*call)
+    want = roi_window_pool_reference(*call)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    scale = float(want.abs().max())
+    limit = ROI_TOL * max(scale, 1.0)
+    finite = bool(torch.isfinite(got).all())
+    out = {"n": ay.shape[0], "p": ay.shape[1], "window": [win_y, win_x],
+           "dtype": str(flat.dtype).replace("torch.", ""),
+           "max_abs_err": err, "max_abs_want": scale,
+           "median_abs_want": float(want.abs().median()),
+           "max_err_rel_to_max": err / max(scale, 1e-30),
+           "tolerance": ROI_TOL, "limit_abs": limit, "finite": finite}
+    ok = finite and err <= limit
+    if flat.dtype == torch.bfloat16:
+        elem = ROI_TOL_BF16_ELEMENTWISE
+        out["elementwise_ok"] = bool(
+            (diff <= elem + elem * want.abs()).all())
+        unrounded = roi_window_pool_reference(flat.float(), *call[1:])
+        out["unrounded_ay_max_abs_err"] = float(
+            (unrounded - want).abs().max())
+        out["bar_sees_unrounded_ay"] = out["unrounded_ay_max_abs_err"] > limit
+        del unrounded
+        ok = ok and out["elementwise_ok"] and out["bar_sees_unrounded_ay"]
+    out["ok"] = ok
+    if timed:
+        pad = max(win_y, win_x)
+        padded = torch.nn.functional.pad(flat, (0, 0, pad, pad, pad, pad))
+        out["ms"] = cuda_ms(lambda: roi_window_pool(*call), reps=10)
+        out["plain_ms"] = cuda_ms(lambda: roi_window_pool_reference(*call),
+                                  reps=2)
+        out["library_ms"] = cuda_ms(lambda: library_pool(
+            padded, pad, ay, ax, row0, col0, win_y, win_x), reps=3)
+        del padded
+        (out["bound_ms"], out["bound_by"], out["cells_read"],
+         out["operations"]) = roi_bound(flat, ay, ax, row0, col0,
+                                        ay.shape[1])
+    return out
+
+
+def check_nms(call, timed: bool):
+    """nms_keep against its plain version on one captured call (bit-equal:
+    both give the unique greedy keep set).  The bound moves valid, keep
+    and, per kept box, its sup row right of the diagonal (the rest of sup
+    cannot change the answer), at 3.35 TB/s."""
+    from peanut_tpu_torch.kernels.nms import nms_keep, nms_keep_reference
+    sup, valid = call
+    got = nms_keep(sup, valid)
+    want = nms_keep_reference(sup, valid)
+    n = sup.shape[-1]
+    out = {"problems": valid.numel() // n, "n": n,
+           "kept": int(want.sum()), "valid": int(valid.sum()),
+           "equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got.float() - want.float()).abs().max())}
+    if timed:
+        out["ms"] = cuda_ms(lambda: nms_keep(sup, valid), reps=10)
+        out["plain_ms"] = cuda_ms(lambda: nms_keep_reference(sup, valid),
+                                  reps=3)
+        right = (n - 1 - torch.arange(n, device=sup.device)).double()
+        row_bytes = float((want.double() * right).sum())
+        out["bytes"] = 2.0 * valid.numel() + row_bytes
+        out["bound_ms"] = out["bytes"] / PEAK_BYTES * 1e3
+        out["bound_by"] = "bytes"
+        out["library_ms"] = None
+    return out
+
+
+MASK_PROB_TOL = 1e-4
+
+
+def detections_agree(a, b):
+    """The golden test's bar (tests/test_mask_rcnn.py): equal finite count
+    and classes, scores within 1e-3, boxes within 1.0, mask IoU >= 0.97.
+    Random weights leave wide mask regions with logits near 0, where the
+    two ROI paths' rounding flips pixels that sit within ~1e-6 of the 0.5
+    threshold; so the mask probabilities must agree within 1e-4, and the
+    IoU bar holds on the decided pixels (further than 1e-4 from 0.5 in both
+    paths)."""
+    a = {k: v.float().cpu().numpy() for k, v in a.items()}
+    b = {k: v.float().cpu().numpy() for k, v in b.items()}
+    fin = np.isfinite(b["scores"])
+    res = {"finite_equal": bool((np.isfinite(a["scores"]) == fin).all()),
+           "detections": int(fin.sum())}
+    if not res["finite_equal"]:
+        return dict(res, ok=False)
+    res["classes_equal"] = bool((a["classes"][fin] == b["classes"][fin])
+                                .all())
+    res["score_max_diff"] = float(np.abs(a["scores"][fin]
+                                         - b["scores"][fin]).max())
+    res["box_max_diff"] = float(np.abs(a["boxes"][fin]
+                                       - b["boxes"][fin]).max())
+    pa, pb = a["masks"][fin], b["masks"][fin]
+    ma, mb = pa > 0.5, pb > 0.5
+    decided = ((np.abs(pa - 0.5) > MASK_PROB_TOL)
+               & (np.abs(pb - 0.5) > MASK_PROB_TOL))
+    iou_all = (ma & mb).sum((1, 2)) / np.maximum((ma | mb).sum((1, 2)), 1)
+    union = (decided & (ma | mb)).sum((1, 2))
+    iou = (decided & ma & mb).sum((1, 2)) / np.maximum(union, 1)
+    iou = np.where(union > 0, iou, 1.0)
+    flip = ma ^ mb
+    res.update({
+        "mask_prob_max_diff": float(np.abs(pa - pb).max()),
+        "mask_iou_min_decided": float(iou.min()),
+        "mask_iou_min_all_pixels": float(iou_all.min()),
+        "undecided_pixel_share": float(1.0 - decided.mean()),
+        "flipped_pixels": int(flip.sum()),
+        "flipped_max_dist_from_half": float(np.maximum(
+            np.abs(pa - 0.5), np.abs(pb - 0.5))[flip].max())
+        if flip.any() else 0.0})
+    res["ok"] = (res["classes_equal"] and res["score_max_diff"] <= 1e-3
+                 and res["box_max_diff"] <= 1.0
+                 and res["mask_prob_max_diff"] <= MASK_PROB_TOL
+                 and res["mask_iou_min_decided"] >= 0.97
+                 and res["detections"] > 0)
+    return res
+
+
+def seg_frames(cfg, seed, n):
+    """n FakeNavEnv frames at the default 640x480 geometry, uint8 on the
+    card, with their goal categories."""
+    from peanut_tpu_torch.constants import hm3d_to_coco
+    from peanut_tpu_torch.envs import FakeNavEnv
+    rgbs, cats = [], []
+    for s in range(n):
+        env = FakeNavEnv(cfg, size_m=14.0, seed=seed + s, emit_gt_seg=False)
+        obs = env.reset()
+        for a in (1, 3, 1):
+            obs = env.step(a)
+        rgbs.append(np.asarray(obs["rgb"], np.uint8))
+        cats.append(int(hm3d_to_coco[int(np.asarray(
+            obs["objectgoal"]).reshape(-1)[0])]))
+    return torch.as_tensor(np.stack(rgbs), device="cuda"), cats
+
+
+def synced(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@torch.no_grad()
+def mask_rcnn_phases(args, dev):
+    """Phases 5-7; returns (B3 cases, nms_keep cases, slice_seg
+    launches)."""
+    import peanut_tpu_torch.models.boxes as boxes_mod
+    import peanut_tpu_torch.models.roi_align as roi_align_mod
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.envs.batch_runner import BatchRunner
+    from peanut_tpu_torch.kernels.fmm_fused import fused_eikonal
+    from peanut_tpu_torch.kernels.fmm_sweep import block_sweep2
+    from peanut_tpu_torch.kernels.nms import nms_keep
+    from peanut_tpu_torch.kernels.roi_window import (
+        roi_window_pool, roi_window_pool_reference)
+    from peanut_tpu_torch.models import MaskRCNN
+    from peanut_tpu_torch.perception import MaskRCNNSegmenter
+
+    t0 = time.perf_counter()
+    model = MaskRCNN(num_classes=9, depth=101, seed=args.seed)
+    init_s = time.perf_counter() - t0
+    cfg32 = NavConfig(use_gt_seg=0, only_explore=1, switch_step=999)
+    seg32 = MaskRCNNSegmenter(cfg32, model=model, device=dev)
+    rgb, cats = seg_frames(cfg32, args.seed, 8)
+    goal = torch.as_tensor(cats, device=dev)
+
+    # float32: every window shape, and the whole detect, kernel vs plain
+    img32 = seg32.preprocess(rgb)
+    calls = []
+    with capture(roi_align_mod, "roi_window_pool", calls):
+        det_k = model.detect_batch(img32)
+    if len(calls) != 6:
+        fail(f"expected 6 ROI pool calls in a detect, got {len(calls)} "
+             "(the square window covers every ROI at this geometry?)")
+    b3_f32 = {name: check_pool(calls[i], timed=False)
+              for i, name in enumerate(ROI_SHAPES)}
+    del calls
+    with Patch(roi_align_mod, "roi_window_pool",
+               lambda _: roi_window_pool_reference):
+        det_p = model.detect_batch(img32)
+    agree = detections_agree(det_k, det_p)
+    del det_k, det_p, img32
+
+    # bfloat16 (serving): the kernel lines with times and bounds
+    cfg16 = NavConfig(use_gt_seg=0, only_explore=1, switch_step=999,
+                      serve_bf16=True)
+    seg16 = MaskRCNNSegmenter(cfg16, model=model, device=dev)
+    img16 = seg16.preprocess(rgb)
+    calls, nms_calls = [], []
+    with capture(roi_align_mod, "roi_window_pool", calls), \
+            capture(boxes_mod, "nms_keep", nms_calls):
+        det = model.detect_batch(img16)
+    b3 = {}
+    for i, name in enumerate(ROI_SHAPES):
+        b3[name] = check_pool(calls[i], timed=True)
+        b3[name]["float32"] = {k: b3_f32[name][k] for k in
+                               ("max_abs_err", "max_abs_want",
+                                "median_abs_want", "max_err_rel_to_max",
+                                "tolerance", "ok")}
+        emit({"phase": "kernel", "kernel": f"roi_window_pool/{name}",
+              **b3[name]})
+    del calls
+    if not all(c["ok"] and c["float32"]["ok"] for c in b3.values()):
+        fail("roi_window_pool disagrees with its plain version, or the "
+             "bar cannot see a pool that skips rounding A_y")
+    if len(nms_calls) != len(NMS_CALLS):
+        fail(f"expected {len(NMS_CALLS)} NMS calls in a detect, got "
+             f"{len(nms_calls)}")
+    nms = {}
+    for name, call in zip(NMS_CALLS, nms_calls):
+        nms[name] = check_nms(call, timed=True)
+        emit({"phase": "kernel", "kernel": f"nms_keep/{name}", **nms[name]})
+    del nms_calls
+    if not all(c["equal"] for c in nms.values()):
+        fail("nms_keep disagrees with its plain version")
+
+    # detect: frames/s at batch 8 in bf16, the stage split, peak memory
+    h, w = img16.shape[1], img16.shape[2]
+    for _ in range(2):
+        model.detect_batch(img16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        det = model.detect_batch(img16)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    stages = {k: [] for k in ("backbone_fpn", "rpn_proposals",
+                              "box_head_roialign_nms", "mask_head_roialign",
+                              "paste")}
+    for _ in range(3):
+        pyr, t = synced(lambda: model.features(img16))
+        stages["backbone_fpn"].append(t)
+        props, t = synced(lambda: model.proposals(pyr, h, w))
+        stages["rpn_proposals"].append(t)
+        (bx, sc, cl), t = synced(lambda: model.box_inference(
+            pyr, *props, h, w, roi_ctx=model.roi_context(pyr)))
+        stages["box_head_roialign_nms"].append(t)
+        ms, t = synced(lambda: model.mask_inference(pyr, bx, cl))
+        stages["mask_head_roialign"].append(t)
+        sem, t = synced(lambda: seg16.paste(bx.float(), sc.float(), cl,
+                                            ms.float(), goal))
+        stages["paste"].append(t)
+    del pyr, props
+    finite = bool(all(torch.isfinite(det[k].float()).all()
+                      for k in ("boxes", "masks")))
+    emit({
+        "phase": "detect", "model": "R101-FPN", "batch": 8,
+        "image": [h, w], "dtype": "bfloat16",
+        "maskrcnn_r101_800x1088_frames_per_sec": 8 * iters / dt,
+        "ms_per_batch": dt / iters * 1e3,
+        "stage_ms": {k: float(np.median(v)) for k, v in stages.items()},
+        "peak_memory_mib": peak, "init_seconds": init_s,
+        "detections_per_image": float(torch.isfinite(
+            det["scores"]).sum(1).float().mean()),
+        "outputs_finite": finite,
+        "kernel_vs_plain_float32": agree})
+    if not agree["ok"] or not finite:
+        fail("the detect through kernel B3 misses the plain ROI path's "
+             "detections (golden-test bar) or is not finite")
+
+    # the slice with Mask R-CNN semantics: 16 envs, serving dtype
+    n_envs = 16
+    runner = BatchRunner(
+        cfg16, [lambda s=s: FakeNavEnv(cfg16, size_m=14.0,
+                                       seed=args.seed + s, emit_gt_seg=False)
+                for s in range(n_envs)], segmenter=seg16, device=dev)
+    runner.reset_all()
+    for _ in range(3):
+        runner.tick()
+    runner.warmup_rare_paths()
+    runner.reset_timers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_eikonal.launches = 0
+    block_sweep2.launches = 0
+    roi_window_pool.launches = 0
+    nms_keep.launches = 0
+    tick_ms = []
+    t1 = time.perf_counter()
+    for _ in range(SEG_TICKS):
+        t2 = time.perf_counter()
+        runner.tick()
+        tick_ms.append((time.perf_counter() - t2) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = {"fused_eikonal": fused_eikonal.launches,
+                "block_sweep2": block_sweep2.launches,
+                "roi_window_pool": roi_window_pool.launches,
+                "nms_keep": nms_keep.launches}
+    rt = runner.runtime
+    maps_finite = bool(torch.isfinite(rt.state.local_maps).all())
+    sem_cells = float((rt.state.local_maps[:, 4:4 + seg16.n_cats] > 0)
+                      .sum())
+    emit({"phase": "slice_seg", "envs": n_envs, "ticks": SEG_TICKS,
+          "config": "NavConfig(use_gt_seg=0, only_explore=1, "
+                    "switch_step=999, serve_bf16=True)",
+          "env_steps_per_sec": n_envs * SEG_TICKS / dt,
+          "tick_ms_median": float(np.median(tick_ms)),
+          "tick_ms_mean": dt / SEG_TICKS * 1e3,
+          "stage_ms_per_tick": {k: round(v / SEG_TICKS * 1e3, 3)
+                                for k, v in runner.stage_totals().items()},
+          "peak_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+          "launches": launches, "maps_finite": maps_finite,
+          "semantic_map_cells": sem_cells,
+          "episodes_done": len(runner.metrics)})
+    runner.close()
+    if min(launches.values()) <= 0:
+        fail(f"the seg slice did not launch every kernel: {launches}")
+    if not maps_finite or sem_cells <= 0:
+        fail("the seg slice's maps are not finite or hold no Mask R-CNN "
+             "semantics")
+    return b3, nms, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -176,18 +623,22 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
     try:
-        for stem in ("fmm_fused", "fmm_sweep2"):
+        for stem in ("fmm_fused", "fmm_sweep2", "roi_window", "nms_greedy"):
             _build.library(stem)
     except RuntimeError as e:
         fail(f"kernel build failed: {e}")
-    from peanut_tpu_torch.kernels import fmm_fused, fmm_sweep
+    from peanut_tpu_torch.kernels import fmm_fused, fmm_sweep, roi_window
     smem = {  # dynamic shared memory per block at the main path's shapes
         "fused_eikonal_482_block16":
             fmm_fused._lib().fused_eikonal_smem_bytes(482, 482, 16),
         "fused_eikonal_480_block8":
             fmm_fused._lib().fused_eikonal_smem_bytes(480, 480, 8),
         "block_sweep2_482_block16":
-            fmm_sweep._lib().block_sweep2_smem_bytes(482, 16)}
+            fmm_sweep._lib().block_sweep2_smem_bytes(482, 16),
+        "roi_window_bf16_p7_26x274":
+            roi_window._lib().roi_window_smem_bytes(1, 7, 26, 274),
+        "roi_window_f32_p14_26x274":
+            roi_window._lib().roi_window_smem_bytes(0, 14, 26, 274)}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "nvcc_seconds": round(_build.build_seconds, 2),
           "dir": str(_build.build_dir()), "dynamic_smem_bytes": smem,
@@ -371,6 +822,11 @@ def main() -> int:
         fail("the CUDA solve misses the heap-oracle bounds")
     runner.close()
 
+    # ---- 5-7. Mask R-CNN: kernel B3, detect, the seg slice --------------
+    b3, nms, seg_launches = mask_rcnn_phases(args, dev)
+    launches_seg = {"fused_eikonal": seg_launches["fused_eikonal"],
+                    "block_sweep2": seg_launches["block_sweep2"]}
+
     kernels = []
     for name_, src_file, replaces, keys, count_key in (
             ("fused_eikonal", "peanut_tpu_torch/kernels/csrc/fmm_fused.cu",
@@ -382,7 +838,9 @@ def main() -> int:
         main_case = results[keys[0]]
         kernels.append({
             "name": name_, "route": "cuda", "source": src_file,
-            "replaces": replaces, "launches": launches[count_key],
+            "replaces": replaces, "launches": launches_seg[count_key],
+            "launches_by_path": {"slice": launches[count_key],
+                                 "slice_seg": launches_seg[count_key]},
             "max_abs_err": max(results[k]["max_abs_err"] for k in keys),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
@@ -390,6 +848,31 @@ def main() -> int:
             "cases": {k: {kk: results[k][kk] for kk in
                           ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                       for k in keys}})
+    main_case = b3["square_p7_n8000"]
+    kernels.append({
+        "name": "roi_window_pool", "route": "cuda",
+        "source": "peanut_tpu_torch/kernels/csrc/roi_window.cu",
+        "replaces": "peanut_tpu/kernels/roi_window.py:183",
+        "launches": seg_launches["roi_window_pool"],
+        "launches_by_path": {"slice_seg": seg_launches["roi_window_pool"]},
+        "max_abs_err": max(c["max_abs_err"] for c in b3.values()),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "library": "window gather + two torch.bmm",
+        "cases": b3})
+    main_case = nms["rpn_40x1000"]
+    kernels.append({
+        "name": "nms_keep", "route": "cuda",
+        "source": "peanut_tpu_torch/kernels/csrc/nms_greedy.cu",
+        "replaces": "peanut_tpu/models/boxes.py:117",
+        "replaces_note": "the lax.while_loop of nms_fixed; no pallas_call",
+        "launches": seg_launches["nms_keep"],
+        "launches_by_path": {"slice_seg": seg_launches["nms_keep"]},
+        "max_abs_err": max(c["max_abs_err"] for c in nms.values()),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": None, "cases": nms})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",

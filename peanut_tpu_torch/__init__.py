@@ -40,3 +40,17 @@ def resolve_device(device=None) -> torch.device:
                 "is available; pass device='cpu' to run on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """Host data (numpy, a list, a CPU tensor) as a tensor on ``device``.
+
+    To a card it goes through pinned memory without blocking: a copy from
+    pageable memory waits for the stream to drain, which would hold the
+    caller (an env-step thread launching a detect chunk, say) until every
+    queued kernel has finished."""
+    t = torch.as_tensor(x, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda" or t.is_cuda:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -20,9 +20,12 @@ Architecture, as in the JAX package:
     focused solves with identical semantics.
 
 This slice runs the explore-only configuration with ground-truth
-semantics.  Target prediction (``only_explore=0``, ROADMAP A8), Mask R-CNN
-(``use_gt_seg=0``, A9), ``pred_async`` and mesh sharding (A14) are not
-ported.
+semantics or with Mask R-CNN (``use_gt_seg=0``): then ``stage_obs`` uploads
+each frame's uint8 RGB as soon as its env has stepped and launches a detect
+chunk once ``seg_batch_chunk`` frames are staged, and the tick takes the
+segmenter's device semantic stack without a host round trip.  Target
+prediction (``only_explore=0``, ROADMAP A8), ``pred_async`` and mesh
+sharding (A14) are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, upload
 from ..config import NavConfig
 from ..constants import hm3d_names, hm3d_to_coco
 from ..geometry.pose import (get_rel_pose_change, get_l2_distance,
@@ -146,7 +149,7 @@ class BatchedNavRuntime:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.mapper = SemanticMapper(cfg)
         self.segmenter = segmenter if segmenter is not None \
-            else build_segmenter(cfg)
+            else build_segmenter(cfg, device=self.device)
 
         self.nc = cfg.num_map_channels
         self.Hf = self.Wf = cfg.map_size
@@ -166,6 +169,12 @@ class BatchedNavRuntime:
         self._clear_pending()
         # reset_env runs in the env-step thread pool; serialize its writes
         self._reset_lock = threading.Lock()
+        # chunked-detect pipeline: stage_obs launches a detect chunk as soon
+        # as seg_chunk envs have stepped (0: one detect call in _pack_obs)
+        self._det_lock = threading.Lock()
+        self._det_buf: list = []
+        self._seg_chunk = int(getattr(self.segmenter, "chunk", 0) or 0) \
+            if hasattr(self.segmenter, "batch_device") else 0
 
     # ------------------------------------------------------------------
     def _alloc_state(self) -> DeviceState:
@@ -619,7 +628,8 @@ class BatchedNavRuntime:
         hp[:, 351:359] = self._col_valid
 
         with T.stage("upload"):
-            args = (self._t(sem_u8), self._t(depth_cm), self._t(hp))
+            sem = sem_u8 if torch.is_tensor(sem_u8) else self._t(sem_u8)
+            args = (sem, self._t(depth_cm), self._t(hp))
         with T.stage("dispatch"):
             # on CUDA the tick's kernels are enqueued; nothing blocks until
             # collect fetches the packed download
@@ -675,15 +685,45 @@ class BatchedNavRuntime:
 
     # ------------------------------------------------------------------
     def stage_obs(self, obs: Dict) -> None:
-        """Preprocess this observation's depth as soon as its env has
-        stepped (called from the env-step thread pool)."""
+        """Preprocess this observation as soon as its env has stepped
+        (called from the env-step thread pool): its depth on the host and,
+        with a device segmenter, its uint8 RGB up to the device; once
+        ``seg_chunk`` frames are staged, launch their detect chunk, so
+        detection of the first envs overlaps the others' stepping."""
         cfg = self.cfg
+        if hasattr(self.segmenter, "batch_device"):
+            obs["_rgb_dev"] = upload(np.asarray(obs["rgb"], np.uint8),
+                                     self.device)
         d = preprocess_depth(np.asarray(obs["depth"])[None],
                              cfg.min_depth, cfg.max_depth)[0]
         ds = cfg.env_frame_width // cfg.frame_width
         if ds != 1:
             d = d[ds // 2::ds, ds // 2::ds]
         obs["_depth_np"] = d
+        if self._seg_chunk:
+            goal = int(np.asarray(obs["objectgoal"]).reshape(-1)[0])
+            obs["_goal_cat"] = int(hm3d_to_coco[goal])
+            batch = None
+            with self._det_lock:
+                self._det_buf.append(obs)
+                if len(self._det_buf) >= self._seg_chunk:
+                    batch, self._det_buf = self._det_buf, []
+            if batch:
+                self._launch_detect(batch)
+
+    def _launch_detect(self, batch) -> None:
+        """Detect one staged chunk; each obs gets its slice of the device
+        semantic stack under ``_sem_dev``.  Nothing in the detect waits for
+        the device (NMS solves on the card, host data goes up without
+        blocking), so the ``detect`` stage is the host's time to enqueue
+        the chunk; its device time overlaps the other envs' stepping and
+        shows in the tick's ``tick_wait``."""
+        with self.timer.stage("detect"):
+            sem = self.segmenter.batch_device(
+                torch.stack([o["_rgb_dev"] for o in batch]),
+                [o["_goal_cat"] for o in batch])
+        for j, o in enumerate(batch):
+            o["_sem_dev"] = sem[j]
 
     def _depth_stack(self, observations) -> np.ndarray:
         cfg = self.cfg
@@ -704,6 +744,26 @@ class BatchedNavRuntime:
         sem_u8 = np.zeros((n, cfg.num_sem_categories, fh, fw), np.uint8)
         depth_cm = np.zeros((n, fh, fw), np.float32)
         ds = cfg.env_frame_width // cfg.frame_width
+
+        if hasattr(self.segmenter, "batch_device"):
+            # Mask R-CNN: the semantic stack stays on the device
+            with self._det_lock:
+                batch, self._det_buf = self._det_buf, []
+            if batch:                  # the partial tail chunk stage_obs left
+                self._launch_detect(batch)
+            if all("_sem_dev" in o for o in observations):
+                sem = torch.stack([o.pop("_sem_dev") for o in observations])
+            else:
+                if all("_rgb_dev" in o for o in observations):
+                    rgbs = torch.stack([o["_rgb_dev"] for o in observations])
+                else:
+                    rgbs = np.stack([np.asarray(o["rgb"], np.uint8)
+                                     for o in observations])
+                with self.timer.stage("detect"):
+                    sem = self.segmenter.batch_device(
+                        rgbs, [int(g) for g in goal_cats])
+            depth_cm[:] = self._depth_stack(observations)
+            return sem, depth_cm
 
         if cfg.use_gt_seg == 1 and hasattr(self.segmenter, "goalseg"):
             # GroundTruthSegmenter fast path: only the goal channel is

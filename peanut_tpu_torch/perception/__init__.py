@@ -1,6 +1,7 @@
 from .depth import preprocess_depth
 from .segmentation import (Segmenter, GroundTruthSegmenter, FullGTSegmenter,
                            ZeroSegmenter, build_segmenter)
+from .mask_rcnn_segmenter import MaskRCNNSegmenter
 
 __all__ = [
     "preprocess_depth",
@@ -9,4 +10,5 @@ __all__ = [
     "FullGTSegmenter",
     "ZeroSegmenter",
     "build_segmenter",
+    "MaskRCNNSegmenter",
 ]

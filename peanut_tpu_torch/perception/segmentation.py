@@ -6,8 +6,10 @@ stack with a confidence gate ``sem_pred_prob_thr`` and a stricter
 segmentation.py:28-62).  ``accumulate_instances`` keeps those semantics for
 every backend.  This slice ports the ground-truth segmenters
 (``use_gt_seg=1``: the goal channel from the simulator; ``use_gt_seg=2``:
-the full stack) and the zero segmenter, which only a caller that names it
-gets.  The Mask R-CNN segmenter (``use_gt_seg=0``) is ROADMAP A9.
+the full stack), the Mask R-CNN segmenter (``use_gt_seg=0``,
+``mask_rcnn_segmenter.py``: it needs the checkpoint at ``seg_model_wts``,
+or weights passed in) and the zero segmenter, which only a caller that
+names it gets: a missing checkpoint raises, it never falls back to zeros.
 """
 
 from __future__ import annotations
@@ -96,12 +98,13 @@ class ZeroSegmenter:
         return np.zeros((h, w, self.n_cats + 1), np.float32)
 
 
-def build_segmenter(cfg: NavConfig) -> Segmenter:
-    """Pick the segmentation backend for a run."""
+def build_segmenter(cfg: NavConfig, device=None) -> Segmenter:
+    """Pick the segmentation backend for a run.  ``use_gt_seg=0`` loads
+    the Mask R-CNN checkpoint at ``cfg.seg_model_wts`` (FileNotFoundError
+    naming the path when it is missing) onto ``device``."""
     if cfg.use_gt_seg == 2:
         return FullGTSegmenter(cfg)
     if cfg.use_gt_seg:
         return GroundTruthSegmenter(cfg)
-    raise NotImplementedError(
-        "use_gt_seg=0 needs the Mask R-CNN segmenter, which the PyTorch "
-        "port does not have yet (ROADMAP A9)")
+    from .mask_rcnn_segmenter import MaskRCNNSegmenter
+    return MaskRCNNSegmenter(cfg, device=device)

@@ -6,8 +6,14 @@ the H100 (where JAX is not installed, hence no conftest):
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest
 
-Tolerance: bitwise.  Each kernel keeps its plain version's operation order,
-scan association and rounding (see the notes in kernels/csrc/*.cu).
+Tolerance: bitwise for the eikonal kernels, which keep their plain
+versions' operation order, scan association and rounding (see the notes in
+kernels/csrc/*.cu), and for ``nms_keep`` (both give the unique greedy keep
+set).  ``roi_window_pool`` sums in another association than its plain
+version (x before y): rtol/atol 2e-5, in bfloat16 too, since both sides
+contract the same bfloat16-rounded operands in float32.  The bfloat16 bar
+of tests/test_roi_window.py (2e-2) would pass a kernel that skips rounding
+A_y; 2e-5 does not (``test_roi_window_pool_bar_sees_unrounded_ay``).
 """
 
 import numpy as np
@@ -19,6 +25,9 @@ from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                 fused_eikonal_reference)
 from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep2,
                                                 block_sweep2_reference)
+from peanut_tpu_torch.kernels.nms import nms_keep, nms_keep_reference
+from peanut_tpu_torch.kernels.roi_window import (roi_window_pool,
+                                                 roi_window_pool_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -84,6 +93,108 @@ def test_eikonal_schedules_on_the_card(cuda):
     with pytest.raises(ValueError):
         block_sweep2(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8, dtype=bool),
                      torch.zeros(2, 8, 8, dtype=bool))
+
+
+def _roi_inputs(seed, n, p, win_y, win_x, hs, ws, c, dev, dtype):
+    rng = np.random.RandomState(seed)
+    flat = torch.as_tensor(rng.standard_normal((hs, ws, c)).astype(
+        np.float32), device=dev).to(dtype)
+    # hat-like weights: nonnegative, with zero rows/columns around a support
+    ay = rng.rand(n, p, win_y).astype(np.float32)
+    ax = rng.rand(n, p, win_x).astype(np.float32)
+    ay[:, :, :win_y // 4] = 0.0
+    ax[:, :, win_x - win_x // 3:] = 0.0
+    ay[0] = 0.0                                     # an empty ROI
+    # origins inside, across and beyond every edge of the buffer
+    row0 = rng.randint(-win_y, hs, n).astype(np.int32)
+    col0 = rng.randint(-win_x, ws, n).astype(np.int32)
+    return (flat, torch.as_tensor(ay, device=dev),
+            torch.as_tensor(ax, device=dev), torch.as_tensor(row0, device=dev),
+            torch.as_tensor(col0, device=dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-5)])
+@pytest.mark.parametrize("p,win_y,win_x", [(7, 40, 40), (14, 40, 40),
+                                           (7, 26, 274), (14, 208, 26),
+                                           (7, 8, 24)])
+def test_roi_window_pool_kernel_matches_plain(cuda, dtype, tol, p, win_y,
+                                              win_x):
+    args = _roi_inputs(3, 37, p, win_y, win_x, 90, 300, 136, cuda, dtype)
+    before = roi_window_pool.launches
+    got = roi_window_pool(*args, win_y, win_x)
+    assert roi_window_pool.launches == before + 1
+    want = roi_window_pool_reference(*args, win_y, win_x)
+    torch.cuda.synchronize()
+    assert got.shape == (37, p, p, 136) and got.dtype == torch.float32
+    assert torch.count_nonzero(got[0]) == 0
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_roi_window_pool_bar_sees_unrounded_ay(cuda):
+    """In bfloat16 the pool rounds A_y before it meets the window.  A pool
+    that skipped it (the plain version over a float32 copy of the same
+    values) misses the 2e-5 bar the kernel meets."""
+    args = _roi_inputs(3, 37, 7, 40, 40, 90, 300, 136, cuda, torch.bfloat16)
+    got = roi_window_pool(*args, 40, 40)
+    unrounded = roi_window_pool_reference(args[0].float(), *args[1:], 40, 40)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, unrounded, rtol=2e-5, atol=2e-5)
+
+
+def test_roi_window_pool_reads_outside_as_zero(cuda):
+    """A window half outside the buffer pools only its inside part: the
+    same window over a zero-padded copy gives the same result."""
+    flat, ay, ax, _, _ = _roi_inputs(4, 4, 7, 16, 16, 20, 24, 64, cuda,
+                                     torch.float32)
+    ay = torch.ones_like(ay)
+    ax = torch.ones_like(ax)
+    row0 = torch.tensor([-8, 12, -30, 0], dtype=torch.int32, device=cuda)
+    col0 = torch.tensor([-8, 16, 0, 40], dtype=torch.int32, device=cuda)
+    got = roi_window_pool(flat, ay, ax, row0, col0, 16, 16)
+    padded = torch.nn.functional.pad(flat, (0, 0, 16, 16, 16, 16))
+    want = roi_window_pool_reference(padded, ay, ax, row0 + 16, col0 + 16,
+                                     16, 16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.count_nonzero(got[2]) == 0 and torch.count_nonzero(got[3]) == 0
+    with pytest.raises(ValueError):
+        roi_window_pool(flat, ay[:, :3], ax[:, :3], row0, col0, 16, 16)
+
+
+@pytest.mark.parametrize("problems,n,density", [
+    (40, 1000, 0.003), (8, 1000, 0.03), (3, 70, 0.2), (1, 1, 0.0)])
+def test_nms_keep_kernel_equals_plain(cuda, problems, n, density):
+    rng = np.random.RandomState(6)
+    sup = torch.as_tensor(np.triu(rng.rand(problems, n, n) < density, 1),
+                          device=cuda)
+    valid = torch.as_tensor(rng.rand(problems, n) > 0.05, device=cuda)
+    before = nms_keep.launches
+    got = nms_keep(sup, valid)
+    assert nms_keep.launches == before + 1
+    assert torch.equal(got, nms_keep_reference(sup, valid))
+    # a suppression chain: every other box kept, n/2 bounding rounds
+    chain = torch.ones(1000, 1000, dtype=torch.bool,
+                       device=cuda).triu(1).tril(1)
+    ones = torch.ones(1000, dtype=torch.bool, device=cuda)
+    assert torch.equal(nms_keep(chain, ones), nms_keep_reference(chain, ones))
+    assert int(nms_keep(chain, ones).sum()) == 500
+
+
+def test_nms_fixed_on_the_card_equals_the_cpu(cuda):
+    from peanut_tpu_torch.models import boxes as tboxes
+    rng = np.random.RandomState(7)
+    xy = rng.rand(2, 1000, 2).astype(np.float32) * 700
+    wh = rng.rand(2, 1000, 2).astype(np.float32) * 200 + 2
+    b = np.concatenate([xy, xy + wh], -1)
+    s = np.round(rng.rand(2, 1000).astype(np.float32) * 16) / 16
+    s[:, -50:] = -np.inf
+    cls = rng.randint(0, 9, (2, 1000))
+    want = tboxes.batched_nms(*map(torch.as_tensor, (b, s, cls)), 0.5)
+    got = tboxes.batched_nms(*(torch.as_tensor(x, device=cuda)
+                               for x in (b, s, cls)), 0.5)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_runtime_ticks_on_the_card(cuda):

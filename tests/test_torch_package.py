@@ -40,6 +40,13 @@ def _modules():
 def test_import_pulls_in_neither_jax_nor_peanut_tpu():
     """Every submodule imports in a fresh interpreter without loading jax or
     any peanut_tpu module (a subprocess: conftest imports jax here)."""
+    assert {"peanut_tpu_torch.models.mask_rcnn",
+            "peanut_tpu_torch.models.roi_align",
+            "peanut_tpu_torch.models.d2_import",
+            "peanut_tpu_torch.kernels.roi_window",
+            "peanut_tpu_torch.kernels.nms",
+            "peanut_tpu_torch.perception.mask_rcnn_segmenter"} <= set(
+        _modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -85,6 +92,9 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     src[0, 0] = True
     with pytest.raises(RuntimeError, match="device='cpu'"):
         eikonal_distance(trav, src)
+    from peanut_tpu_torch.perception import MaskRCNNSegmenter
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MaskRCNNSegmenter(cfg, model=torch.nn.Module())
     rt = BatchedNavRuntime(cfg, 1, device="cpu")
     assert rt.state.local_maps.device.type == "cpu"
     d = eikonal_distance(trav, src, device="cpu")
@@ -98,7 +108,12 @@ def test_unported_configurations_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A8"):
         BatchedNavRuntime(NavConfig(**dataclasses.asdict(small_cfg())), 1,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    # use_gt_seg=0 is ported: without its checkpoint it raises, naming the
+    # path, instead of falling back to an empty segmenter
+    cfg = NavConfig(use_gt_seg=0, seg_model_wts="no/such/mask_rcnn.pth")
+    with pytest.raises(FileNotFoundError, match="no/such/mask_rcnn.pth"):
+        build_segmenter(cfg)
+    with pytest.raises(FileNotFoundError, match="seg_model_wts"):
         build_segmenter(NavConfig(use_gt_seg=0))
 
 
