@@ -41,15 +41,33 @@ Phases (each prints one JSON line):
                only_explore=1, switch_step=999, serve_bf16=True): steps/s,
                tick times, stages (detect included), peak memory and the
                launches of B1, B2, B3 and nms_keep in the measured ticks
-               (all > 0).
-Then the kernels line, the nvidia-smi line and, last, the result line.  Any
-failed phase exits non-zero without the result line.  Without a card, or
-without the repository beside this script, it fails.
+               (all > 0);
+  8. single_explore — the single-env agent through cli/collect_maps.main:
+               one episode of 100 steps on FakeNavEnv(size_m=14.0) with GT
+               semantics at the default geometry (240^2 local window, 242^2
+               planning solves): steps/s, per-step ms of each stage, the
+               local map's host round trip, and the launches of B2, B3, B4
+               and nms_keep in the episode (B2 and B4 > 0);
+  9. plan_check_2d — planner inputs recorded in phase 8 solved through the
+               kernels and through the plain versions: bit-equal fields and
+               the same short-term-goal decisions;
+ 10. single_nav — the single-env agent through cli/collect.main: one
+               50-step episode with Mask R-CNN and PSPNet loaded from
+               random-weight checkpoints that the script writes (480^2
+               local window, 482^2 planning and 960^2 goal-weighting
+               solves, PSPNet on the 720^2 crop): the same readings, and
+               B2, B3, B4 and nms_keep all launched.
+Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
+version at the single-env agent's shapes.  Then the kernels line, the
+nvidia-smi line and, last, the result line.  Any failed phase exits
+non-zero without the result line.  Without a card, or without the
+repository beside this script, it fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -185,14 +203,15 @@ class Patch:
         setattr(self.module, self.name, self.orig)
 
 
-def capture(module, name, calls):
-    """Records the arguments of every call of ``module.name`` in ``calls``:
-    for roi_window_pool in a detect, box stage square, x-, y-elongated,
-    then the mask stage the same; for nms_keep, the RPN, then the box
-    head."""
+def capture(module, name, calls, when=lambda: True):
+    """Records the arguments of every call of ``module.name`` made while
+    ``when()`` holds in ``calls``: for roi_window_pool in a detect, box
+    stage square, x-, y-elongated, then the mask stage the same; for
+    nms_keep, the RPN, then the box head."""
     def wrap(fn):
         def recorded(*a):
-            calls.append(a)
+            if when():
+                calls.append(a)
             return fn(*a)
         return recorded
     return Patch(module, name, wrap)
@@ -581,6 +600,258 @@ def mask_rcnn_phases(args, dev):
     return b3, nms, launches
 
 
+# ---------------------------------------------------------------------------
+# The single-env agent (kernel B4) through its CLIs
+
+EXPLORE_STEPS = 100
+NAV_STEPS = 50
+PLAN_CHECKS = 2      # recorded planner inputs held against the plain solve
+
+
+def drive_cli(module, argv, seed, counters, record=None):
+    """Run ``module.main(argv)`` on FakeNavEnv(size_m=14.0) with every
+    kernel count set to 0 just before and read just after.  Returns (agent,
+    per-step seconds, launches)."""
+    from peanut_tpu_torch.envs import FakeNavEnv
+
+    agents, step_s = [], []
+
+    def make_env(cfg, fake, env_seed=None):
+        return FakeNavEnv(cfg, size_m=14.0,
+                          seed=seed if env_seed is None else env_seed)
+
+    def timed_agent(cls):
+        def make(*a, **kw):
+            agent = cls(*a, **kw)
+            act = agent.act
+
+            def timed(obs):
+                t0 = time.perf_counter()
+                out = act(obs)
+                step_s.append(time.perf_counter() - t0)
+                return out
+            agent.act = timed
+            agents.append(agent)
+            return agent
+        return make
+
+    with contextlib.ExitStack() as stack:
+        for p in [Patch(module, "make_env", lambda _: make_env),
+                  Patch(module, "PeanutAgent", timed_agent)] + (record or []):
+            stack.enter_context(p)
+        for c in counters:
+            c.launches = 0
+        module.main(argv)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    return agents[0], step_s, launches
+
+
+def stage_report(agent, steps):
+    """Per-step ms of each StageTimer stage (total / steps) and its calls."""
+    return {k: {"ms_per_step": v["total_s"] / steps * 1e3,
+                "calls": v["count"], "mean_ms": v["mean_ms"]}
+            for k, v in agent.timer.summary().items()}
+
+
+def round_trip_ms(local_map, dev) -> float:
+    """The local window's trip to the card and back, as the agent makes it
+    every step (host timed, median of 10)."""
+    from peanut_tpu_torch import upload
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        upload(local_map[None], dev).cpu().numpy()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def single_reading(name, agent, step_s, launches, dev, extra):
+    st = agent.agent_state
+    steps = len(step_s)
+    out = {"phase": name, "steps": steps,
+           "steps_per_sec": steps / sum(step_s),
+           "step_ms_median": float(np.median(step_s)) * 1e3,
+           "first_step_ms": step_s[0] * 1e3,
+           "stage": stage_report(agent, steps),
+           "host_round_trip_ms": round_trip_ms(st.local_map, dev),
+           "local_map_bytes": st.local_map.nbytes,
+           "launches": launches,
+           "maps_finite": bool(np.isfinite(st.full_map).all()
+                               and np.isfinite(st.local_map).all()),
+           "explored_cells": int((st.local_map[1] > 0).sum()),
+           "peak_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    out.update(extra)
+    emit(out)
+    return out
+
+
+@torch.no_grad()
+def single_env_phases(args, dev):
+    """Phases 8-10; returns the launches of each single-env phase and
+    single_nav's checks of B3 and nms_keep at its own shapes."""
+    import tempfile
+
+    import peanut_tpu_torch.cli.collect as collect_cli
+    import peanut_tpu_torch.cli.collect_maps as maps_cli
+    import peanut_tpu_torch.models.boxes as boxes_mod
+    import peanut_tpu_torch.models.roi_align as roi_align_mod
+    from peanut_tpu_torch.kernels.fmm import (eikonal_distance,
+                                              masked_fill_unreachable)
+    from peanut_tpu_torch.kernels.fmm_fused import fused_eikonal
+    from peanut_tpu_torch.kernels.fmm_sweep import block_sweep, block_sweep2
+    from peanut_tpu_torch.kernels.nms import nms_keep
+    from peanut_tpu_torch.kernels.roi_window import roi_window_pool
+    from peanut_tpu_torch.models import MaskRCNN
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                 peanut_prediction_config)
+    from peanut_tpu_torch.planning import FMMPlanner
+
+    counters = (fused_eikonal, block_sweep, block_sweep2, roi_window_pool,
+                nms_keep)
+    common = ["--fake_env", "1", "--num_episodes", "1",
+              "--seed", str(args.seed)]
+
+    # ---- 8. single_explore: map collection -----------------------------
+    plans_seen = []
+
+    def record_goal(fn):
+        def wrapped(self, goal_map):
+            plans_seen.append({"trav": self.traversible.copy(),
+                               "goal": goal_map.copy()})
+            return fn(self, goal_map)
+        return wrapped
+
+    def record_stg(fn):
+        def wrapped(self, state):
+            out = fn(self, state)
+            plans_seen[-1].update(state=list(state), stg=out)
+            return out
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        n = str(EXPLORE_STEPS)
+        agent, step_s, explore = drive_cli(
+            maps_cli, common + ["--use_gt_seg", "1", "--max_episode_length",
+                                n, "--timestep_limit", n, "--out_dir", tmp],
+            args.seed, counters,
+            record=[Patch(FMMPlanner, "set_multi_goal", record_goal),
+                    Patch(FMMPlanner, "get_short_term_goal", record_stg)])
+        saved = [np.load(os.path.join(tmp, "val_80", f))["maps"]
+                 for f in sorted(os.listdir(os.path.join(tmp, "val_80")))]
+    reading = single_reading(
+        "single_explore", agent, step_s, explore, dev,
+        {"config": "cli/collect_maps.py: use_gt_seg=1 (only_explore=1, "
+                   "switch_step=999, global_downscaling=4 forced)",
+         "npz_saved": [[list(m.shape), str(m.dtype)] for m in saved]})
+    if (len(step_s) != EXPLORE_STEPS or not reading["maps_finite"]
+            or reading["explored_cells"] <= 0
+            or explore["block_sweep"] <= 0 or explore["block_sweep2"] <= 0
+            or len(saved) != 1 or saved[0].shape != (20, 14, 960, 960)
+            or saved[0].dtype != np.uint8):
+        fail(f"single_explore: steps, maps, npz or launches wrong: {reading}")
+
+    # ---- 9. plan_check_2d: recorded 242^2 planner inputs, kernels vs plain
+    done = [r for r in plans_seen if "state" in r]
+    checks = []
+    for rec in done[-PLAN_CHECKS:]:
+        fields, decisions = {}, {}
+        for plain in (False, True):
+            d = eikonal_distance(
+                torch.as_tensor(rec["trav"], device=dev),
+                torch.as_tensor(rec["goal"] == 1, device=dev),
+                n_iters=2, plain=plain)
+            fields[plain] = masked_fill_unreachable(d).cpu().numpy()
+            planner = FMMPlanner(rec["trav"], device=dev)
+            planner.fmm_dist = fields[plain]
+            decisions[plain] = planner.get_short_term_goal(rec["state"])
+        checks.append({
+            "shape": list(rec["trav"].shape),
+            "fields_bit_equal": bool(np.array_equal(fields[False],
+                                                    fields[True])),
+            "decisions_equal": decisions[False] == decisions[True]
+            == tuple(rec["stg"]),
+            "stg": [float(x) for x in decisions[False][:3]]})
+    emit({"phase": "plan_check_2d", "recorded": len(done), "checks": checks})
+    if len(checks) != PLAN_CHECKS or not all(
+            c["fields_bit_equal"] and c["decisions_equal"] for c in checks):
+        fail("plan_check_2d: the kernel solve differs from the plain solve")
+    del plans_seen, done
+
+    # ---- 10. single_nav: Mask R-CNN + PSPNet from checkpoints ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "mask_rcnn_R_101_cat9.pth")
+        pred_path = os.path.join(tmp, "pred_model_wts.pth")
+        torch.save({"model": MaskRCNN(num_classes=9, depth=101,
+                                      seed=args.seed).state_dict()},
+                   seg_path)
+        torch.save({"state_dict": build_segmentor(
+            peanut_prediction_config(), seed=args.seed).state_dict(),
+            "meta": {}}, pred_path)
+        n = str(NAV_STEPS)
+        # the first detect's B3 and NMS calls (batch 1, float32), held
+        # against the plain versions after the run
+        detects, pool_calls, nms_calls = [], [], []
+
+        def count_detect(fn):
+            def wrapped(self, imgs):
+                detects.append(imgs.shape[0])
+                return fn(self, imgs)
+            return wrapped
+
+        def first_detect():
+            return len(detects) == 1
+
+        torch.cuda.reset_peak_memory_stats()
+        agent, step_s, nav = drive_cli(
+            collect_cli, common + ["--max_episode_length", n,
+                                   "--timestep_limit", n,
+                                   "--seg_model_wts", seg_path,
+                                   "--pred_model_wts", pred_path],
+            args.seed, counters,
+            record=[Patch(MaskRCNN, "detect_batch", count_detect),
+                    capture(roi_align_mod, "roi_window_pool", pool_calls,
+                            when=first_detect),
+                    capture(boxes_mod, "nms_keep", nms_calls,
+                            when=first_detect)])
+    nav_checks = {
+        "roi_window_pool": {f"single_nav_{i}": check_pool(c, timed=False)
+                            for i, c in enumerate(pool_calls)},
+        "nms_keep": {name: check_nms(c, timed=False)
+                     for name, c in zip(("single_nav_rpn", "single_nav_box"),
+                                        nms_calls)}}
+    del pool_calls
+    emit({"phase": "single_nav_kernel_checks", "detect_batch": detects[0],
+          **nav_checks})
+    if (not nav_checks["roi_window_pool"] or len(nms_calls) != 2
+            or not all(c["ok"] for c in
+                       nav_checks["roi_window_pool"].values())
+            or not all(c["equal"] for c in nav_checks["nms_keep"].values())):
+        fail("single_nav: roi_window_pool or nms_keep disagrees with its "
+             "plain version at the single-env shapes, or was not captured")
+    del nms_calls
+    st = agent.agent_state
+    pred_ok = bool(st.target_pred is not None
+                   and st.target_pred.shape == st.local_map.shape[1:]
+                   and np.isfinite(st.target_pred).all()
+                   and np.isfinite(st.value).all())
+    reading = single_reading(
+        "single_nav", agent, step_s, nav, dev,
+        {"config": "cli/collect.py single-env, NavConfig defaults "
+                   "(use_gt_seg=0, only_explore=0 forced), random-weight "
+                   "checkpoints",
+         "prediction_finite": pred_ok,
+         "semantic_cells": int((st.full_map[4:] > 0).sum())})
+    if (len(step_s) != NAV_STEPS or not reading["maps_finite"] or not pred_ok
+            or min(nav[k] for k in ("block_sweep", "block_sweep2",
+                                    "roi_window_pool", "nms_keep")) <= 0
+            or "goal_solve" not in reading["stage"]):
+        fail(f"single_nav: steps, maps, prediction or launches wrong: "
+             f"{reading}")
+    return explore, nav, nav_checks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -597,11 +868,14 @@ def main() -> int:
     from peanut_tpu_torch.envs import FakeNavEnv
     from peanut_tpu_torch.envs.batch_runner import BatchRunner
     from peanut_tpu_torch.kernels import _build
-    from peanut_tpu_torch.kernels.fmm import BIG, eikonal_distance
+    from peanut_tpu_torch.kernels.fmm import (BIG, _axis_relax,
+                                              eikonal_distance)
     from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                     fused_eikonal_reference)
-    from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep2,
-                                                    block_sweep2_reference)
+    from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
+                                                    block_sweep2,
+                                                    block_sweep2_reference,
+                                                    block_sweep_reference)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -623,7 +897,8 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
     try:
-        for stem in ("fmm_fused", "fmm_sweep2", "roi_window", "nms_greedy"):
+        for stem in ("fmm_fused", "fmm_sweep", "fmm_sweep2", "roi_window",
+                     "nms_greedy"):
             _build.library(stem)
     except RuntimeError as e:
         fail(f"kernel build failed: {e}")
@@ -633,8 +908,14 @@ def main() -> int:
             fmm_fused._lib().fused_eikonal_smem_bytes(482, 482, 16),
         "fused_eikonal_480_block8":
             fmm_fused._lib().fused_eikonal_smem_bytes(480, 480, 8),
+        "block_sweep_482_block16":
+            fmm_sweep._lib1().block_sweep_smem_bytes(482, 16),
+        "block_sweep_960_block16":
+            fmm_sweep._lib1().block_sweep_smem_bytes(960, 16),
         "block_sweep2_482_block16":
-            fmm_sweep._lib().block_sweep2_smem_bytes(482, 16),
+            fmm_sweep._lib2().block_sweep2_smem_bytes(482, 16),
+        "block_sweep2_960_block16":
+            fmm_sweep._lib2().block_sweep2_smem_bytes(960, 16),
         "roi_window_bf16_p7_26x274":
             roi_window._lib().roi_window_smem_bytes(1, 7, 26, 274),
         "roi_window_f32_p14_26x274":
@@ -686,14 +967,22 @@ def main() -> int:
               **results[f"B1_{case}"]})
 
     # B2: both directions on the planning shape, from the refinement's
-    # from-scratch start and from a forward-swept field
+    # from-scratch start and from a forward-swept field; the single-env
+    # goal-weighting solve's 1 x 960^2
     b, n = 16, 482
     trav_np, src_np = plans(rng, b, n)
     src = torch.as_tensor(src_np, device=dev)
     wall = torch.as_tensor(~trav_np & ~src_np, device=dev)
     d0 = torch.where(src, 0.0, BIG).float()
     d1 = block_sweep2_reference(d0, wall, src, False)
-    for reverse, d_in in ((False, d0), (True, d1)):
+    trav_np, src_np = plans(rng, 1, 960)
+    src960 = torch.as_tensor(src_np, device=dev)
+    wall960 = torch.as_tensor(~trav_np & ~src_np, device=dev)
+    for key, reverse, d_in, wall, src in (
+            ("B2_down_16x482", False, d0, wall, src),
+            ("B2_up_16x482", True, d1, wall, src),
+            ("B2_down_1x960", False, torch.where(src960, 0.0, BIG).float(),
+             wall960, src960)):
         got = block_sweep2(d_in, wall, src, reverse)
         want = block_sweep2_reference(d_in, wall, src, reverse)
         torch.cuda.synchronize()
@@ -701,14 +990,46 @@ def main() -> int:
         ms = cuda_ms(lambda: block_sweep2(d_in, wall, src, reverse), reps=10)
         plain_ms = cuda_ms(
             lambda: block_sweep2_reference(d_in, wall, src, reverse), reps=1)
-        cells = b * n * n
+        cells = d_in.numel()
         bound_ms, bound_by = bound(cells, 4 + 1 + 1 + 4,
                                    cells * 40 * GODUNOV2_OPS)
-        key = "B2_" + ("up" if reverse else "down") + "_16x482"
         results[key] = dict(cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
         ok &= cmp["ok"]
         emit({"phase": "kernel", "kernel": f"block_sweep2/{key}",
+              **results[key]})
+
+    # B4: the first-order sweeps of the single-env agent's composed solves
+    # (the 482^2 planning solve in both directions, the 960^2 goal-weighting
+    # solve) and a batch of 16 planning grids (the composed schedule on the
+    # batched tick's shape), from the field the composed schedule hands
+    # them (row scans and a Jacobi pass applied); bit-equal required
+    for key, b, n, reverse in (("B4_down_1x482", 1, 482, False),
+                               ("B4_up_1x482", 1, 482, True),
+                               ("B4_down_1x960", 1, 960, False),
+                               ("B4_composed_16x482", 16, 482, False)):
+        trav_np, src_np = plans(rng, b, n)
+        src = torch.as_tensor(src_np, device=dev)
+        wall = torch.as_tensor(~trav_np & ~src_np, device=dev)
+        d_in = _axis_relax(torch.where(src, 0.0, BIG).float(), wall)
+        if reverse:
+            d_in = block_sweep_reference(d_in, wall, False)
+        got = block_sweep(d_in, wall, reverse)
+        want = block_sweep_reference(d_in, wall, reverse)
+        torch.cuda.synchronize()
+        cmp = dict(compare(got, want, TOL),
+                   bit_equal=bool(torch.equal(got, want)))
+        ms = cuda_ms(lambda: block_sweep(d_in, wall, reverse), reps=10)
+        plain_ms = cuda_ms(
+            lambda: block_sweep_reference(d_in, wall, reverse), reps=1)
+        cells = b * n * n
+        # inner stencil passes and 2 x inner/scan_chunk row scans (chunk 1)
+        bound_ms, bound_by = bound(cells, 4 + 1 + 4, cells * 40 * (
+            GODUNOV1_OPS + 2 * SCAN_OPS))
+        results[key] = dict(cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        ok &= cmp["ok"] and cmp["bit_equal"]
+        emit({"phase": "kernel", "kernel": f"block_sweep/{key}",
               **results[key]})
     if not ok:
         fail("a kernel disagrees with its plain version")
@@ -827,6 +1148,10 @@ def main() -> int:
     launches_seg = {"fused_eikonal": seg_launches["fused_eikonal"],
                     "block_sweep2": seg_launches["block_sweep2"]}
 
+    # ---- 8-10. the single-env agent: B4 on its main path ----------------
+    explore, nav, nav_checks = single_env_phases(args, dev)
+    single = {"single_explore": explore, "single_nav": nav}
+
     kernels = []
     for name_, src_file, replaces, keys, count_key in (
             ("fused_eikonal", "peanut_tpu_torch/kernels/csrc/fmm_fused.cu",
@@ -834,13 +1159,16 @@ def main() -> int:
              ("B1_blanket_16x482", "B1_vscan_8x480"), "fused_eikonal"),
             ("block_sweep2", "peanut_tpu_torch/kernels/csrc/fmm_sweep2.cu",
              "peanut_tpu/kernels/fmm_pallas.py:298",
-             ("B2_down_16x482", "B2_up_16x482"), "block_sweep2")):
+             ("B2_down_16x482", "B2_up_16x482", "B2_down_1x960"),
+             "block_sweep2")):
         main_case = results[keys[0]]
+        by_path = {"slice": launches[count_key],
+                   "slice_seg": launches_seg[count_key]}
+        by_path.update({k: v[count_key] for k, v in single.items()})
         kernels.append({
             "name": name_, "route": "cuda", "source": src_file,
             "replaces": replaces, "launches": launches_seg[count_key],
-            "launches_by_path": {"slice": launches[count_key],
-                                 "slice_seg": launches_seg[count_key]},
+            "launches_by_path": by_path,
             "max_abs_err": max(results[k]["max_abs_err"] for k in keys),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
@@ -848,19 +1176,39 @@ def main() -> int:
             "cases": {k: {kk: results[k][kk] for kk in
                           ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                       for k in keys}})
+    keys = ("B4_down_1x482", "B4_up_1x482", "B4_down_1x960",
+            "B4_composed_16x482")
+    main_case = results[keys[0]]
+    kernels.append({
+        "name": "block_sweep", "route": "cuda",
+        "source": "peanut_tpu_torch/kernels/csrc/fmm_sweep.cu",
+        "replaces": "peanut_tpu/kernels/fmm_pallas.py:159",
+        "launches": nav["block_sweep"],
+        "launches_by_path": {k: v["block_sweep"] for k, v in single.items()},
+        "max_abs_err": max(results[k]["max_abs_err"] for k in keys),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None,
+        "cases": {k: {kk: results[k][kk] for kk in
+                      ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                       "bit_equal")} for k in keys}})
     main_case = b3["square_p7_n8000"]
     kernels.append({
         "name": "roi_window_pool", "route": "cuda",
         "source": "peanut_tpu_torch/kernels/csrc/roi_window.cu",
         "replaces": "peanut_tpu/kernels/roi_window.py:183",
         "launches": seg_launches["roi_window_pool"],
-        "launches_by_path": {"slice_seg": seg_launches["roi_window_pool"]},
-        "max_abs_err": max(c["max_abs_err"] for c in b3.values()),
+        "launches_by_path": {"slice_seg": seg_launches["roi_window_pool"],
+                             **{k: v["roi_window_pool"]
+                                for k, v in single.items()}},
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           [*b3.values(),
+                            *nav_checks["roi_window_pool"].values()]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "library": "window gather + two torch.bmm",
-        "cases": b3})
+        "cases": {**b3, **nav_checks["roi_window_pool"]}})
     main_case = nms["rpn_40x1000"]
     kernels.append({
         "name": "nms_keep", "route": "cuda",
@@ -868,11 +1216,13 @@ def main() -> int:
         "replaces": "peanut_tpu/models/boxes.py:117",
         "replaces_note": "the lax.while_loop of nms_fixed; no pallas_call",
         "launches": seg_launches["nms_keep"],
-        "launches_by_path": {"slice_seg": seg_launches["nms_keep"]},
-        "max_abs_err": max(c["max_abs_err"] for c in nms.values()),
+        "launches_by_path": {"slice_seg": seg_launches["nms_keep"],
+                             **{k: v["nms_keep"] for k, v in single.items()}},
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           [*nms.values(), *nav_checks["nms_keep"].values()]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": None, "cases": nms})
+        "library_ms": None, "cases": {**nms, **nav_checks["nms_keep"]}})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",

@@ -7,13 +7,18 @@ a CUDA C++ kernel built for ``sm_90a`` at first use (``kernels/csrc``).
 
 Layering (bottom-up), as in the JAX package:
   geometry/   camera + pose math
-  kernels/    splat, grid-sample warp, morphology (torch built-ins) and the
-              eikonal solver, whose two TPU kernels are CUDA kernels here
+  kernels/    splat, grid-sample warp, morphology (torch built-ins), the
+              eikonal solver, whose three TPU kernels are CUDA kernels
+              here, ROIAlign window pooling and NMS (CUDA kernels)
+  models/     Mask R-CNN R101-FPN and PSPNet-R50-v1c
   mapping/    per-step semantic map update
-  perception/ depth preprocessing + ground-truth segmenters
+  perception/ depth preprocessing, ground-truth and Mask R-CNN segmenters
+  prediction/ the target-prediction model
   planning/   FMM planner host code, untrap state machine
-  agent/      batched ops + the batched parallel-episode runtime
+  agent/      the single-env agent; batched ops + the batched
+              parallel-episode runtime
   envs/       synthetic environments + the batch runner
+  cli/        collect, collect_maps, eval
 
 Device rule: entry points take ``device=``; left unset they run on ``cuda``
 and raise when there is no card.  Nothing moves to the CPU by itself.

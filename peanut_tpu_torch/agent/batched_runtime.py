@@ -23,9 +23,10 @@ This slice runs the explore-only configuration with ground-truth
 semantics or with Mask R-CNN (``use_gt_seg=0``): then ``stage_obs`` uploads
 each frame's uint8 RGB as soon as its env has stepped and launches a detect
 chunk once ``seg_batch_chunk`` frames are staged, and the tick takes the
-segmenter's device semantic stack without a host round trip.  Target
-prediction (``only_explore=0``, ROADMAP A8), ``pred_async`` and mesh
-sharding (A14) are not ported.
+segmenter's device semantic stack without a host round trip.  The
+prediction hook (``only_explore=0``: ``pred_goal_update``, ``pred_program``,
+``pred_async``; ROADMAP A8b) and mesh sharding (A14) are not ported; the
+models it would run are (``prediction.PredictionModel``).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ N_COL_PTS = 8
 # host_pack layout (one f32 upload for all per-tick scalars):
 #   [0:3] pose (pre-rebase, mapper frame) | [3:7] lmb_old
 #   [7:11] lmb_new | [11] goal_cat | [12] no_erode | [13] is_toilet
-#   [14] prediction trigger (0 until A8) | [15:17] preset_cells
+#   [14] prediction trigger (0 until A8b) | [15:17] preset_cells
 #   [17] preset_override
 #   [18] erode_first | [19:21] planner start cells | [21:23] agent cell in
 #   the new window | [23:231] line_pts (104 x 2) | [231:335] line_valid
@@ -137,8 +138,9 @@ class BatchedNavRuntime:
         the card unless ``"cpu"``)."""
         if cfg.only_explore == 0:
             raise NotImplementedError(
-                "only_explore=0 needs target prediction (PSPNet, "
-                "pred_goal_update), not ported yet (ROADMAP A8)")
+                "only_explore=0 needs the batched runtime's prediction hook "
+                "(pred_goal_update, pred_program), not ported yet "
+                "(ROADMAP A8b)")
         self.cfg = cfg
         self.n = num_envs
         self.device = resolve_device(device)

@@ -1,13 +1,14 @@
 """Builds the CUDA kernels in ``csrc/`` at first use and loads them.
 
 Each ``csrc/*.cu`` has a plain C interface and compiles on its own with
-``nvcc`` for ``sm_90a`` into a shared library, loaded with ctypes.  All
+``nvcc`` for ``sm_90a`` into a shared library, loaded with ctypes; the
+``csrc/*.cuh`` headers hold device code that several sources share.  All
 sources build together (one ``nvcc`` process each, started at once) the
 first time any kernel is asked for.  Builds go to ``build/peanut_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``), in a directory keyed
-on a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  There is no fallback: a missing ``nvcc`` or a
-failed build raises.
+on a hash of the sources, headers and flags, so an edited source or header
+rebuilds and an unchanged tree is reused.  There is no fallback: a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -47,8 +48,10 @@ def _sources():
 
 
 def build_dir() -> Path:
+    """Keyed on the flags and every source and header: a source includes
+    the headers beside it, so an edited header rebuilds them all."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

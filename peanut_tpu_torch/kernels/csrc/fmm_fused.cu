@@ -41,38 +41,13 @@
 // each with inner dependent passes behind a block-wide barrier, on 16 of
 // 132 SMs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fmm_common.cuh"
 
 namespace {
 
 constexpr int NT = 512;          // threads per block
 constexpr int K_MAX = 32;        // cells per thread in a column-scan step
 constexpr int VSCAN_COLS = 16;   // columns per column-scan chunk
-// float32 BIG = 1e10 and 0.5 * BIG (fmm.py::BIG)
-constexpr float BIG = 0x1.2a05f2p+33f;
-constexpr float HALF_BIG = 0x1.2a05f2p+32f;
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-
-// float32 a * b + c rounded once: the FMA that XLA's CPU backend contracts
-// and the plain version reproduces through float64 (fmm.py::_fma).  The
-// two agree unless the float64 sum is inexact and lands exactly on a
-// float32 rounding midpoint, which the neighbouring-magnitude operands of
-// these updates do not produce (the kernels check out bit-equal to the
-// plain versions).  A hardware FMA, where float64 costs 5 instructions.
-__device__ __forceinline__ float fma1(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-
-__device__ __forceinline__ float godunov(float a, float b) {
-  float diff = a - b;
-  float direct = fminf(a, b) + 1.0f;
-  float disc = sqrtf(fmaxf(fma1(-diff, diff, 2.0f), 0.0f));
-  float both = 0.5f * ((a + b) + disc);
-  return fabsf(diff) >= 1.0f ? direct : both;
-}
 
 // Hillis-Steele segmented min-plus scan over `n` cells laid out as lines of
 // `len` cells with stride `step` between consecutive cells of a line
@@ -107,129 +82,6 @@ __device__ void hs_scan(float* sa, float* sb, int n, int len, int step,
     }
     __syncthreads();
   }
-}
-
-// One forward (reverse) Hillis-Steele step of shift S over a row held in
-// registers by one warp: lane l owns cells c = l + 32 k, k < KW.  Cells
-// before the start (after the end, or past W) are (0, BIG).  Shifts below
-// 32 read other lanes through shuffles, larger ones other registers of the
-// same lane.  The arithmetic is the plain version's (fmm.py::_RowScan).
-template <int KW, int S, bool REVERSE>
-__device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
-                                        int lane) {
-  if constexpr (S < 32) {
-    const unsigned full = 0xffffffffu;
-    const int src = REVERSE ? (lane + S) & 31 : (lane - S) & 31;
-    const bool same_k = REVERSE ? lane + S < 32 : lane >= S;
-    float sa[KW], sb[KW];
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      sa[k] = __shfl_sync(full, a[k], src);
-      sb[k] = __shfl_sync(full, b[k], src);
-    }
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int kn = REVERSE ? k + 1 : k - 1;   // the other lane's register
-      const bool kn_ok = REVERSE ? kn < KW : kn >= 0;
-      float a_n = same_k ? sa[k] : (kn_ok ? sa[REVERSE ? (k + 1) % KW
-                                                        : (k + KW - 1) % KW]
-                                          : 0.0f);
-      float b_n = same_k ? sb[k] : (kn_ok ? sb[REVERSE ? (k + 1) % KW
-                                                        : (k + KW - 1) % KW]
-                                          : BIG);
-      b[k] = fminf(b[k], b_n + a[k]);
-      a[k] = fminf(a_n + a[k], BIG);
-    }
-  } else {
-    constexpr int M = S / 32;
-    // update in the order that reads every neighbour before it changes
-#pragma unroll
-    for (int i = 0; i < KW; ++i) {
-      const int k = REVERSE ? i : KW - 1 - i;
-      const int kn = REVERSE ? k + M : k - M;
-      const bool ok = REVERSE ? kn < KW : kn >= 0;
-      float a_n = ok ? a[ok ? kn : 0] : 0.0f;
-      float b_n = ok ? b[ok ? kn : 0] : BIG;
-      b[k] = fminf(b[k], b_n + a[k]);
-      a[k] = fminf(a_n + a[k], BIG);
-    }
-  }
-}
-
-template <int KW, bool REVERSE>
-__device__ __forceinline__ void hs_row(float (&a)[KW], float (&b)[KW],
-                                       int lane) {
-  hs_step<KW, 1, REVERSE>(a, b, lane);
-  hs_step<KW, 2, REVERSE>(a, b, lane);
-  hs_step<KW, 4, REVERSE>(a, b, lane);
-  hs_step<KW, 8, REVERSE>(a, b, lane);
-  hs_step<KW, 16, REVERSE>(a, b, lane);
-  hs_step<KW, 32, REVERSE>(a, b, lane);
-  hs_step<KW, 64, REVERSE>(a, b, lane);
-  hs_step<KW, 128, REVERSE>(a, b, lane);
-  hs_step<KW, 256, REVERSE>(a, b, lane);
-  if constexpr (KW > 16) hs_step<KW, 512, REVERSE>(a, b, lane);
-}
-
-// Both row scans of one row, in place on `row`, by one warp, in registers
-// (W <= 32 * KW).  Steps with shifts >= W change nothing, so running all
-// log2(32 * KW) of them equals the plain version's `while s < n` loop.
-template <int KW>
-__device__ void warp_row_scans(float* row, const uint8_t* wrow, int W) {
-  const int lane = threadIdx.x & 31;
-  for (int dir = 0; dir < 2; ++dir) {
-    float a[KW], b[KW];
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int c = lane + 32 * k;
-      const bool real = c < W;
-      const bool w = real && wrow[c];
-      a[k] = real ? (w ? BIG : 1.0f) : 0.0f;
-      b[k] = real ? (w ? BIG : row[c]) : BIG;
-    }
-    if (dir == 0)
-      hs_row<KW, false>(a, b, lane);
-    else
-      hs_row<KW, true>(a, b, lane);
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int c = lane + 32 * k;
-      if (c < W) row[c] = fminf(row[c], b[k]);
-    }
-    __syncwarp();
-  }
-}
-
-// Relax one block (R rows) against boundary rows top/bottom; returns the
-// buffer that holds the result (cur or nxt).
-template <int KW>
-__device__ float* relax_block(float* cur, float* nxt,
-                              const uint8_t* wl, const float* top,
-                              const float* bottom, int R, int W, int inner,
-                              int scan_chunk) {
-  for (int it = 0; it < inner / scan_chunk; ++it) {
-    // a warp per row
-    for (int r = threadIdx.x / 32; r < R; r += NT / 32)
-      warp_row_scans<KW>(cur + (size_t)r * W, wl + (size_t)r * W, W);
-    __syncthreads();
-    for (int p = 0; p < scan_chunk; ++p) {
-      // a thread per column, down the block's rows
-      for (int c = threadIdx.x; c < W; c += NT) {
-        for (int r = 0; r < R; ++r) {
-          int e = r * W + c;
-          float up = r > 0 ? cur[e - W] : top[c];
-          float down = r < R - 1 ? cur[e + W] : bottom[c];
-          float left = c > 0 ? cur[e - 1] : BIG;
-          float right = c < W - 1 ? cur[e + 1] : BIG;
-          float cand = godunov(fminf(up, down), fminf(left, right));
-          nxt[e] = wl[e] ? BIG : fminf(cur[e], cand);
-        }
-      }
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
-  }
-  return cur;
 }
 
 template <int KW>
@@ -305,8 +157,8 @@ fused_eikonal_kernel(const uint8_t* __restrict__ trav,
             rowA[c] = k > 0 ? D[(size_t)(r0 - 1) * W + c] : BIG;
         }
         __syncthreads();
-        float* res = relax_block<KW>(cur, nxt, wl, rowA, rowB, R, W, inner,
-                                     scan_chunk);
+        float* res = relax_block<NT, KW>(cur, nxt, wl, rowA, rowB, R, W,
+                                         inner, scan_chunk);
         float* blk_out = D + (size_t)r0 * W;
         for (int e = threadIdx.x; e < n; e += NT) blk_out[e] = res[e];
         const float* edge = up_pass ? res : res + (size_t)(R - 1) * W;

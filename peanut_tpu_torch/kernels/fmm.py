@@ -20,11 +20,15 @@ Two schedules, as in the JAX package (``_eikonal_impl(fused=...)``):
     ``fmm_fused.fused_eikonal`` (down/up passes, no transposed sweeps) — the
     JAX package's TPU path, and the port's default for a 3-D CUDA tensor.
 
-Both run the order-2 refinement through ``fmm_sweep.block_sweep2``.  On a
-CUDA tensor every sweep is a hand-written kernel (``plain=True`` runs the
-plain PyTorch versions there instead); the composed first-order sweep and
-2-D inputs need the first-order sweep kernel, which is not ported yet
-(ROADMAP B4), so on CUDA they raise.  On the CPU the plain versions run.
+Both run the order-2 refinement as directed sweeps through
+``fmm_sweep.v_sweep2``, and the composed schedule its first-order sweeps
+through ``fmm_sweep.v_sweep``: these pick the hand-written kernel for a
+CUDA tensor (one ``block_sweep2`` / ``block_sweep`` launch a sweep) and the
+plain version for a CPU tensor; ``plain=True`` runs the plain PyTorch
+versions on CUDA too.  The composed schedule's row scans and Jacobi passes
+between sweeps are plain tensor ops, as they are XLA in the JAX package.  A
+2-D grid runs as a batch of one and a >3-D grid flattens to (B, H, W), as
+the JAX package's ``_sweep``/``_sweep2`` do.
 
 Semantics mirror skfmm on a masked array: walls (non-traversible, non-source
 cells) and unreachable cells come back +inf; ``masked_fill_unreachable``
@@ -350,6 +354,19 @@ def _swap(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2).contiguous()
 
 
+def _as_batch(kernel):
+    """``kernel``, which takes (B, H, W) grids, for grids of any rank >= 2:
+    a 2-D grid runs as a batch of one, a >3-D grid flattened (the tensor
+    arguments; the others pass through)."""
+    def run(d, *args, **kw):
+        def flat(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            return x.reshape((-1,) + tuple(x.shape[-2:]))
+        return kernel(flat(d), *map(flat, args), **kw).reshape(d.shape)
+    return run
+
+
 def eikonal_distance(traversible, sources, n_iters: int = 2, block: int = 16,
                      inner: int = 40, order: int = 2, n_iters2: int = 2,
                      scan_chunk: int = 1, schedule: str | None = None,
@@ -386,11 +403,6 @@ def eikonal_distance(traversible, sources, n_iters: int = 2, block: int = 16,
     if schedule not in ("fused", "composed"):
         raise ValueError(f"unknown schedule {schedule!r}")
     kernels = cuda and not plain
-    if kernels and (schedule == "composed" or trav.ndim != 3):
-        raise NotImplementedError(
-            "on CUDA the composed schedule and 2-D / >3-D grids need the "
-            "first-order block-sweep kernel (ROADMAP B4, not ported yet); "
-            "pass a (B, H, W) grid with schedule='fused'")
 
     if schedule == "fused":
         from .fmm_fused import fused_eikonal, fused_eikonal_reference
@@ -410,33 +422,37 @@ def eikonal_distance(traversible, sources, n_iters: int = 2, block: int = 16,
                         scan_chunk=f_chunk, vscan=f_vscan)
         d = torch.where(torch.isinf(d), BIG, d)
     else:
+        from .fmm_sweep import block_sweep_reference, v_sweep
+
+        sweep = block_sweep_reference if plain else _as_batch(v_sweep)
+        kw = dict(block=block, inner=inner, scan_chunk=scan_chunk)
         d = torch.where(src, 0.0, BIG).float()
         for _ in range(n_iters):
             d = _axis_relax(d, wall)
-            d = _v_sweep(d, wall, False, block, inner, scan_chunk)
-            d = _v_sweep(d, wall, True, block, inner, scan_chunk)
+            d = sweep(d, wall, False, **kw)
+            d = sweep(d, wall, True, **kw)
             dt, wt = d.transpose(-1, -2), wall.transpose(-1, -2)
             dt = _axis_relax(dt, wt)
-            dt = _v_sweep(dt, wt, False, block, inner, scan_chunk)
-            dt = _v_sweep(dt, wt, True, block, inner, scan_chunk)
+            dt = sweep(dt, wt, False, **kw)
+            dt = sweep(dt, wt, True, **kw)
             d = dt.transpose(-1, -2)
 
     if order >= 2:
         # Refine FROM SCRATCH (sources only) and min-combine: the order-2
         # stencil must not see the first-order field's overestimated
         # 2-away neighbours (fmm.py:464-470).
-        from .fmm_sweep import block_sweep2, block_sweep2_reference
+        from .fmm_sweep import block_sweep2_reference, v_sweep2
 
-        v_sweep2 = block_sweep2 if kernels else block_sweep2_reference
+        sweep2 = block_sweep2_reference if plain else _as_batch(v_sweep2)
 
         wt, st = _swap(wall), _swap(src)
         d2 = torch.where(src, 0.0, BIG).float()
         for _ in range(n_iters2):
-            d2 = v_sweep2(d2, wall, src, False, block=block, inner=inner)
-            d2 = v_sweep2(d2, wall, src, True, block=block, inner=inner)
+            d2 = sweep2(d2, wall, src, False, block=block, inner=inner)
+            d2 = sweep2(d2, wall, src, True, block=block, inner=inner)
             dt = _swap(d2)
-            dt = v_sweep2(dt, wt, st, False, block=block, inner=inner)
-            dt = v_sweep2(dt, wt, st, True, block=block, inner=inner)
+            dt = sweep2(dt, wt, st, False, block=block, inner=inner)
+            dt = sweep2(dt, wt, st, True, block=block, inner=inner)
             d2 = _swap(dt)
         d = torch.minimum(d, d2)
 

@@ -1,10 +1,12 @@
-"""Building-block layers (NCHW) with detectron2's module layout (port of
-``peanut_tpu.models.layers``).
+"""Building-block layers (NCHW) with detectron2's and mmcv's module layouts
+(port of ``peanut_tpu.models.layers``).
 
 ``Conv2d`` carries its normalisation as a ``norm`` submodule, as detectron2's
 wrapper does, so a d2 state dict (``...conv1.weight``, ``...conv1.norm.*``)
-loads through ``load_state_dict``.  ``BatchNorm`` is the frozen batch norm
-of inference: eps 1e-5, weight, bias and running statistics as buffers.
+loads through ``load_state_dict``; ``ConvModule`` is mmcv's conv + BN + ReLU
+unit (``...conv.weight``, ``...bn.*``) for the mmseg models.  ``BatchNorm``
+is the frozen batch norm of inference: eps 1e-5, weight, bias and running
+statistics as buffers.
 """
 
 from __future__ import annotations
@@ -72,3 +74,37 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     with torch.no_grad():
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+class ConvModule(nn.Module):
+    """mmcv's conv -> BN -> ReLU unit with its parameter names (``conv``,
+    ``bn``), so an mmseg state dict loads through ``load_state_dict``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              stride=stride, padding=padding,
+                              dilation=dilation, bias=False)
+        self.bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x)))
+
+
+@torch.no_grad()
+def init_flax_random(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialisers in place: lecun-normal conv kernels,
+    zero biases, unit batch norm (weight 1, bias 0, mean 0, variance 1)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, nn.Conv2d):
+            w = m.weight
+            fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            w.copy_(lecun_normal_(torch.empty(w.shape), fan_in, generator))
+            if m.bias is not None:
+                m.bias.zero_()

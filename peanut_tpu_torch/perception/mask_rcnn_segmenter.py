@@ -9,13 +9,17 @@ frames, then each detection's 28x28 mask pasted at the mapper's strided
 pixel centres and accumulated per class behind the confidence gates of
 PEANUT's segmentation.py:47-61 (``sem_pred_prob_thr``, ``goal_thr``).
 
-The host paths of the JAX package (``__call__``, ``batch``, cv2 pasting)
-serve the single-env agent and are not ported here (ROADMAP A11).
+The single-env agent's host API, ``__call__`` and ``batch``, returns what the
+JAX package's does, (H, W, n_sem) float32 stacks at the env frame's full
+resolution, computed through the same preprocessing, detect and device
+paste (every env pixel's centre instead of the strided ones) and brought
+back to the host.  The JAX package pastes those with cv2, which differs
+from the device paste only at the 0.5-tie pixels (PARITY.md delta 5); the
+card has no cv2.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device, upload
 from ..config import NavConfig
+from ..models.checkpoint import load_torch_state_dict
 from ..models.mask_rcnn import MaskRCNN, PIXEL_MEAN_BGR, load_d2_state
 from ..models.ops import resize_bilinear
 
@@ -42,25 +47,6 @@ def pad_to_multiple(h: int, w: int, div: int = 32) -> Tuple[int, int]:
     return -(-h // div) * div, -(-w // div) * div
 
 
-def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """A detectron2 checkpoint (bare, or under ``model``/``state_dict``) as
-    {name: numpy array}.  The file is the configured model checkpoint, a
-    trusted input, read as the JAX package reads it."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"Mask R-CNN weights not found at {path!r} (cfg.seg_model_wts); "
-            "put the checkpoint there or pass state_dict= or model=")
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(obj, dict):
-        if "state_dict" in obj:
-            obj = obj["state_dict"]
-        elif "model" in obj and isinstance(obj["model"], dict):
-            obj = obj["model"]
-    return {k[len("module."):] if k.startswith("module.") else k:
-            np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v)
-            for k, v in obj.items() if hasattr(v, "shape")}
-
-
 class MaskRCNNSegmenter:
     def __init__(self, cfg: NavConfig, state_dict=None,
                  model: Optional[MaskRCNN] = None, device=None):
@@ -74,7 +60,8 @@ class MaskRCNNSegmenter:
         self.n_cats = cfg.num_sem_categories - 1
         if model is None:
             if state_dict is None:
-                state_dict = load_torch_state_dict(cfg.seg_model_wts)
+                state_dict = load_torch_state_dict(
+                    cfg.seg_model_wts, "Mask R-CNN", "seg_model_wts")
             model = load_d2_state(MaskRCNN(num_classes=self.n_cats),
                                   state_dict)
         self.device = resolve_device(device)
@@ -107,17 +94,23 @@ class MaskRCNNSegmenter:
         Tests swap in a synthetic head here and keep the rest live."""
         return self.model.detect_batch(imgs)
 
-    def paste(self, boxes, scores, classes, masks,
-              goal_cats: torch.Tensor) -> torch.Tensor:
-        """Gate and paste (B, nd) detections into (B, n_cats, fh, fw).
+    def paste(self, boxes, scores, classes, masks, goal_cats: torch.Tensor,
+              full_res: bool = False) -> torch.Tensor:
+        """Gate and paste (B, nd) detections into (B, n_cats, fh, fw), or
+        (B, n_cats, eh, ew) with ``full_res``.
 
-        Each 28x28 mask is sampled at the strided env-pixel centres with
-        cv2.INTER_LINEAR coordinates ((q + 0.5) * src / dst - 0.5) as
-        separable hat matrices, and thresholded at 0.5."""
+        Each 28x28 mask is sampled at the strided env-pixel centres (every
+        env pixel's with ``full_res``) with cv2.INTER_LINEAR coordinates
+        ((q + 0.5) * src / dst - 0.5) as separable hat matrices, and
+        thresholded at 0.5."""
         cfg = self.cfg
         eh, ew = cfg.env_frame_height, cfg.env_frame_width
         scale_y, scale_x = self._scale
-        py, px = self._py, self._px
+        if full_res:
+            py = torch.arange(eh, dtype=torch.float32, device=boxes.device)
+            px = torch.arange(ew, dtype=torch.float32, device=boxes.device)
+        else:
+            py, px = self._py, self._px
         x1 = torch.clamp(torch.floor(boxes[..., 0] * scale_x), 0, ew)
         y1 = torch.clamp(torch.floor(boxes[..., 1] * scale_y), 0, eh)
         x2 = torch.clamp(torch.ceil(boxes[..., 2] * scale_x), 0, ew)
@@ -159,26 +152,49 @@ class MaskRCNNSegmenter:
         img = F.pad(img, (0, 0, 0, self.pw - self.rw, 0, self.ph - self.rh))
         return img.to(self.dtype)
 
-    @torch.no_grad()
     def batch_device(self, rgbs_u8, goal_cats) -> torch.Tensor:
         """(B, eh, ew, 3) uint8 RGB (numpy, or a tensor already on the
         device) -> (B, n_sem, fh, fw) float32 semantic stack on the
         device."""
+        return self._segment(rgbs_u8, goal_cats, self.chunk, False)
+
+    @torch.no_grad()
+    def _segment(self, rgbs_u8, goal_cats, chunk: int,
+                 full_res: bool) -> torch.Tensor:
+        """Preprocess, detect in chunks of ``chunk`` frames (the last
+        padded with black frames) and paste: (B, n_sem, fh, fw), or
+        (B, n_sem, eh, ew) with ``full_res``."""
         rgb = upload(rgbs_u8, self.device)
         b = rgb.shape[0]
-        pad = (-b) % self.chunk
+        pad = (-b) % chunk
         goal = upload(np.pad(np.asarray(goal_cats, np.int64), (0, pad)),
                       self.device)
         if pad:
             rgb = torch.cat([rgb, rgb.new_zeros((pad,) + rgb.shape[1:])])
         img = self.preprocess(rgb)
         dets = []
-        for lo in range(0, img.shape[0], self.chunk):
-            det = self._detect_stage(img[lo:lo + self.chunk])
+        for lo in range(0, img.shape[0], chunk):
+            det = self._detect_stage(img[lo:lo + chunk])
             dets.append({k: v.float() if v.is_floating_point() else v
                          for k, v in det.items()})
         det = {k: torch.cat([d[k] for d in dets]) for k in dets[0]}
         sem = self.paste(det["boxes"], det["scores"], det["classes"],
-                         det["masks"], goal)
+                         det["masks"], goal, full_res=full_res)
         pad_ch = self.cfg.num_sem_categories - self.n_cats
         return F.pad(sem, (0, 0, 0, 0, 0, pad_ch))[:b]
+
+    def batch(self, rgbs, goal_cats) -> list:
+        """Host frames -> a list of (eh, ew, n_sem) float32 stacks (the
+        JAX package's ``batch``), detected on the device in chunks of
+        ``min(seg_batch_chunk, len(rgbs))`` frames."""
+        sem = self._segment(np.stack([np.asarray(r, np.uint8)
+                                      for r in rgbs]),
+                            [-1 if g is None else g for g in goal_cats],
+                            min(self.chunk, len(rgbs)), True)
+        return list(sem.permute(0, 2, 3, 1).cpu().numpy())
+
+    def __call__(self, rgb: np.ndarray, depth=None,
+                 goal_cat: Optional[int] = None) -> np.ndarray:
+        """One (eh, ew, 3) uint8 RGB frame -> (eh, ew, n_sem) float32 mask
+        stack on the host (the Segmenter contract)."""
+        return self.batch([rgb], [goal_cat])[0]

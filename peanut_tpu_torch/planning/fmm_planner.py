@@ -8,8 +8,8 @@ around the agent) stays host-side numpy.
 
 ``FMMPlanner.solve_batch`` is the batched path of the multi-episode runtime:
 N traversible/goal maps solve as one call (the fused schedule on CUDA).
-Single-grid (2-D) solves run with ``device="cpu"``; on CUDA they need the
-first-order sweep kernel (ROADMAP B4) and raise.
+Single-grid (2-D) solves, the single-env agent's, run the composed schedule:
+on CUDA each first-order sweep is kernel B4 and each order-2 sweep B2.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ the H100 (where JAX is not installed, hence no conftest):
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest
 
-Tolerance: bitwise for the eikonal kernels, which keep their plain
+Tolerance: bitwise for the eikonal kernels (B1, B2, B4), which keep their plain
 versions' operation order, scan association and rounding (see the notes in
 kernels/csrc/*.cu), and for ``nms_keep`` (both give the unique greedy keep
 set).  ``roi_window_pool`` sums in another association than its plain
@@ -23,8 +23,10 @@ import torch
 from peanut_tpu_torch.kernels import fmm
 from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                 fused_eikonal_reference)
-from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep2,
-                                                block_sweep2_reference)
+from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
+                                                block_sweep2,
+                                                block_sweep2_reference,
+                                                block_sweep_reference)
 from peanut_tpu_torch.kernels.nms import nms_keep, nms_keep_reference
 from peanut_tpu_torch.kernels.roi_window import (roi_window_pool,
                                                  roi_window_pool_reference)
@@ -66,7 +68,40 @@ def test_fused_eikonal_kernel_equals_plain(cuda, shape, params):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shape", [(3, 50, 37), (2, 49, 64), (1, 482, 482)])
+@pytest.mark.parametrize("shape", [(3, 50, 37), (2, 49, 64), (1, 482, 482),
+                                   (1, 960, 960)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("scan_chunk", [1, 4])
+def test_block_sweep_kernel_equals_plain(cuda, shape, reverse, scan_chunk):
+    trav, src = _grids(4, *shape, cuda)
+    wall = ~trav & ~src
+    # from a field swept the other way, as the composed schedule's second
+    # sweep of each orientation starts
+    d = block_sweep_reference(torch.where(src, 0.0, fmm.BIG).float(), wall,
+                              not reverse, scan_chunk=scan_chunk)
+    before = block_sweep.launches
+    got = block_sweep(d, wall, reverse, scan_chunk=scan_chunk)
+    assert block_sweep.launches == before + 1
+    want = block_sweep_reference(d, wall, reverse, scan_chunk=scan_chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_block_sweep_carry_isolated_between_grids(cuda):
+    """A grid's sweep does not see its batch neighbours: each grid of a
+    batch equals the same grid swept alone (the carry starts anew)."""
+    trav, src = _grids(5, 3, 40, 36, cuda)
+    wall = ~trav & ~src
+    d = torch.where(src, 0.0, fmm.BIG).float()
+    got = block_sweep(d, wall, False, block=16, inner=20)
+    for i in range(3):
+        alone = block_sweep(d[i:i + 1], wall[i:i + 1], False, block=16,
+                            inner=20)
+        assert torch.equal(got[i:i + 1], alone)
+
+
+@pytest.mark.parametrize("shape", [(3, 50, 37), (2, 49, 64), (1, 482, 482),
+                                   (1, 960, 960)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_block_sweep2_kernel_equals_plain(cuda, shape, reverse):
     trav, src = _grids(1, *shape, cuda)
@@ -81,18 +116,28 @@ def test_block_sweep2_kernel_equals_plain(cuda, shape, reverse):
     assert torch.equal(got, want)
 
 
-def test_eikonal_schedules_on_the_card(cuda):
+@pytest.mark.parametrize("order", [1, 2])
+def test_eikonal_schedules_on_the_card(cuda, order):
+    """Fused (3-D), composed 3-D and 2-D solves through the kernels equal
+    the plain versions bit for bit; the composed ones launch B4."""
     trav, src = _grids(2, 4, 90, 70, cuda)
-    got = fmm.eikonal_distance(trav, src)           # fused, kernels
-    want = fmm.eikonal_distance(trav, src, plain=True)
-    assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="B4"):
-        fmm.eikonal_distance(trav, src, schedule="composed")
-    with pytest.raises(NotImplementedError, match="B4"):
-        fmm.eikonal_distance(trav[0], src[0])
+    for grids, schedule in (((trav, src), None),
+                            ((trav, src), "composed"),
+                            ((trav[1], src[1]), None)):
+        b4 = block_sweep.launches
+        got = fmm.eikonal_distance(*grids, order=order, schedule=schedule)
+        want = fmm.eikonal_distance(*grids, order=order, schedule=schedule,
+                                    plain=True)
+        assert torch.equal(got, want)
+        composed = schedule == "composed" or grids[0].ndim == 2
+        assert (block_sweep.launches > b4) == composed
     with pytest.raises(ValueError):
         block_sweep2(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8, dtype=bool),
                      torch.zeros(2, 8, 8, dtype=bool))
+    with pytest.raises(ValueError):
+        block_sweep(torch.zeros(2, 8, 8, device=cuda),
+                    torch.zeros(2, 8, 8, dtype=bool, device=cuda), inner=10,
+                    scan_chunk=4)
 
 
 def _roi_inputs(seed, n, p, win_y, win_x, hs, ws, c, dev, dtype):
@@ -214,3 +259,47 @@ def test_runtime_ticks_on_the_card(cuda):
     assert out["env_steps"] == 9
     assert fused_eikonal.launches > f0 and block_sweep2.launches > b0
     assert runner.runtime.state.local_maps.is_cuda
+
+
+def test_single_env_agent_on_the_card(cuda):
+    """The single-env agent steps on the card; its 2-D planning solves
+    launch B4 and B2."""
+    from peanut_tpu_torch.agent import PeanutAgent
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.envs import FakeNavEnv
+
+    cfg = NavConfig(
+        env_frame_width=64, env_frame_height=48, frame_width=64,
+        frame_height=48, map_size_cm=1200, vision_range=48,
+        num_local_steps=10, use_gt_seg=1, only_explore=1, switch_step=999)
+    agent = PeanutAgent(cfg, device=cuda)
+    env = FakeNavEnv(cfg, seed=0, max_steps=4)
+    b4, b2 = block_sweep.launches, block_sweep2.launches
+    obs = env.reset()
+    agent.reset()
+    while not env.episode_over:
+        obs = env.step(agent.act(obs))
+    assert block_sweep.launches > b4 and block_sweep2.launches > b2
+    assert agent.agent_state.local_map[1].sum() > 0
+
+
+def test_prediction_model_on_the_card_matches_the_cpu(cuda):
+    """PSPNet-R50-v1c in float32 on the card (cuDNN with TF32 off, as the
+    agent sets it) against the CPU: probabilities within 1e-4 (the two
+    sum the convolutions in other orders)."""
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    full_map = np.random.RandomState(9).rand(14, 96, 80).astype(np.float32)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        probs = [PredictionModel(NavConfig(), model=build_segmentor(
+            peanut_prediction_config(), seed=0), device=dev).get_prediction(
+                full_map) for dev in ("cpu", cuda)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert probs[1].shape == (6, 96, 80) and np.isfinite(probs[1]).all()
+    np.testing.assert_allclose(probs[1], probs[0], rtol=0, atol=1e-4)

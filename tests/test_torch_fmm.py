@@ -1,16 +1,17 @@
 """The port's eikonal solver against the JAX package's, on the CPU.
 
-The plain PyTorch versions of the two CUDA kernels are held against the TPU
-kernels run in interpret mode (as tests/test_fmm_pallas.py runs them), the
-composed schedule against the JAX package's CPU path, the fused schedule
-against a JAX assembly of the same schedule and against the heap-marching
-oracle.  Inputs are numpy arrays made from a seed.
+The plain PyTorch versions of the three CUDA eikonal kernels are held
+against the TPU kernels run in interpret mode (as tests/test_fmm_pallas.py
+runs them), the first-order sweep (B4) also against the JAX package's
+``_v_sweep``, the composed schedule (3-D and 2-D) against the JAX package's
+CPU path, the fused schedule against a JAX assembly of the same schedule and
+against the heap-marching oracle.  Inputs are numpy arrays made from a seed.
 
-Tolerances: the composed schedule and the planning windows must be bit-equal
-to the JAX CPU path (the batched runtime's decisions are compared exactly,
-and the plain versions keep XLA's operation order and FMA contractions);
-against the interpret-mode TPU kernels, atol 1e-4, the bound of
-tests/test_fmm_pallas.py.
+Tolerances: the first-order sweep, the composed schedule and the planning
+windows must be bit-equal to the JAX CPU path (the agents' decisions are
+compared exactly, and the plain versions keep XLA's operation order and FMA
+contractions); against the interpret-mode TPU kernels, atol 1e-4, the bound
+of tests/test_fmm_pallas.py.
 """
 
 import numpy as np
@@ -22,13 +23,14 @@ import jax.numpy as jnp
 from peanut_tpu.agent import batched_ops as jops
 from peanut_tpu.kernels import fmm as jfmm
 from peanut_tpu.kernels.fmm_fused import fused_eikonal as jfused
-from peanut_tpu.kernels.fmm_pallas import v_sweep2_pallas
+from peanut_tpu.kernels.fmm_pallas import v_sweep2_pallas, v_sweep_pallas
 from peanut_tpu_torch.agent import batched_ops as tops
 from peanut_tpu_torch.kernels import fmm as tfmm
 from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                 fused_eikonal_reference)
 from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep2_reference,
-                                                v_sweep2)
+                                                block_sweep_reference,
+                                                v_sweep, v_sweep2)
 
 from heap_fmm_oracle import heap_fmm
 from test_fmm_oracle import (MAX_CELL_ERR, MEAN_CELL_ERR, make_floorplan,
@@ -64,6 +66,57 @@ def test_fused_reference_matches_pallas_interpret(vscan, rounds, block,
     _assert_fields_close(got, want, atol=1e-4)
     # the dispatcher takes the plain version for a CPU tensor
     np.testing.assert_array_equal(fused_eikonal(T(trav), T(src), **kw), got)
+
+
+def _sweep_inputs(seed, shape):
+    """The inputs of tests/test_fmm_pallas.py: point sources, 20% walls."""
+    rng = np.random.RandomState(seed)
+    d = np.where(rng.rand(*shape) > 0.95, 0.0, BIG).astype(np.float32)
+    wall = rng.rand(*shape) > 0.8
+    return np.where(wall, BIG, d).astype(np.float32), wall
+
+
+SWEEP_SHAPES = [(2, 48, 40), (3, 50, 200), (1, 33, 33)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("scan_chunk", [1, 2, 5])
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_block_sweep_plain_bit_equal_to_jax(shape, scan_chunk, reverse):
+    d, wall = _sweep_inputs(6, shape)
+    kw = dict(block=16, inner=10, scan_chunk=scan_chunk)
+    want = np.asarray(jfmm._v_sweep(jnp.asarray(d), jnp.asarray(wall),
+                                    reverse, **kw))
+    got = block_sweep_reference(T(d), T(wall), reverse, **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the dispatcher takes the plain version for a CPU tensor
+    np.testing.assert_array_equal(
+        v_sweep(T(d), T(wall), reverse, **kw).numpy(), got)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,scan_chunk", zip(SWEEP_SHAPES, [1, 2, 5]))
+def test_block_sweep_plain_matches_pallas_interpret(shape, scan_chunk,
+                                                    reverse):
+    d, wall = _sweep_inputs(7, shape)
+    kw = dict(block=16, inner=10, scan_chunk=scan_chunk)
+    want = np.asarray(v_sweep_pallas(jnp.asarray(d), jnp.asarray(wall),
+                                     reverse, interpret=True, **kw))
+    got = block_sweep_reference(T(d), T(wall), reverse, **kw).numpy()
+    np.testing.assert_allclose(np.minimum(got, 1e9), np.minimum(want, 1e9),
+                               rtol=0, atol=1e-4)
+
+
+def test_block_sweep_plain_carry_isolated_between_grids():
+    """The case of tests/test_fmm_pallas.py: a source in grid 0 only; the
+    carry must not leak into the other grids of the batch."""
+    d = np.full((4, 32, 200), BIG, np.float32)
+    d[0, 0, 0] = 0.0
+    wall = np.zeros(d.shape, bool)
+    got = block_sweep_reference(T(d), T(wall), False, block=16,
+                                inner=10).numpy()
+    assert (got[1:] >= 0.5 * BIG).all()
+    assert got[0, 5, 0] < 10.0
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -103,6 +156,20 @@ def test_composed_schedule_bit_equal_to_jax_cpu(order):
                                             jnp.asarray(src), order=order))
     got = tfmm.eikonal_distance(T(trav), T(src), order=order,
                                 schedule="composed").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_composed_2d_bit_equal_to_jax_cpu(order):
+    """A single grid, as the single-env planner and goal solve pass it."""
+    rng = np.random.RandomState(8)
+    trav = rng.rand(50, 37) > 0.2
+    src = np.zeros((50, 37), bool)
+    src[40, 3] = True
+    want = np.asarray(jfmm.eikonal_distance(jnp.asarray(trav),
+                                            jnp.asarray(src), order=order))
+    got = tfmm.eikonal_distance(trav, src, order=order, device="cpu").numpy()
+    assert got.shape == (50, 37) and np.isfinite(got).sum() > 1000
     np.testing.assert_array_equal(got, want)
 
 

@@ -45,8 +45,17 @@ def test_import_pulls_in_neither_jax_nor_peanut_tpu():
             "peanut_tpu_torch.models.d2_import",
             "peanut_tpu_torch.kernels.roi_window",
             "peanut_tpu_torch.kernels.nms",
-            "peanut_tpu_torch.perception.mask_rcnn_segmenter"} <= set(
-        _modules())
+            "peanut_tpu_torch.perception.mask_rcnn_segmenter",
+            "peanut_tpu_torch.agent.agent", "peanut_tpu_torch.agent.state",
+            "peanut_tpu_torch.agent.planner",
+            "peanut_tpu_torch.utils.drawing",
+            "peanut_tpu_torch.models.pspnet",
+            "peanut_tpu_torch.models.encoder_decoder",
+            "peanut_tpu_torch.models.heads",
+            "peanut_tpu_torch.models.mmseg_import",
+            "peanut_tpu_torch.prediction.model",
+            "peanut_tpu_torch.cli.collect", "peanut_tpu_torch.cli.collect_maps",
+            "peanut_tpu_torch.cli.eval"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -95,6 +104,24 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     from peanut_tpu_torch.perception import MaskRCNNSegmenter
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MaskRCNNSegmenter(cfg, model=torch.nn.Module())
+    from peanut_tpu_torch.agent import (MotionPlanner, NavAgentState,
+                                        PeanutAgent)
+    from peanut_tpu_torch.cli import collect_maps
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.prediction import PredictionModel
+    tiny = dict(type="EncoderDecoder",
+                backbone=dict(type="ResNetV1c", base_channels=8,
+                              stem_channels=8, in_channels=14),
+                decode_head=dict(type="PSPHead", in_channels=256,
+                                 channels=16, num_classes=6))
+    for make in (lambda: PeanutAgent(cfg), lambda: NavAgentState(cfg),
+                 lambda: MotionPlanner(cfg),
+                 lambda: PredictionModel(cfg, model=build_segmentor(tiny)),
+                 lambda: collect_maps.main(["--fake_env", "1",
+                                            "--num_episodes", "0"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert PeanutAgent(cfg, device="cpu").agent_state.device.type == "cpu"
     rt = BatchedNavRuntime(cfg, 1, device="cpu")
     assert rt.state.local_maps.device.type == "cpu"
     d = eikonal_distance(trav, src, device="cpu")
