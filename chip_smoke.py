@@ -6,13 +6,19 @@ Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
   2. build   — nvcc builds every kernel in peanut_tpu_torch/kernels/csrc
                (one process per source, in parallel); ptxas registers and
-               shared memory per kernel;
+               shared memory per kernel; the two sweeps' launch plans at the
+               paths' shapes with cudaOccupancyMaxActiveClusters at each
+               cluster size; then one cluster barrier's time at each size
+               the plans use;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                at the main path's shapes, on seeded cluttered floor plans with
                point and blob goals: reachability, max/mean |diff| against the
                stated tolerance, and CUDA-event times of kernel and plain
-               version beside the kernel's bound; then fused_eikonal's time
-               split into its scan phases and stencil passes;
+               version beside the kernel's bound (B2/B4 bit-equal, with their
+               cluster size, chain of row blocks x passes, time per link and
+               the floor the chain's cluster barriers set); then
+               fused_eikonal's time split into its scan phases and stencil
+               passes;
   4. slice   — BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=1,
                only_explore=1, switch_step=999) at the default geometry:
                steps/s, tick times, StageTimer stages, peak memory and the
@@ -88,6 +94,8 @@ PEAK_BYTES = 3.35e12
 GODUNOV1_OPS = 17    # 2 neighbour mins, Godunov solve (~12), min, wall
 SCAN_OPS = 3         # add, min, final min
 GODUNOV2_OPS = 70    # 2 direction picks (~12), order-2 Godunov (~55), update
+# the cluster sweeps' fields on their kernel lines
+SWEEP_FIELDS = ("cluster", "blocks_x_passes", "us_per_pass", "chain_floor_ms")
 
 
 def emit(obj) -> None:
@@ -908,22 +916,50 @@ def main() -> int:
             fmm_fused._lib().fused_eikonal_smem_bytes(482, 482, 16),
         "fused_eikonal_480_block8":
             fmm_fused._lib().fused_eikonal_smem_bytes(480, 480, 8),
-        "block_sweep_482_block16":
-            fmm_sweep._lib1().block_sweep_smem_bytes(482, 16),
-        "block_sweep_960_block16":
-            fmm_sweep._lib1().block_sweep_smem_bytes(960, 16),
-        "block_sweep2_482_block16":
-            fmm_sweep._lib2().block_sweep2_smem_bytes(482, 16),
-        "block_sweep2_960_block16":
-            fmm_sweep._lib2().block_sweep2_smem_bytes(960, 16),
         "roi_window_bf16_p7_26x274":
             roi_window._lib().roi_window_smem_bytes(1, 7, 26, 274),
         "roi_window_f32_p14_26x274":
             roi_window._lib().roi_window_smem_bytes(0, 14, 26, 274)}
+    # the sweeps' launch plans at the paths' shapes (block 16): cluster
+    # size, segment, shared memory (the kernel's own count) and the
+    # clusters the card holds at once at each size
+    sweep_plans = {}
+    for order, name_ in ((1, "block_sweep"), (2, "block_sweep2")):
+        for b, n in ((1, 242), (1, 482), (1, 960), (16, 482)):
+            plan = fmm_sweep.launch_plan(
+                order, torch.empty(b, n, n, device=dev), 16)
+            smem_c = (fmm_sweep._lib1().block_sweep_smem_bytes(n, plan.seg)
+                      if order == 1 else
+                      fmm_sweep._lib2().block_sweep2_smem_bytes(plan.seg, 16))
+            if smem_c != plan.smem_bytes:
+                fail(f"{name_} plan at {b}x{n}: {plan.smem_bytes} bytes of "
+                     f"shared memory, the kernel counts {smem_c}")
+            sweep_plans[f"{name_}_{b}x{n}"] = {
+                "cluster": plan.cluster, "seg": plan.seg,
+                "split": "rows" if order == 1 else "columns",
+                "smem_bytes": plan.smem_bytes,
+                "max_active_clusters": fmm_sweep.resident_clusters(
+                    order, n, 16, dev)}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "nvcc_seconds": round(_build.build_seconds, 2),
           "dir": str(_build.build_dir()), "dynamic_smem_bytes": smem,
-          "ptxas": _build.ptxas_report()})
+          "sweep_plans": sweep_plans, "ptxas": _build.ptxas_report()})
+    # one cluster barrier at each size the plans use: the floor under a
+    # sweep's chain of dependent passes
+    barrier_us = {c: fmm_sweep.cluster_barrier_us(c) for c in
+                  sorted({p["cluster"] for p in sweep_plans.values()})
+                  if c > 1}
+    emit({"phase": "cluster_barrier", "us_by_cluster": barrier_us})
+
+    def chain(kernel_order, d):
+        """The plan's cluster size, the chain's length (row blocks x
+        dependent passes; a B4 round of scans and a pass is one link) and
+        the floor its cluster barriers set (one a link)."""
+        plan = fmm_sweep.launch_plan(kernel_order, d, 16)
+        links = -(-d.shape[1] // 16) * 40
+        floor = links * barrier_us.get(plan.cluster, 0.0) / 1e3
+        return {"cluster": plan.cluster, "blocks_x_passes": links,
+                "chain_floor_ms": floor}
 
     # ---- 3. kernels vs plain versions ----------------------------------
     rng = np.random.RandomState(args.seed)
@@ -975,14 +1011,19 @@ def main() -> int:
     wall = torch.as_tensor(~trav_np & ~src_np, device=dev)
     d0 = torch.where(src, 0.0, BIG).float()
     d1 = block_sweep2_reference(d0, wall, src, False)
-    trav_np, src_np = plans(rng, 1, 960)
-    src960 = torch.as_tensor(src_np, device=dev)
-    wall960 = torch.as_tensor(~trav_np & ~src_np, device=dev)
+    single_b2 = {}
+    for n in (960, 482, 242):
+        trav_np, src_np = plans(rng, 1, n)
+        src_n = torch.as_tensor(src_np, device=dev)
+        single_b2[n] = (torch.where(src_n, 0.0, BIG).float(),
+                        torch.as_tensor(~trav_np & ~src_np, device=dev),
+                        src_n)
     for key, reverse, d_in, wall, src in (
             ("B2_down_16x482", False, d0, wall, src),
             ("B2_up_16x482", True, d1, wall, src),
-            ("B2_down_1x960", False, torch.where(src960, 0.0, BIG).float(),
-             wall960, src960)):
+            ("B2_down_1x960", False, *single_b2[960]),
+            ("B2_down_1x482", False, *single_b2[482]),
+            ("B2_down_1x242", False, *single_b2[242])):
         got = block_sweep2(d_in, wall, src, reverse)
         want = block_sweep2_reference(d_in, wall, src, reverse)
         torch.cuda.synchronize()
@@ -993,9 +1034,12 @@ def main() -> int:
         cells = d_in.numel()
         bound_ms, bound_by = bound(cells, 4 + 1 + 1 + 4,
                                    cells * 40 * GODUNOV2_OPS)
-        results[key] = dict(cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
-        ok &= cmp["ok"]
+        link = chain(2, d_in)
+        results[key] = dict(cmp, bit_equal=bool(torch.equal(got, want)),
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, **link,
+                            us_per_pass=ms / link["blocks_x_passes"] * 1e3)
+        ok &= cmp["ok"] and results[key]["bit_equal"]
         emit({"phase": "kernel", "kernel": f"block_sweep2/{key}",
               **results[key]})
 
@@ -1007,7 +1051,8 @@ def main() -> int:
     for key, b, n, reverse in (("B4_down_1x482", 1, 482, False),
                                ("B4_up_1x482", 1, 482, True),
                                ("B4_down_1x960", 1, 960, False),
-                               ("B4_composed_16x482", 16, 482, False)):
+                               ("B4_composed_16x482", 16, 482, False),
+                               ("B4_down_1x242", 1, 242, False)):
         trav_np, src_np = plans(rng, b, n)
         src = torch.as_tensor(src_np, device=dev)
         wall = torch.as_tensor(~trav_np & ~src_np, device=dev)
@@ -1026,8 +1071,10 @@ def main() -> int:
         # inner stencil passes and 2 x inner/scan_chunk row scans (chunk 1)
         bound_ms, bound_by = bound(cells, 4 + 1 + 4, cells * 40 * (
             GODUNOV1_OPS + 2 * SCAN_OPS))
+        link = chain(1, d_in)
         results[key] = dict(cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
+                            bound_by=bound_by, **link,
+                            us_per_pass=ms / link["blocks_x_passes"] * 1e3)
         ok &= cmp["ok"] and cmp["bit_equal"]
         emit({"phase": "kernel", "kernel": f"block_sweep/{key}",
               **results[key]})
@@ -1159,7 +1206,8 @@ def main() -> int:
              ("B1_blanket_16x482", "B1_vscan_8x480"), "fused_eikonal"),
             ("block_sweep2", "peanut_tpu_torch/kernels/csrc/fmm_sweep2.cu",
              "peanut_tpu/kernels/fmm_pallas.py:298",
-             ("B2_down_16x482", "B2_up_16x482", "B2_down_1x960"),
+             ("B2_down_16x482", "B2_up_16x482", "B2_down_1x960",
+              "B2_down_1x482", "B2_down_1x242"),
              "block_sweep2")):
         main_case = results[keys[0]]
         by_path = {"slice": launches[count_key],
@@ -1174,10 +1222,11 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None,
             "cases": {k: {kk: results[k][kk] for kk in
-                          ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                          ("ms", "plain_ms", "bound_ms", "max_abs_err")
+                          + SWEEP_FIELDS if kk in results[k]}
                       for k in keys}})
     keys = ("B4_down_1x482", "B4_up_1x482", "B4_down_1x960",
-            "B4_composed_16x482")
+            "B4_composed_16x482", "B4_down_1x242")
     main_case = results[keys[0]]
     kernels.append({
         "name": "block_sweep", "route": "cuda",
@@ -1191,7 +1240,7 @@ def main() -> int:
         "bound_by": main_case["bound_by"], "library_ms": None,
         "cases": {k: {kk: results[k][kk] for kk in
                       ("ms", "plain_ms", "bound_ms", "max_abs_err",
-                       "bit_equal")} for k in keys}})
+                       "bit_equal") + SWEEP_FIELDS} for k in keys}})
     main_case = b3["square_p7_n8000"]
     kernels.append({
         "name": "roi_window_pool", "route": "cuda",

@@ -1,17 +1,16 @@
-// First-order eikonal block relaxation shared by the fused solve
-// (fmm_fused.cu, B1) and the directed block sweep (fmm_sweep.cu, B4).
+// Device code shared by the eikonal kernels: the fused solve (fmm_fused.cu,
+// B1) and the two directed block sweeps (fmm_sweep.cu, B4; fmm_sweep2.cu,
+// B2).
 //
-// relax_block relaxes one row block against its two boundary rows:
-// inner/scan_chunk rounds of { both segmented row min-plus scans, a warp per
-// row held in registers; scan_chunk Jacobi Godunov stencil passes, a thread
-// per column, double-buffered in shared memory }.  The arithmetic is the
-// plain version's (fmm.py::_RowScan, _Stencil, _godunov): the same
-// Hillis-Steele association, the one multiply-add of the update rounded once
-// (fma1), a correctly rounded sqrtf and nothing else that can contract, so
-// a kernel built from it equals its plain PyTorch version bit for bit.
+// The arithmetic helpers are the plain version's (fmm.py::_godunov, _fma):
+// the one multiply-add of an update rounded once (fma1), a correctly
+// rounded sqrtf and nothing else that can contract.  The cluster helpers
+// launch a sweep as one thread-block cluster per grid and let a block reach
+// its peers' shared memory (DSMEM).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,127 +41,99 @@ __device__ __forceinline__ float godunov(float a, float b) {
   return fabsf(diff) >= 1.0f ? direct : both;
 }
 
-// One forward (reverse) Hillis-Steele step of shift S over a row held in
-// registers by one warp: lane l owns cells c = l + 32 k, k < KW.  Cells
-// before the start (after the end, or past W) are (0, BIG).  Shifts below
-// 32 read other lanes through shuffles, larger ones other registers of the
-// same lane.  The arithmetic is the plain version's (fmm.py::_RowScan).
-template <int KW, int S, bool REVERSE>
-__device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
-                                        int lane) {
-  if constexpr (S < 32) {
-    const unsigned full = 0xffffffffu;
-    const int src = REVERSE ? (lane + S) & 31 : (lane - S) & 31;
-    const bool same_k = REVERSE ? lane + S < 32 : lane >= S;
-    float sa[KW], sb[KW];
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      sa[k] = __shfl_sync(full, a[k], src);
-      sb[k] = __shfl_sync(full, b[k], src);
-    }
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int kn = REVERSE ? k + 1 : k - 1;   // the other lane's register
-      const bool kn_ok = REVERSE ? kn < KW : kn >= 0;
-      float a_n = same_k ? sa[k] : (kn_ok ? sa[REVERSE ? (k + 1) % KW
-                                                        : (k + KW - 1) % KW]
-                                          : 0.0f);
-      float b_n = same_k ? sb[k] : (kn_ok ? sb[REVERSE ? (k + 1) % KW
-                                                        : (k + KW - 1) % KW]
-                                          : BIG);
-      b[k] = fminf(b[k], b_n + a[k]);
-      a[k] = fminf(a_n + a[k], BIG);
-    }
-  } else {
-    constexpr int M = S / 32;
-    // update in the order that reads every neighbour before it changes
-#pragma unroll
-    for (int i = 0; i < KW; ++i) {
-      const int k = REVERSE ? i : KW - 1 - i;
-      const int kn = REVERSE ? k + M : k - M;
-      const bool ok = REVERSE ? kn < KW : kn >= 0;
-      float a_n = ok ? a[ok ? kn : 0] : 0.0f;
-      float b_n = ok ? b[ok ? kn : 0] : BIG;
-      b[k] = fminf(b[k], b_n + a[k]);
-      a[k] = fminf(a_n + a[k], BIG);
-    }
-  }
+// ---- cluster sweeps ------------------------------------------------------
+//
+// A cluster of C blocks solves one grid; block `rank` owns the segment
+// [rank * seg, rank * seg + width) of the n columns (B2) or rows of a row
+// block (B4) (the last block's width may be smaller).  Every block lays out
+// its shared memory alike, so a peer's copy of a buffer sits at the same
+// offset in the peer's shared memory.
+
+constexpr int SWEEP_NT = 512;    // threads per block of both sweeps
+
+struct Cluster {
+  int rank, size, grid, c0, width;
+};
+
+__device__ __forceinline__ Cluster cluster_init(int n, int seg) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  Cluster cl;
+  cl.rank = (int)cluster.block_rank();
+  cl.size = (int)cluster.num_blocks();
+  cl.grid = blockIdx.x / cl.size;
+  cl.c0 = cl.rank * seg;
+  cl.width = imax(0, imin(seg, n - cl.c0));
+  return cl;
 }
 
-template <int KW, bool REVERSE>
-__device__ __forceinline__ void hs_row(float (&a)[KW], float (&b)[KW],
-                                       int lane) {
-  hs_step<KW, 1, REVERSE>(a, b, lane);
-  hs_step<KW, 2, REVERSE>(a, b, lane);
-  hs_step<KW, 4, REVERSE>(a, b, lane);
-  hs_step<KW, 8, REVERSE>(a, b, lane);
-  hs_step<KW, 16, REVERSE>(a, b, lane);
-  hs_step<KW, 32, REVERSE>(a, b, lane);
-  hs_step<KW, 64, REVERSE>(a, b, lane);
-  hs_step<KW, 128, REVERSE>(a, b, lane);
-  hs_step<KW, 256, REVERSE>(a, b, lane);
-  if constexpr (KW > 16) hs_step<KW, 512, REVERSE>(a, b, lane);
+// Block q's copy of the shared-memory buffer `mine` (one `mapa`).
+template <typename T>
+__device__ __forceinline__ T* peer(T* mine, int q) {
+  return cooperative_groups::this_cluster().map_shared_rank(mine, q);
 }
 
-// Both row scans of one row, in place on `row`, by one warp, in registers
-// (W <= 32 * KW).  Steps with shifts >= W change nothing, so running all
-// log2(32 * KW) of them equals the plain version's `while s < n` loop.
-template <int KW>
-__device__ void warp_row_scans(float* row, const uint8_t* wrow, int W) {
-  const int lane = threadIdx.x & 31;
-  for (int dir = 0; dir < 2; ++dir) {
-    float a[KW], b[KW];
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int c = lane + 32 * k;
-      const bool real = c < W;
-      const bool w = real && wrow[c];
-      a[k] = real ? (w ? BIG : 1.0f) : 0.0f;
-      b[k] = real ? (w ? BIG : row[c]) : BIG;
-    }
-    if (dir == 0)
-      hs_row<KW, false>(a, b, lane);
-    else
-      hs_row<KW, true>(a, b, lane);
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int c = lane + 32 * k;
-      if (c < W) row[c] = fminf(row[c], b[k]);
-    }
-    __syncwarp();
-  }
-}
-
-// Relax one block (R rows of W cells, walls wl) against boundary rows
-// top/bottom with NT threads; returns the buffer that holds the result
-// (cur or nxt).
-template <int NT, int KW>
-__device__ float* relax_block(float* cur, float* nxt, const uint8_t* wl,
-                              const float* top, const float* bottom, int R,
-                              int W, int inner, int scan_chunk) {
-  for (int it = 0; it < inner / scan_chunk; ++it) {
-    // a warp per row
-    for (int r = threadIdx.x / 32; r < R; r += NT / 32)
-      warp_row_scans<KW>(cur + (size_t)r * W, wl + (size_t)r * W, W);
+// Every thread of every block of the cluster arrives; shared-memory writes
+// before it (local and remote) are seen by every reader after it.  A
+// cluster of one block needs only the block barrier, which costs a small
+// part of a cluster barrier's ~0.65 us (scripts/torch_sweep_breakdown.py).
+__device__ __forceinline__ void cluster_barrier(int size) {
+  if (size == 1)
     __syncthreads();
-    for (int p = 0; p < scan_chunk; ++p) {
-      // a thread per column, down the block's rows
-      for (int c = threadIdx.x; c < W; c += NT) {
-        for (int r = 0; r < R; ++r) {
-          int e = r * W + c;
-          float up = r > 0 ? cur[e - W] : top[c];
-          float down = r < R - 1 ? cur[e + W] : bottom[c];
-          float left = c > 0 ? cur[e - 1] : BIG;
-          float right = c < W - 1 ? cur[e + 1] : BIG;
-          float cand = godunov(fminf(up, down), fminf(left, right));
-          nxt[e] = wl[e] ? BIG : fminf(cur[e], cand);
-        }
-      }
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
-  }
-  return cur;
+  else
+    cooperative_groups::this_cluster().sync();
+}
+
+// A sweep block holds its SM alone: it reserves more than half an SM's
+// 228 KB of shared memory, whatever its layout uses, so the card never puts
+// two blocks (of one cluster or of two) on one SM, where they would share
+// its issue slots and lengthen every link of the chain.  The launch plan
+// then sees the clusters the card holds one block an SM.
+constexpr size_t SOLE_BLOCK_SMEM = 116 * 1024;
+
+inline size_t reserved_smem(size_t smem) {
+  return smem > SOLE_BLOCK_SMEM ? smem : SOLE_BLOCK_SMEM;
+}
+
+// Sets the attributes a cluster launch of `kernel` needs: the dynamic
+// shared memory it reserves for a layout of `smem` bytes and clusters of up
+// to 16 blocks.
+template <typename K>
+cudaError_t cluster_attributes(K kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)reserved_smem(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+inline cudaLaunchConfig_t cluster_config(int grids, int cluster, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grids * cluster);
+  cfg.blockDim = dim3(SWEEP_NT);
+  cfg.dynamicSmemBytes = reserved_smem(smem);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of `cluster` blocks of an `smem`-byte layout the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+template <typename K>
+int max_active_clusters(K kernel, int cluster, size_t smem, int* out) {
+  cudaError_t err = cluster_attributes(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 }  // namespace

@@ -9,11 +9,22 @@ picks one of the two by the tensor's device.  Second order, the same trio:
 dispatchers are what ``fmm.eikonal_distance`` calls for every directed
 sweep.  The kernels take any (B, H, W) grid in either direction: rows need
 no padding to a multiple of the block and no flip for the reverse sweep.
+
+Both kernels solve each grid with a thread-block cluster of C blocks:
+the second-order kernel gives each block a segment of the columns, the
+first-order one (whose row scans need whole rows) a segment of each row
+block's rows.  ``sweep_plan`` picks C and the segments from the shape and
+how many clusters the card holds at once; the wrappers query that count
+(``resident_clusters``) and hand the plan to the kernel.  A block holds
+its SM alone (``csrc/fmm_common.cuh::reserved_smem``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -34,6 +45,168 @@ def _check_grids(name: str, d: torch.Tensor, *masks: torch.Tensor) -> None:
         raise ValueError("the field and its masks must be on one device")
 
 
+# 16 needs the non-portable opt-in; 6 because 16 clusters of 8 do not all
+# fit on an H100 at once (15), and 16 of 6 do (17)
+CLUSTER_SIZES = (16, 8, 6, 4, 2, 1)
+MIN_SEG = 16          # the plan splits a row no finer than this
+SMEM_LIMIT = 231424   # 227 KB a block, less 1 KB for static shared memory
+MAX_W1 = 1024         # order 1 scans a row as at most 32 chunks of 32
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """How a sweep kernel splits each grid over a cluster of ``cluster``
+    blocks.  Order 2 splits the columns: block q owns the columns
+    [q * seg, q * seg + widths[q]).  Order 1 splits each row block's rows:
+    block q owns its rows [q * seg, q * seg + widths[q]) (of a full row
+    block; a ragged last one leaves the later blocks fewer or none).
+    ``smem_bytes`` of dynamic shared memory a block."""
+    order: int
+    cluster: int
+    seg: int
+    widths: Tuple[int, ...]
+    smem_bytes: int
+
+
+def _scan_pitches(w: int) -> Tuple[int, int]:
+    """The first-order kernel's scan layout: P (w rounded up to 32) and K2
+    (the power of two >= P / 32)."""
+    p = -(-w // 32) * 32
+    k2 = 1
+    while 32 * k2 < p:
+        k2 *= 2
+    return p, k2
+
+
+def smem_bytes(order: int, w: int, block: int, seg: int) -> int:
+    """A block's dynamic shared memory: the ``Layout`` of
+    ``csrc/fmm_sweep.cu`` (order 1, ``seg`` rows) and the buffers of
+    ``csrc/fmm_sweep2.cu`` (order 2, ``seg`` columns)."""
+    if order == 2:
+        return 2 * (block + 4) * seg * 4 + 2 * block * seg
+    p, k2 = _scan_pitches(w)
+    return ((2 * seg * w + 2 * w + 4 * seg * k2 * 33) * 4 + seg * 32 * 4
+            + 2 * seg * p * 2 + seg * w)
+
+
+def _layout(order: int, w: int, block: int,
+            cluster: int) -> Optional[SweepPlan]:
+    """The plan for ``cluster`` blocks, or None where it cannot run: a
+    block left without columns (rows, order 1), a segment narrower than
+    order 2's two halo columns, order-1 rows over MAX_W1 cells, or more
+    shared memory than a block has."""
+    n = block if order == 1 else w        # what the blocks split
+    seg = -(-n // cluster)
+    if -(-n // seg) != cluster or (order == 2 and cluster > 1 and seg < 2):
+        return None
+    if order == 1 and w > MAX_W1:
+        return None
+    smem = smem_bytes(order, w, block, seg)
+    if smem > SMEM_LIMIT:
+        return None
+    widths = tuple(min(seg, n - q * seg) for q in range(cluster))
+    return SweepPlan(order, cluster, seg, widths, smem)
+
+
+def sweep_plan(order: int, b: int, w: int, block: int,
+               resident: Mapping[int, int],
+               cluster: Optional[int] = None) -> SweepPlan:
+    """Cluster size and segments (``SweepPlan``) for ``b`` grids of rows
+    ``w`` cells wide in ``block``-row blocks.
+
+    resident[C]: clusters of C blocks the card holds at once at that
+    layout (``resident_clusters``).  The plan takes the largest C with
+    ceil(w / C) >= MIN_SEG (so C = 1 for rows under 2 x MIN_SEG cells, too
+    little work to spread) whose layout fits and whose ``b`` clusters are
+    all resident; if none is, the smallest C that fits, since the grids
+    then queue anyway.  ``cluster`` forces C.
+    """
+    if order not in (1, 2):
+        raise ValueError(f"order 1 or 2, got {order}")
+    if w < 1 or block < order:
+        raise ValueError(f"rows of >= 1 cells and blocks of >= {order} "
+                         f"rows, got w={w}, block={block}")
+    if cluster is not None:
+        plan = (_layout(order, w, block, cluster)
+                if cluster in CLUSTER_SIZES else None)
+        if plan is None:
+            raise ValueError(f"order {order} cannot split rows of {w} "
+                             f"cells in {block}-row blocks over {cluster} "
+                             f"blocks")
+        return plan
+    plans = [p for p in (_layout(order, w, block, c) for c in CLUSTER_SIZES
+                         if c == 1 or -(-w // c) >= MIN_SEG) if p]
+    if not plans:
+        raise ValueError(f"rows of {w} cells in {block}-row blocks exceed "
+                         f"the order-{order} kernel's shared memory")
+    for p in plans:
+        if b <= resident.get(p.cluster, 0):
+            return p
+    return plans[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(order: int, w: int, block: int, cluster: int,
+              device: int) -> int:
+    plan = _layout(order, w, block, cluster)
+    if plan is None:
+        return 0
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        if order == 1:
+            err = _lib1().block_sweep_max_clusters(
+                w, plan.seg, cluster, ctypes.byref(out))
+        else:
+            err = _lib2().block_sweep2_max_clusters(
+                plan.seg, block, cluster, ctypes.byref(out))
+    # a size the card does not take (16 without the opt-in) holds none
+    return out.value if err == 0 else 0
+
+
+def resident_clusters(order: int, w: int, block: int,
+                      device=None) -> dict:
+    """{C: clusters of C blocks the card holds at once}, queried with
+    cudaOccupancyMaxActiveClusters at each C's layout."""
+    dev = torch.device(device if device is not None else "cuda")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return {c: _resident(order, w, block, c, idx) for c in CLUSTER_SIZES}
+
+
+def launch_plan(order: int, d: torch.Tensor, block: int,
+                cluster: Optional[int] = None) -> SweepPlan:
+    """The plan the wrapper launches for CUDA grids ``d`` (B, H, W)."""
+    bsz, _, w = d.shape
+    return sweep_plan(order, bsz, w, block,
+                      resident_clusters(order, w, block, d.device), cluster)
+
+
+def cluster_barrier_us(cluster: int, grids: int = 1, n: int = 20000,
+                       device=None) -> float:
+    """Microseconds of one cluster barrier on the card: a kernel of
+    ``grids`` clusters of ``cluster`` sweep-sized blocks that runs nothing
+    but ``n`` barriers, timed with CUDA events against one of ``n // 2``
+    (the difference leaves the launch out).  What a sweep's chain of
+    barriers costs at the least."""
+    lib = _lib2()
+    lib.cluster_barrier_loop.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with torch.cuda.device(device if device is not None else "cuda"):
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def ms(k: int) -> float:
+            times = []
+            for _ in range(2):      # the first call warms up
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                check(lib.cluster_barrier_loop(grids, cluster, k, stream),
+                      "cluster_barrier_loop launch")
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
+            return times[-1]
+        return (ms(n) - ms(n // 2)) / (n - n // 2) * 1e3
+
+
 def block_sweep_reference(d: torch.Tensor, wall: torch.Tensor,
                           reverse: bool = False, block: int = 16,
                           inner: int = 40,
@@ -47,40 +220,40 @@ def _lib1():
     lib = library("fmm_sweep")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.block_sweep_launch.argtypes = [p, p, p] + [i] * 7 + [p]
+        lib.block_sweep_launch.argtypes = [p, p, p] + [i] * 9 + [p]
         lib.block_sweep_launch.restype = i
         lib.block_sweep_smem_bytes.argtypes = [i, i]
         lib.block_sweep_smem_bytes.restype = ctypes.c_size_t
+        lib.block_sweep_max_clusters.argtypes = [i] * 3 + [p]
+        lib.block_sweep_max_clusters.restype = i
         lib._typed = True
     return lib
 
 
 def block_sweep(d: torch.Tensor, wall: torch.Tensor, reverse: bool = False,
-                block: int = 16, inner: int = 40,
-                scan_chunk: int = 1) -> torch.Tensor:
+                block: int = 16, inner: int = 40, scan_chunk: int = 1,
+                cluster: Optional[int] = None) -> torch.Tensor:
     """One directed first-order sweep of CUDA (B, H, W) grids, one kernel
-    launch (``block_sweep.launches`` counts them).  d: float32; wall: bool
-    or uint8.  Returns a new field."""
+    launch (``block_sweep.launches`` counts them) with ``launch_plan``'s
+    cluster size unless ``cluster`` forces one.  d: float32; wall: bool or
+    uint8.  Returns a new field."""
     _check_grids("block_sweep", d, wall)
     if block < 1 or inner < 0 or scan_chunk < 1 or inner % scan_chunk:
         raise ValueError(f"block >= 1, inner >= 0 and a scan_chunk >= 1 "
                          f"that divides inner, got block={block}, "
                          f"inner={inner}, scan_chunk={scan_chunk}")
     bsz, h, w = d.shape
-    if w > 1024 or _lib1().block_sweep_smem_bytes(w, block) > 232448:
-        raise ValueError(f"rows of {w} cells with block {block} exceed the "
-                         f"kernel's row width (1024) or shared memory "
-                         f"(227 KB)")
+    plan = launch_plan(1, d, block, cluster)
     d_in = d.contiguous()
     wl = wall.to(torch.uint8).contiguous()
     out = torch.empty_like(d_in)
-    if bsz:
+    if bsz and h:
         with torch.cuda.device(d.device):
             stream = torch.cuda.current_stream().cuda_stream
             check(_lib1().block_sweep_launch(
                 d_in.data_ptr(), wl.data_ptr(), out.data_ptr(), bsz, h, w,
-                block, inner, scan_chunk, int(reverse), stream),
-                "block_sweep launch")
+                block, inner, scan_chunk, int(reverse), plan.cluster,
+                plan.seg, stream), "block_sweep launch")
         block_sweep.launches += 1
     return out
 
@@ -115,38 +288,39 @@ def _lib2():
     lib = library("fmm_sweep2")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.block_sweep2_launch.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        lib.block_sweep2_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib.block_sweep2_launch.restype = i
         lib.block_sweep2_smem_bytes.argtypes = [i, i]
         lib.block_sweep2_smem_bytes.restype = ctypes.c_size_t
+        lib.block_sweep2_max_clusters.argtypes = [i] * 3 + [p]
+        lib.block_sweep2_max_clusters.restype = i
         lib._typed = True
     return lib
 
 
 def block_sweep2(d: torch.Tensor, wall: torch.Tensor, src: torch.Tensor,
-                 reverse: bool = False, block: int = 16,
-                 inner: int = 40) -> torch.Tensor:
+                 reverse: bool = False, block: int = 16, inner: int = 40,
+                 cluster: Optional[int] = None) -> torch.Tensor:
     """One directed second-order sweep of CUDA (B, H, W) grids, one kernel
-    launch (``block_sweep2.launches`` counts them).  d: float32; wall, src:
+    launch (``block_sweep2.launches`` counts them) with ``launch_plan``'s
+    cluster size unless ``cluster`` forces one.  d: float32; wall, src:
     bool or uint8.  Returns a new field."""
     _check_grids("block_sweep2", d, wall, src)
     if block < 2 or inner < 0:
         raise ValueError("block >= 2 and inner >= 0")
     bsz, h, w = d.shape
-    if _lib2().block_sweep2_smem_bytes(w, block) > 232448:
-        raise ValueError(f"rows of {w} cells with block {block} exceed the "
-                         f"kernel's shared memory (227 KB)")
+    plan = launch_plan(2, d, block, cluster)
     d_in = d.contiguous()
     wl = wall.to(torch.uint8).contiguous()
     sr = src.to(torch.uint8).contiguous()
     out = torch.empty_like(d_in)
-    if bsz:
+    if bsz and h:
         with torch.cuda.device(d.device):
             stream = torch.cuda.current_stream().cuda_stream
             check(_lib2().block_sweep2_launch(
                 d_in.data_ptr(), wl.data_ptr(), sr.data_ptr(), out.data_ptr(),
-                bsz, h, w, block, inner, int(reverse), stream),
-                "block_sweep2 launch")
+                bsz, h, w, block, inner, int(reverse), plan.cluster,
+                plan.seg, stream), "block_sweep2 launch")
         block_sweep2.launches += 1
     return out
 

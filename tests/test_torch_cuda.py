@@ -8,7 +8,7 @@ the H100 (where JAX is not installed, hence no conftest):
 
 Tolerance: bitwise for the eikonal kernels (B1, B2, B4), which keep their plain
 versions' operation order, scan association and rounding (see the notes in
-kernels/csrc/*.cu), and for ``nms_keep`` (both give the unique greedy keep
+kernels/csrc/*.cu) at every cluster size of B2 and B4, and for ``nms_keep`` (both give the unique greedy keep
 set).  ``roi_window_pool`` sums in another association than its plain
 version (x before y): rtol/atol 2e-5, in bfloat16 too, since both sides
 contract the same bfloat16-rounded operands in float32.  The bfloat16 bar
@@ -23,6 +23,7 @@ import torch
 from peanut_tpu_torch.kernels import fmm
 from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                 fused_eikonal_reference)
+from peanut_tpu_torch.kernels import fmm_sweep
 from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
                                                 block_sweep2,
                                                 block_sweep2_reference,
@@ -114,6 +115,139 @@ def test_block_sweep2_kernel_equals_plain(cuda, shape, reverse):
     want = block_sweep2_reference(d, wall, src, reverse)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _boundary_grids(seed, b, h, w, seg, dev, rows=False):
+    """Random grids with sources on both sides of every segment boundary
+    and a wall along each boundary with a door in it, so that distances
+    cross every boundary of a cluster's segments: columns every ``seg``
+    cells, or (``rows``) rows every ``seg`` rows of each 16-row block."""
+    trav, src = _grids(seed, b, h, w, dev)
+    if rows:
+        trav, src = trav.transpose(1, 2), src.transpose(1, 2)
+        cuts = [r for r in range(1, h) if r % 16 % seg == 0]
+    else:
+        cuts = range(seg, w, seg)
+    n = trav.shape[1]
+    for c in cuts:
+        trav[:, :, c - 1] = False
+        trav[:, n // 3:n // 3 + 3, c - 1] = True
+        src[:, n // 2, c] = True
+        src[:, n // 4, c - 1] = True
+    if rows:
+        trav, src = trav.transpose(1, 2), src.transpose(1, 2)
+    return trav.contiguous(), src.contiguous()
+
+
+def _sweep_case(order, trav, src, reverse, **kw):
+    """The kernel's sweep and the plain version's, from a field swept the
+    other way (as the schedules' second sweeps start)."""
+    wall = ~trav & ~src
+    d0 = torch.where(src, 0.0, fmm.BIG).float()
+    plain_kw = {k: v for k, v in kw.items() if k != "cluster"}
+    if order == 1:
+        d = block_sweep_reference(d0, wall, not reverse, **plain_kw)
+        got = block_sweep(d, wall, reverse, **kw)
+        want = block_sweep_reference(d, wall, reverse, **plain_kw)
+    else:
+        d = block_sweep2_reference(d0, wall, src, not reverse, **plain_kw)
+        got = block_sweep2(d, wall, src, reverse, **kw)
+        want = block_sweep2_reference(d, wall, src, reverse, **plain_kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 6, 8, 16])
+@pytest.mark.parametrize("w", [37, 64, 481, 482, 960, 1024])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sweep_kernels_equal_plain_at_every_cluster(cuda, order, cluster, w,
+                                                    reverse):
+    """Both sweeps at every forced cluster size, bit-equal, with walls and
+    sources on the segment boundaries and a ragged last row block (50 =
+    3 x 16 + 2 rows)."""
+    try:
+        plan = fmm_sweep.sweep_plan(order, 1, w, 16, {}, cluster=cluster)
+    except ValueError:
+        # a split the kernel does not take (tests/test_torch_sweep_plan.py)
+        return
+    if fmm_sweep.resident_clusters(order, w, 16, cuda)[cluster] < 1:
+        pytest.skip(f"this card holds no cluster of {cluster} blocks")
+    trav, src = _boundary_grids(10 + cluster, 1, 50, w, plan.seg, cuda,
+                                rows=order == 1)
+    got, want = _sweep_case(order, trav, src, reverse, cluster=cluster)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w", [64, 482])
+@pytest.mark.parametrize("kw", [dict(scan_chunk=4), dict(inner=0),
+                                dict(inner=0, scan_chunk=4),
+                                dict(block=8, inner=12, scan_chunk=3)])
+def test_block_sweep_scan_chunk_and_inner(cuda, w, kw):
+    trav, src = _boundary_grids(11, 2, 41, w, -(-w // 8), cuda)
+    for reverse in (False, True):
+        got, want = _sweep_case(1, trav, src, reverse, **kw)
+        assert torch.equal(got, want)
+    if kw.get("inner") == 0:      # no pass: the field comes back as it went
+        assert torch.equal(got, block_sweep(got, ~trav & ~src, **kw))
+
+
+@pytest.mark.parametrize("w", [64, 482])
+def test_block_sweep2_inner_zero_and_short_blocks(cuda, w):
+    trav, src = _boundary_grids(12, 2, 41, w, -(-w // 8), cuda)
+    for kw in (dict(inner=0), dict(block=2, inner=3), dict(block=5, inner=7)):
+        for reverse in (False, True):
+            got, want = _sweep_case(2, trav, src, reverse, **kw)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_sweeps_on_more_grids_than_resident_clusters(cuda, order):
+    """40 planning grids: more clusters than the card holds at once at the
+    width's own cluster size, so the plan shrinks them or they queue."""
+    trav, src = _grids(13, 40, 482, 482, cuda)
+    plan = fmm_sweep.launch_plan(order, trav, 16)
+    assert plan.cluster >= 1
+    got, want = _sweep_case(order, trav, src, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_sweep_carry_isolated_between_grids_in_clusters(cuda, order):
+    """Each grid of a batch swept by clusters of 8 equals the same grid
+    swept alone: neither the carry nor a halo reaches another grid."""
+    trav, src = _boundary_grids(14, 3, 40, 482, 2 if order == 1 else 61,
+                                cuda, rows=order == 1)
+    wall = ~trav & ~src
+    d = torch.where(src, 0.0, fmm.BIG).float()
+    sweep = ((lambda x, m, s: block_sweep(x, m, cluster=8, inner=20))
+             if order == 1 else
+             (lambda x, m, s: block_sweep2(x, m, s, cluster=8, inner=20)))
+    got = sweep(d, wall, src)
+    for i in range(3):
+        sl = slice(i, i + 1)
+        assert torch.equal(got[sl], sweep(d[sl], wall[sl], src[sl]))
+
+
+def test_sweep_plans_agree_with_the_kernels(cuda):
+    """The plan's shared-memory bytes are the kernels' own, and the card
+    holds the paths' plans."""
+    for w in (37, 242, 482, 960, 1024):
+        for order in (1, 2):
+            plan = fmm_sweep.sweep_plan(order, 1, w, 16,
+                                        fmm_sweep.resident_clusters(
+                                            order, w, 16, cuda))
+            if order == 1:
+                c_bytes = fmm_sweep._lib1().block_sweep_smem_bytes(
+                    w, plan.seg)
+            else:
+                c_bytes = fmm_sweep._lib2().block_sweep2_smem_bytes(
+                    plan.seg, 16)
+            assert c_bytes == plan.smem_bytes
+            assert fmm_sweep.resident_clusters(
+                order, w, 16, cuda)[plan.cluster] >= 1
+    assert fmm_sweep.launch_plan(
+        2, torch.zeros(16, 482, 482, device=cuda), 16).cluster > 1
 
 
 @pytest.mark.parametrize("order", [1, 2])

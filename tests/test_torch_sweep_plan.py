@@ -1,0 +1,162 @@
+"""The launch plan of the cluster sweep kernels (``fmm_sweep.sweep_plan``).
+
+The plan is plain Python: given the grids' shape and how many clusters of
+each size the card holds at once, it picks the cluster size C, the
+segments (columns for order 2, the rows of a row block for order 1) and a
+block's shared memory.  These tests need no card: the
+resident counts are arguments (a card's, as ``resident_clusters`` would
+read them for an H100 at these layouts).
+"""
+
+import pytest
+
+from peanut_tpu_torch.kernels.fmm_sweep import (MAX_W1, MIN_SEG, SMEM_LIMIT,
+                                                SweepPlan, smem_bytes,
+                                                sweep_plan)
+
+# clusters of each size resident at once, as resident_clusters reads them
+# on an H100 (a block holds its SM alone; 8-block clusters fit 15 at once,
+# 6-block ones 17)
+RESIDENT = {16: 7, 8: 15, 6: 17, 4: 30, 2: 66, 1: 132}
+
+# (order, B, W) -> (cluster, seg, last segment, smem bytes) at
+# block 16: the paths' shapes (single-explore 242^2, planning 482^2, goal
+# weighting 960^2, the 16-env tick, B1's 8 x 480^2 window) and the CPU
+# tests' narrow widths
+EXPECTED = {
+    (1, 1, 242): (16, 1, 1, 9490),
+    (1, 1, 482): (16, 1, 1, 18818),
+    (1, 1, 960): (16, 1, 1, 37184),
+    (1, 16, 482): (6, 3, 1, 48742),
+    (1, 8, 480): (8, 2, 2, 33472),
+    (1, 2, 40): (2, 8, 8, 14720),
+    (1, 1, 33): (2, 8, 8, 14160),
+    (1, 3, 200): (8, 2, 2, 15696),
+    (1, 2, 64): (4, 4, 4, 8576),
+    (2, 1, 242): (16, 16, 2, 3072),
+    (2, 1, 482): (16, 31, 17, 5952),
+    (2, 1, 960): (16, 60, 60, 11520),
+    (2, 16, 482): (6, 81, 77, 15552),
+    (2, 8, 480): (8, 60, 60, 11520),
+    (2, 2, 37): (2, 19, 18, 3648),
+    (2, 3, 50): (2, 25, 25, 4800),
+}
+
+
+@pytest.mark.parametrize("key", sorted(EXPECTED))
+def test_plan_at_the_paths_shapes(key):
+    order, b, w = key
+    p = sweep_plan(order, b, w, 16, RESIDENT)
+    assert (p.cluster, p.seg, p.widths[-1], p.smem_bytes) == EXPECTED[key]
+    assert p.order == order and len(p.widths) == p.cluster
+    assert p.smem_bytes == smem_bytes(order, w, 16, p.seg)
+    assert p.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("w", [1, 2, 31, 33, 37, 64, 65, 200, 242, 481, 482,
+                               960, 1024, 2000])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 6, 8, 16])
+def test_segments_cover_every_column_once(order, w, cluster):
+    """Order 2's column segments cover the row, order 1's row segments the
+    row block, each cell once."""
+    n = 16 if order == 1 else w
+    try:
+        p = sweep_plan(order, 1, w, 16, RESIDENT, cluster=cluster)
+    except ValueError:
+        # only where a block would own nothing, order 2's halo would reach
+        # past a neighbour, order 1's row is too long, or shared memory
+        # runs out
+        if order == 1 and w > MAX_W1:
+            return
+        assert cluster is not None
+        seg = -(-n // cluster)
+        assert (-(-n // seg) != cluster or (order == 2 and seg < 2)
+                or smem_bytes(order, w, 16, seg) > SMEM_LIMIT)
+        return
+    cells = [c for q, width in enumerate(p.widths)
+             for c in range(q * p.seg, q * p.seg + width)]
+    assert cells == list(range(n))
+    assert all(width >= 1 for width in p.widths)
+    assert all(width == p.seg for width in p.widths[:-1])
+    if cluster is not None:
+        assert p.cluster == cluster
+
+
+def test_ragged_last_segment():
+    p = sweep_plan(2, 1, 482, 16, RESIDENT)
+    assert p.widths == (31,) * 15 + (17,)
+    p = sweep_plan(2, 1, 37, 16, RESIDENT, cluster=8)
+    assert p.widths == (5,) * 7 + (2,)
+    # order 2 takes a last segment of one column: its halo is past the grid
+    assert sweep_plan(2, 1, 10, 16, RESIDENT, cluster=4).widths == (3, 3, 3,
+                                                                    1)
+    # order 1 splits the rows: 10-row blocks over 4 blocks of 3 rows
+    assert sweep_plan(1, 1, 482, 10, RESIDENT, cluster=4).widths == (3, 3, 3,
+                                                                     1)
+
+
+def test_order1_splits_rows_and_order2_columns():
+    p1 = sweep_plan(1, 1, 960, 16, RESIDENT)
+    p2 = sweep_plan(2, 1, 960, 16, RESIDENT)
+    assert (p1.cluster, p1.seg, p1.widths) == (16, 1, (1,) * 16)
+    assert (p2.cluster, p2.seg, p2.widths) == (16, 60, (60,) * 16)
+    # no more blocks than rows in a row block
+    assert sweep_plan(1, 1, 960, 8, RESIDENT).cluster == 8
+    with pytest.raises(ValueError):
+        sweep_plan(1, 1, 960, 8, RESIDENT, cluster=16)
+    # one block per grid holds whole 16-row blocks only of shorter rows
+    assert sweep_plan(1, 1, 200, 16, RESIDENT, cluster=1).smem_bytes == (
+        smem_bytes(1, 200, 16, 16))
+    with pytest.raises(ValueError):
+        sweep_plan(1, 1, 482, 16, RESIDENT, cluster=1)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("w", [1, 2, 17, 24, 30])
+def test_narrow_rows_run_one_block(order, w):
+    """Rows that would leave segments under MIN_SEG columns stay whole."""
+    p = sweep_plan(order, 1, w, 16, RESIDENT)
+    assert p.cluster == 1 and w < 2 * MIN_SEG
+    assert p.widths == ((16,) if order == 1 else (w,))
+
+
+def test_the_plan_keeps_the_batch_resident():
+    # 16 clusters of 8 do not fit at once, of 6 they do: the tick takes 6;
+    # where 16 of 8 fit it keeps 8, where 16 of 6 do not, 4
+    assert sweep_plan(2, 16, 482, 16, RESIDENT).cluster == 6
+    assert sweep_plan(2, 16, 482, 16, {**RESIDENT, 8: 16}).cluster == 8
+    assert sweep_plan(2, 16, 482, 16, {**RESIDENT, 6: 15}).cluster == 4
+    # one grid: the largest cluster
+    assert sweep_plan(1, 1, 482, 16, RESIDENT).cluster == 16
+    # 40 grids: clusters of 2 are the largest that all fit at once
+    assert sweep_plan(1, 40, 482, 16, RESIDENT).cluster == 2
+    # a card without clusters of 16 (resident 0) gets 8 at 960
+    assert sweep_plan(1, 1, 960, 16, {**RESIDENT, 16: 0}).cluster == 8
+    # more grids than any plan holds: the smallest cluster, the grids queue
+    assert sweep_plan(2, 500, 960, 16, RESIDENT).cluster == 1
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((1, 1, 0, 16), {}),                      # no columns
+    ((1, 1, 482, 0), {}),                     # order 1 needs block >= 1
+    ((2, 1, 482, 1), {}),                     # order 2 needs block >= 2
+    ((3, 1, 482, 16), {}),                    # no such kernel
+    ((1, 1, 482, 16), {"cluster": 3}),        # not a cluster size
+    ((2, 1, 37, 16), {"cluster": 16}),        # blocks without columns
+    ((1, 1, 482, 8), {"cluster": 16}),        # blocks without rows
+    ((2, 1, 2, 16), {"cluster": 2}),          # halo past the neighbour
+    ((2, 1, 1024, 400), {"cluster": 1}),      # shared memory
+    ((1, 1, 960, 4000), {}),                  # too tall for any plan
+    ((1, 1, 1025, 16), {}),                   # order 1 past 32 chunks
+])
+def test_shapes_the_kernels_do_not_take(args, kw):
+    with pytest.raises(ValueError):
+        sweep_plan(*args, RESIDENT, **kw)
+
+
+def test_plan_is_a_value():
+    p = sweep_plan(2, 1, 482, 16, RESIDENT)
+    assert p == SweepPlan(2, 16, 31, (31,) * 15 + (17,), 5952)
+    with pytest.raises(AttributeError):
+        p.cluster = 1
