@@ -6,19 +6,19 @@ Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
   2. build   — nvcc builds every kernel in peanut_tpu_torch/kernels/csrc
                (one process per source, in parallel); ptxas registers and
-               shared memory per kernel; the two sweeps' launch plans at the
-               paths' shapes with cudaOccupancyMaxActiveClusters at each
-               cluster size; then one cluster barrier's time at each size
-               the plans use;
+               shared memory per kernel; the launch plans of the two sweeps
+               and of fused_eikonal at the paths' shapes with
+               cudaOccupancyMaxActiveClusters at each cluster size; then one
+               cluster barrier's time at each size the plans use;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                at the main path's shapes, on seeded cluttered floor plans with
                point and blob goals: reachability, max/mean |diff| against the
                stated tolerance, and CUDA-event times of kernel and plain
-               version beside the kernel's bound (B2/B4 bit-equal, with their
-               cluster size, chain of row blocks x passes, time per link and
-               the floor the chain's cluster barriers set); then
-               fused_eikonal's time split into its scan phases and stencil
-               passes;
+               version beside the kernel's bound (B1/B2/B4 bit-equal, with
+               their cluster size, chain of row blocks x passes (B1: x scan
+               rounds), time per link and the floor the chain's cluster
+               barriers set); then fused_eikonal's time split into its scan
+               rounds and local stencil passes;
   4. slice   — BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=1,
                only_explore=1, switch_step=999) at the default geometry:
                steps/s, tick times, StageTimer stages, peak memory and the
@@ -94,8 +94,19 @@ PEAK_BYTES = 3.35e12
 GODUNOV1_OPS = 17    # 2 neighbour mins, Godunov solve (~12), min, wall
 SCAN_OPS = 3         # add, min, final min
 GODUNOV2_OPS = 70    # 2 direction picks (~12), order-2 Godunov (~55), update
-# the cluster sweeps' fields on their kernel lines
+# the cluster kernels' fields on their kernel lines
 SWEEP_FIELDS = ("cluster", "blocks_x_passes", "us_per_pass", "chain_floor_ms")
+# B1 (fused_eikonal) on the tick: the order-2 planning blanket and the
+# order-1 goal-weighting field; and the blanket at the exact profile's
+# full-resolution width
+B1_CASES = {
+    "blanket_16x482": dict(shape=(16, 482), rounds=2, block=16, inner=40,
+                           scan_chunk=4, vscan=False),
+    "vscan_8x480": dict(shape=(8, 480), rounds=4, block=8, inner=24,
+                        scan_chunk=4, vscan=True),
+    "blanket_16x962": dict(shape=(16, 962), rounds=2, block=16, inner=40,
+                           scan_chunk=4, vscan=False),
+}
 
 
 def emit(obj) -> None:
@@ -180,6 +191,38 @@ def bound(cells: int, bytes_per_cell: float, ops: float):
     t_ops = ops / PEAK_F32_OPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def fused_links(n: int, kw: dict) -> int:
+    """The chain of a fused_eikonal launch on n x n grids: row blocks x 2
+    passes x rounds x scan rounds, one cluster barrier each (the ghost rows
+    spare one a pass)."""
+    return (-(-n // kw["block"]) * 2 * kw["rounds"]
+            * (kw["inner"] // kw["scan_chunk"]))
+
+
+def fused_breakdown(trav, src, kw: dict, cluster=None, reps: int = 5):
+    """Where a fused_eikonal launch spends its time: inner 0 (loads, column
+    scans, the row-block chain), then scan_chunk 1, the schedule's and
+    ``inner`` (one scan round a row block).  A launch less inner 0's is
+    scan rounds x the µs of a round (a block's row scans, the ghost rows'
+    stores, a cluster barrier) + passes x the µs of a local pass, solved
+    from chunk 1 and ``inner`` as if a pass cost the same at each chunk."""
+    from peanut_tpu_torch.kernels.fmm_fused import fused_eikonal
+
+    def run(**over):
+        return cuda_ms(lambda: fused_eikonal(trav, src, cluster=cluster,
+                                             **{**kw, **over}), reps=reps)
+    inner, chunk, n = kw["inner"], kw["scan_chunk"], trav.shape[1]
+    t0 = run(inner=0)
+    t = {c: run(scan_chunk=c) for c in (1, chunk, inner)}
+    relax = fused_links(n, {**kw, "inner": 1, "scan_chunk": 1})
+    us_round = (t[1] - t[inner]) / (relax * inner - relax) * 1e3
+    us_pass = ((t[inner] - t0) * 1e3 - relax * us_round) / (relax * inner)
+    links = fused_links(n, kw)
+    return {"ms_inner0": t0, "ms_by_scan_chunk": t, "scan_rounds": links,
+            "us_per_scan_round_schedule": (t[chunk] - t0) / links * 1e3,
+            "us_per_scan_round": us_round, "us_per_local_pass": us_pass}
 
 
 # ---------------------------------------------------------------------------
@@ -912,10 +955,6 @@ def main() -> int:
         fail(f"kernel build failed: {e}")
     from peanut_tpu_torch.kernels import fmm_fused, fmm_sweep, roi_window
     smem = {  # dynamic shared memory per block at the main path's shapes
-        "fused_eikonal_482_block16":
-            fmm_fused._lib().fused_eikonal_smem_bytes(482, 482, 16),
-        "fused_eikonal_480_block8":
-            fmm_fused._lib().fused_eikonal_smem_bytes(480, 480, 8),
         "roi_window_bf16_p7_26x274":
             roi_window._lib().roi_window_smem_bytes(1, 7, 26, 274),
         "roi_window_f32_p14_26x274":
@@ -940,6 +979,22 @@ def main() -> int:
                 "smem_bytes": plan.smem_bytes,
                 "max_active_clusters": fmm_sweep.resident_clusters(
                     order, n, 16, dev)}
+    # B1's plans: its blocks split the rows as B4's do, with ghost rows and
+    # the column scans' staging in their shared memory
+    for p in B1_CASES.values():
+        (b, n), block, chunk = p["shape"], p["block"], p["scan_chunk"]
+        plan = fmm_sweep.launch_plan(1, torch.empty(b, n, n, device=dev),
+                                     block, fused_chunk=chunk)
+        smem_c = fmm_fused._lib().fused_eikonal_smem_bytes(n, n, block,
+                                                           plan.seg, chunk)
+        if smem_c != plan.smem_bytes:
+            fail(f"fused_eikonal plan at {b}x{n}: {plan.smem_bytes} bytes "
+                 f"of shared memory, the kernel counts {smem_c}")
+        sweep_plans[f"fused_eikonal_{b}x{n}"] = {
+            "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
+            "block": block, "smem_bytes": plan.smem_bytes,
+            "max_active_clusters": fmm_sweep.resident_clusters(
+                1, n, block, dev, (n, chunk))}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "nvcc_seconds": round(_build.build_seconds, 2),
           "dir": str(_build.build_dir()), "dynamic_smem_bytes": smem,
@@ -970,25 +1025,28 @@ def main() -> int:
     results = {}
     ok = True
 
-    # B1: the order-2 planning blanket and the order-1 goal-weighting field
-    b1_cases = {
-        "blanket_16x482": dict(shape=(16, 482), rounds=2, block=16, inner=40,
-                               scan_chunk=4, vscan=False),
-        "vscan_8x480": dict(shape=(8, 480), rounds=4, block=8, inner=24,
-                            scan_chunk=4, vscan=True),
-    }
-    for case, p in b1_cases.items():
+    # B1 (B1_CASES); bit-equal required.  The plain version at 16 x 962^2
+    # is timed by the one call it is compared by
+    for case, p in B1_CASES.items():
         (b, n), kw = p["shape"], {k: v for k, v in p.items() if k != "shape"}
         trav_np, src_np = plans(rng, b, n)
         trav = torch.as_tensor(trav_np, device=dev)
         src = torch.as_tensor(src_np, device=dev)
         got = fused_eikonal(trav, src, **kw)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
         want = fused_eikonal_reference(trav, src, **kw)
+        t1.record()
         torch.cuda.synchronize()
-        cmp = compare(got, want, TOL)
+        cmp = dict(compare(got, want, TOL),
+                   bit_equal=bool(torch.equal(got, want)))
         ms = cuda_ms(lambda: fused_eikonal(trav, src, **kw), reps=10)
-        plain_ms = cuda_ms(lambda: fused_eikonal_reference(trav, src, **kw),
-                           reps=1)
+        plain_ms = (t0.elapsed_time(t1) if n > 482 else cuda_ms(
+            lambda: fused_eikonal_reference(trav, src, **kw), reps=1))
+        plan = fmm_sweep.launch_plan(1, trav, kw["block"],
+                                     fused_chunk=kw["scan_chunk"])
+        links = fused_links(n, kw)
         cells = b * n * n
         ops = cells * kw["rounds"] * 2 * (
             GODUNOV1_OPS * kw["inner"]
@@ -996,9 +1054,12 @@ def main() -> int:
         if kw["vscan"]:
             ops += cells * kw["rounds"] * 2 * SCAN_OPS
         bound_ms, bound_by = bound(cells, 2 + 4, ops)
-        results[f"B1_{case}"] = dict(cmp, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by)
-        ok &= cmp["ok"]
+        results[f"B1_{case}"] = dict(
+            cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, cluster=plan.cluster, blocks_x_passes=links,
+            us_per_pass=ms / links * 1e3,
+            chain_floor_ms=links * barrier_us.get(plan.cluster, 0.0) / 1e3)
+        ok &= cmp["ok"] and cmp["bit_equal"]
         emit({"phase": "kernel", "kernel": f"fused_eikonal/{case}",
               **results[f"B1_{case}"]})
 
@@ -1081,23 +1142,14 @@ def main() -> int:
     if not ok:
         fail("a kernel disagrees with its plain version")
 
-    # where a fused_eikonal launch spends its time: one round at the blanket
-    # shape with the row scans every pass, every 4th pass (the schedule) and
-    # once per block; the differences price one scan phase (both row scans
-    # of a block) and one Jacobi stencil pass
-    trav_np, src_np = plans(rng, 16, 482)
-    trav = torch.as_tensor(trav_np, device=dev)
-    src = torch.as_tensor(src_np, device=dev)
-    t_chunk = {c: cuda_ms(lambda c=c: fused_eikonal(
-        trav, src, rounds=1, block=16, inner=40, scan_chunk=c,
-        vscan=False), reps=5) for c in (1, 4, 40)}
-    relax = 2 * -(-482 // 16)          # block relaxations in one round
-    scan_us = (t_chunk[1] - t_chunk[40]) / (relax * 39) * 1e3
-    stencil_us = (t_chunk[40] - relax * scan_us / 1e3) / (relax * 40) * 1e3
+    # where a fused_eikonal launch spends its time, at the blanket's shape
+    p = B1_CASES["blanket_16x482"]
+    trav_np, src_np = plans(rng, *p["shape"])
     emit({"phase": "kernel_breakdown", "kernel": "fused_eikonal",
-          "round_ms_by_scan_chunk": t_chunk,
-          "scan_phase_us_per_block": scan_us,
-          "stencil_pass_us_per_block": stencil_us})
+          "case": "blanket_16x482", **fused_breakdown(
+              torch.as_tensor(trav_np, device=dev),
+              torch.as_tensor(src_np, device=dev),
+              {k: v for k, v in p.items() if k != "shape"})})
 
     # ---- 4. the slice: 16-env explore-only GT-semantics serving --------
     cfg = NavConfig(use_gt_seg=1, only_explore=1, switch_step=999)
@@ -1203,7 +1255,7 @@ def main() -> int:
     for name_, src_file, replaces, keys, count_key in (
             ("fused_eikonal", "peanut_tpu_torch/kernels/csrc/fmm_fused.cu",
              "peanut_tpu/kernels/fmm_fused.py:256",
-             ("B1_blanket_16x482", "B1_vscan_8x480"), "fused_eikonal"),
+             tuple(f"B1_{k}" for k in B1_CASES), "fused_eikonal"),
             ("block_sweep2", "peanut_tpu_torch/kernels/csrc/fmm_sweep2.cu",
              "peanut_tpu/kernels/fmm_pallas.py:298",
              ("B2_down_16x482", "B2_up_16x482", "B2_down_1x960",
@@ -1222,8 +1274,8 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": None,
             "cases": {k: {kk: results[k][kk] for kk in
-                          ("ms", "plain_ms", "bound_ms", "max_abs_err")
-                          + SWEEP_FIELDS if kk in results[k]}
+                          ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                           "bit_equal") + SWEEP_FIELDS}
                       for k in keys}})
     keys = ("B4_down_1x482", "B4_up_1x482", "B4_down_1x960",
             "B4_composed_16x482", "B4_down_1x242")

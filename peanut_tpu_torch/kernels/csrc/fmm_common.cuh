@@ -33,12 +33,17 @@ __device__ __forceinline__ float fma1(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
 }
 
+// The root is taken only where it is used: for |a - b| < 1 the radicand
+// 2 - (a - b)^2 lies in (1, 2], where sqrtf stays on its short path; a
+// radicand of 0 (|a - b| >= sqrt 2, every cell beside the front) would
+// branch to its slow path for a value that is thrown away.
 __device__ __forceinline__ float godunov(float a, float b) {
   float diff = a - b;
   float direct = fminf(a, b) + 1.0f;
-  float disc = sqrtf(fmaxf(fma1(-diff, diff, 2.0f), 0.0f));
+  bool one_axis = fabsf(diff) >= 1.0f;
+  float disc = sqrtf(one_axis ? 1.0f : fma1(-diff, diff, 2.0f));
   float both = 0.5f * ((a + b) + disc);
-  return fabsf(diff) >= 1.0f ? direct : both;
+  return one_axis ? direct : both;
 }
 
 // ---- cluster sweeps ------------------------------------------------------

@@ -1,59 +1,91 @@
-// Whole first-order eikonal solve, one CUDA block per grid (sm_90a).
+// Whole first-order eikonal solve, one thread-block cluster per grid
+// (sm_90a).
 //
 // Replaces the TPU kernel peanut_tpu/kernels/fmm_fused.py::fused_eikonal
 // (body _fused_kernel, helpers _relax_block, _seg_scan_lr, vscan_chunks).
 // Computes what it computes: `rounds` times { optional column min-plus
-// scans; a down pass and an up pass over `block`-row blocks }, each block
-// relaxed by inner/scan_chunk rounds of { segmented row min-plus scans in
-// both directions; scan_chunk Jacobi Godunov passes } against its boundary
-// rows.  Down pass: top = the previous block's relaxed last row (carried),
-// bottom = the next block's first row as it stands in the grid.  Up pass:
-// bottom = the next block's relaxed first row (carried), top = the previous
-// block's last row as it stands.  Walls are BIG; a source on a wall is a
-// source.  The last block may be ragged (482 = 30 x 16 + 2): rows past H
-// do not exist and the boundary beyond them is BIG, which is what the TPU
-// kernel's wall padding amounts to.
+// scans; a down pass and an up pass over `block`-row blocks }, each row
+// block relaxed by inner/scan_chunk rounds of { segmented row min-plus
+// scans in both directions; scan_chunk Jacobi Godunov passes } against its
+// boundary rows.  Down pass: top = the previous row block's relaxed last
+// row (carried), bottom = the next row block's first row as it stands.  Up
+// pass: bottom = the next row block's relaxed first row (carried), top =
+// the previous row block's last row as it stands.  Walls are BIG; a source
+// on a wall is a source.  The last row block may be ragged (482 = 30 x 16
+// + 2): rows past H do not exist and the boundary beyond them is BIG, which
+// is what the TPU kernel's wall padding amounts to.
 //
-// Design.  One block of NT threads per grid (batch item); the grid lives in
-// global memory (the output buffer, L2-resident at 16 x 482^2 x 4 B), the
-// current row block in shared memory, double-buffered so every stencil pass
-// reads only the previous pass (Jacobi, as the TPU kernel does: an
-// in-place update would be Gauss-Seidel and a different schedule).  The
-// row scans are the same Hillis-Steele scans as the plain version
-// (fmm.py::_RowScan), a warp per row held in registers (shuffles for the
-// short shifts), so they need no block-wide barrier and no shared memory
-// traffic; the column scans run the same scan block-wide through shared
-// memory over 16-column chunks of the whole grid.  The stencil runs a
-// thread per column down the block.  The kernel keeps the plain version's
-// operation order and its arithmetic: the one multiply-add of the update
-// rounds once (fma1: the FMA XLA contracts on the CPU, which the plain
-// version takes through float64, fmm.py::_fma), sqrtf is correctly
-// rounded, and nothing else can contract.  So its result equals the plain
-// PyTorch version's on the card bit for bit.
+// Design.  A cluster of C CUDA blocks per grid; C and the rows each block
+// owns come from the launch plan (fmm_sweep.py::sweep_plan with `fused`).
+// The grid lives in global memory (the output buffer, L2-resident at
+// 16 x 482^2 x 4 B); the cluster barrier (barrier.cluster arrive.release /
+// wait.acquire) orders the blocks' writes and reads of it.  As in the block
+// sweep (fmm_sweep.cu), the cluster splits every row block by rows: block q
+// owns the rows [q * seg, q * seg + seg) of each row block and scans them
+// alone, whole, in the plain version's association.  Unlike there, a warp
+// scans a whole row in registers (hs_step), so a block's few rows scan side
+// by side without block barriers (B4's block-wide scans take a block's
+// rows one after another, all warps on each), and a block also holds the
+// scan_chunk rows beyond its own on each side (ghost rows, clipped to the
+// row block).  After a round's scans each block stores its scanned rows
+// into the shared memory of the peers that hold them as ghost rows (DSMEM
+// stores, which need not be waited for), and after the round's cluster
+// barrier runs the round's scan_chunk Jacobi passes alone, pass k over its
+// own rows and scan_chunk - k ghost rows a side, with block barriers.  A
+// ghost row is computed from the same inputs by the same arithmetic as its
+// owner computes it, so it holds the owner's values bit for bit, and a
+// round costs one cluster barrier instead of one a pass.
+//
+// Races.  A block receives its ghost rows into one of two buffers, by the
+// parity of the round: a buffer is written again two rounds later, by a
+// peer that has passed the barrier its reader reached after reading it.
+// The carried boundary row is the previous row block's edge row in the grid,
+// which its owner wrote before the barrier that ends the first round's
+// scans; the row "as it stands" is read after that barrier too, and its
+// owner rewrites it only after the next row block's first barrier, which
+// the reader reaches after its read.  So a row block needs no barrier of
+// its own, and neither do the passes and rounds (without column scans).
+// The column scans (vscan) read every row of the grid and write a band of
+// columns: a barrier before and after them.  Blocks without rows in a
+// ragged row block still reach every barrier, and a last barrier keeps
+// every block alive while a peer may read its shared memory.
+//
+// Column scans.  Block q takes a band of ceil(W / C) columns, 16 at a
+// time, staged transposed in shared memory (walls !trav && !src) and
+// scanned as lines of H cells by the same warp scans, a column a warp
+// (fmm.py::_seg_scan_1d, dim -2).  The stencil and the scans keep the plain
+// version's arithmetic (fmm_common.cuh: fma1, a correctly rounded sqrtf),
+// so the result equals the plain PyTorch version
+// (fmm_fused.py::fused_eikonal_reference) bit for bit.
 //
 // Bound (as chip_smoke.py counts it).  Bytes: read trav+src (2 B/cell),
 // write the field (4 B/cell): 16 x 482^2 x 6 B = 22 MB -> 6.7 us at
 // 3.35 TB/s.  Work: every row is relaxed 2 x rounds times, each time with
 // inner stencil passes (17 operations/cell) and 2 x inner/chunk sequential
 // min-plus scans (3 operations/cell): 16 x 482^2 x 2 x 2 x (17 x 40 +
-// 6 x 10) = 1.1e10 operations -> 0.16 ms at 67 TFLOP/s fp32.  The real
-// limit is latency: ceil(482/16) = 31 dependent blocks x 2 passes x rounds,
-// each with inner dependent passes behind a block-wide barrier, on 16 of
-// 132 SMs.
+// 6 x 10) = 1.1e10 operations -> 0.16 ms at 67 TFLOP/s fp32.  What holds
+// it is the chain: ceil(H/block) row blocks x 2 passes x rounds x
+// inner/scan_chunk scan rounds (1240 at the 16 x 482^2 blanket, 2880 at the
+// 8 x 480^2 column-scan solve), each a block's row scans, the ghost rows'
+// stores, one cluster barrier (~0.7 us on the H100,
+// scripts/torch_sweep_breakdown.py) and scan_chunk local passes, which
+// with the ghost rows do twice the own rows' work at the blanket: ~9.2 us
+// a round there on the H100, ~3.1 of it the scans, the stores and the
+// barrier (chip_smoke.py's kernel_breakdown).
 
 #include "fmm_common.cuh"
 
 namespace {
 
-constexpr int NT = 512;          // threads per block
-constexpr int K_MAX = 32;        // cells per thread in a column-scan step
-constexpr int VSCAN_COLS = 16;   // columns per column-scan chunk
+constexpr int NT = SWEEP_NT;
+constexpr int VSCAN_COLS = NT / 32;   // columns a column-scan step stages
 
-// One forward (reverse) Hillis-Steele step of shift S over a row held in
+// One forward (reverse) Hillis-Steele step of shift S over a line held in
 // registers by one warp: lane l owns cells c = l + 32 k, k < KW.  Cells
-// before the start (after the end, or past W) are (0, BIG).  Shifts below
-// 32 read other lanes through shuffles, larger ones other registers of the
-// same lane.  The arithmetic is the plain version's (fmm.py::_RowScan).
+// before the start (after the end, or past the line) are (0, BIG).  Shifts
+// below 32 read other lanes through shuffles, larger ones other registers
+// of the same lane; either way every cell reads its neighbour's value from
+// before the step.  The arithmetic is the plain version's (fmm.py::_RowScan).
 template <int KW, int S, bool REVERSE>
 __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
                                         int lane) {
@@ -61,24 +93,25 @@ __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
     const unsigned full = 0xffffffffu;
     const int src = REVERSE ? (lane + S) & 31 : (lane - S) & 31;
     const bool same_k = REVERSE ? lane + S < 32 : lane >= S;
-    float sa[KW], sb[KW];
+    // a cell whose neighbour is in the other lane's next (previous)
+    // register: walk the registers so that it is read before it changes
+    float sa = __shfl_sync(full, a[REVERSE ? 0 : KW - 1], src);
+    float sb = __shfl_sync(full, b[REVERSE ? 0 : KW - 1], src);
 #pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      sa[k] = __shfl_sync(full, a[k], src);
-      sb[k] = __shfl_sync(full, b[k], src);
-    }
-#pragma unroll
-    for (int k = 0; k < KW; ++k) {
-      const int kn = REVERSE ? k + 1 : k - 1;   // the other lane's register
+    for (int i = 0; i < KW; ++i) {
+      const int k = REVERSE ? i : KW - 1 - i;
+      const int kn = REVERSE ? k + 1 : k - 1;
       const bool kn_ok = REVERSE ? kn < KW : kn >= 0;
-      float a_n = same_k ? sa[k] : (kn_ok ? sa[REVERSE ? (k + 1) % KW
-                                                        : (k + KW - 1) % KW]
-                                          : 0.0f);
-      float b_n = same_k ? sb[k] : (kn_ok ? sb[REVERSE ? (k + 1) % KW
-                                                        : (k + KW - 1) % KW]
-                                          : BIG);
+      const float na = kn_ok ? __shfl_sync(full, a[kn_ok ? kn : 0], src)
+                             : 0.0f;
+      const float nb = kn_ok ? __shfl_sync(full, b[kn_ok ? kn : 0], src)
+                             : BIG;
+      const float a_n = same_k ? sa : na;
+      const float b_n = same_k ? sb : nb;
       b[k] = fminf(b[k], b_n + a[k]);
       a[k] = fminf(a_n + a[k], BIG);
+      sa = na;
+      sb = nb;
     }
   } else {
     constexpr int M = S / 32;
@@ -88,8 +121,8 @@ __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
       const int k = REVERSE ? i : KW - 1 - i;
       const int kn = REVERSE ? k + M : k - M;
       const bool ok = REVERSE ? kn < KW : kn >= 0;
-      float a_n = ok ? a[ok ? kn : 0] : 0.0f;
-      float b_n = ok ? b[ok ? kn : 0] : BIG;
+      const float a_n = ok ? a[ok ? kn : 0] : 0.0f;
+      const float b_n = ok ? b[ok ? kn : 0] : BIG;
       b[k] = fminf(b[k], b_n + a[k]);
       a[k] = fminf(a_n + a[k], BIG);
     }
@@ -97,8 +130,8 @@ __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
 }
 
 template <int KW, bool REVERSE>
-__device__ __forceinline__ void hs_row(float (&a)[KW], float (&b)[KW],
-                                       int lane) {
+__device__ __forceinline__ void hs_line(float (&a)[KW], float (&b)[KW],
+                                        int lane) {
   hs_step<KW, 1, REVERSE>(a, b, lane);
   hs_step<KW, 2, REVERSE>(a, b, lane);
   hs_step<KW, 4, REVERSE>(a, b, lane);
@@ -111,99 +144,87 @@ __device__ __forceinline__ void hs_row(float (&a)[KW], float (&b)[KW],
   if constexpr (KW > 16) hs_step<KW, 512, REVERSE>(a, b, lane);
 }
 
-// Both row scans of one row, in place on `row`, by one warp, in registers
-// (W <= 32 * KW).  Steps with shifts >= W change nothing, so running all
-// log2(32 * KW) of them equals the plain version's `while s < n` loop.
+// Both scans of one line of n <= 32 KW cells (walls at `wline`), forward,
+// then reverse over its result, in place, by one warp in registers, so a
+// block scans its lines side by side without block barriers.  Steps with
+// shifts >= n change nothing, so running all log2(32 KW) of them equals the
+// plain version's `while s < n` loop.
 template <int KW>
-__device__ void warp_row_scans(float* row, const uint8_t* wrow, int W) {
+__device__ void warp_line_scans(float* line, const uint8_t* wline, int n) {
   const int lane = threadIdx.x & 31;
   for (int dir = 0; dir < 2; ++dir) {
     float a[KW], b[KW];
 #pragma unroll
     for (int k = 0; k < KW; ++k) {
       const int c = lane + 32 * k;
-      const bool real = c < W;
-      const bool w = real && wrow[c];
+      const bool real = c < n;
+      const bool w = real && wline[c];
       a[k] = real ? (w ? BIG : 1.0f) : 0.0f;
-      b[k] = real ? (w ? BIG : row[c]) : BIG;
+      b[k] = real ? (w ? BIG : line[c]) : BIG;
     }
     if (dir == 0)
-      hs_row<KW, false>(a, b, lane);
+      hs_line<KW, false>(a, b, lane);
     else
-      hs_row<KW, true>(a, b, lane);
+      hs_line<KW, true>(a, b, lane);
 #pragma unroll
     for (int k = 0; k < KW; ++k) {
       const int c = lane + 32 * k;
-      if (c < W) row[c] = fminf(row[c], b[k]);
+      if (c < n) line[c] = fminf(line[c], b[k]);
     }
     __syncwarp();
   }
 }
 
-// Relax one block (R rows of W cells, walls wl) against boundary rows
-// top/bottom with NT threads; returns the buffer that holds the result
-// (cur or nxt).
-template <int NT, int KW>
-__device__ float* relax_block(float* cur, float* nxt, const uint8_t* wl,
-                              const float* top, const float* bottom, int R,
-                              int W, int inner, int scan_chunk) {
-  for (int it = 0; it < inner / scan_chunk; ++it) {
-    // a warp per row
-    for (int r = threadIdx.x / 32; r < R; r += NT / 32)
-      warp_row_scans<KW>(cur + (size_t)r * W, wl + (size_t)r * W, W);
-    __syncthreads();
-    for (int p = 0; p < scan_chunk; ++p) {
-      // a thread per column, down the block's rows
-      for (int c = threadIdx.x; c < W; c += NT) {
-        for (int r = 0; r < R; ++r) {
-          int e = r * W + c;
-          float up = r > 0 ? cur[e - W] : top[c];
-          float down = r < R - 1 ? cur[e + W] : bottom[c];
-          float left = c > 0 ? cur[e - 1] : BIG;
-          float right = c < W - 1 ? cur[e + 1] : BIG;
-          float cand = godunov(fminf(up, down), fminf(left, right));
-          nxt[e] = wl[e] ? BIG : fminf(cur[e], cand);
-        }
-      }
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
+// The shared-memory layout of a block, the same in every block of the
+// cluster.  The row phase and the column scans use the same memory in
+// turn; fused_eikonal_smem_bytes is the larger of the two.  G rows hold a
+// block's own rows and its ghost rows, S a side.
+struct Layout {
+  int W, H, seg, S, G;
+  __host__ __device__ Layout(int H_, int W_, int block, int seg_, int chunk)
+      : W(W_), H(H_), seg(seg_), S(imin(chunk, block)),
+        G(imin(block, seg_ + 2 * S)) {}
+  // floats: buf0, buf1 (G x W), rcv0, rcv1 (2S x W: S slots above the own
+  // rows, S below), top, bottom (W); the walls (G x W bytes)
+  __host__ __device__ size_t row_bytes() const {
+    const size_t w = W, g = G;
+    return (2 * g * w + 4 * (size_t)S * w + 2 * w) * 4 + g * w;
   }
-  return cur;
-}
+  // VSCAN_COLS columns of H cells and their walls, at a pitch of H + 1
+  // (the staging writes a row's columns to distinct banks)
+  __host__ __device__ size_t col_bytes() const {
+    return (size_t)VSCAN_COLS * (H + 1) * 5;
+  }
+  __host__ __device__ size_t bytes() const {
+    const size_t r = row_bytes(), c = col_bytes();
+    return r > c ? r : c;
+  }
+};
 
-// Hillis-Steele segmented min-plus scan over `n` cells laid out as lines of
-// `len` cells with stride `step` between consecutive cells of a line
-// (step 1: rows; step = chunk width: columns).  sa/sb hold (a, b) on entry
-// (walls (BIG, BIG), others (1, d)); on exit sb holds the scanned b.
-__device__ void hs_scan(float* sa, float* sb, int n, int len, int step,
-                        bool reverse) {
-  for (int s = 1; s < len; s <<= 1) {
-    float na[K_MAX], nb[K_MAX];
-#pragma unroll
-    for (int j = 0; j < K_MAX; ++j) {
-      int e = threadIdx.x + j * NT;
-      if (e < n) {
-        int pos = (step == 1) ? (e % len) : (e / step);
-        bool has = reverse ? (pos + s < len) : (pos >= s);
-        int o = reverse ? e + s * step : e - s * step;
-        float a_n = has ? sa[o] : 0.0f;
-        float b_n = has ? sb[o] : BIG;
-        float a = sa[e];
-        nb[j] = fminf(sb[e], b_n + a);
-        na[j] = fminf(a_n + a, BIG);
-      }
+// One Jacobi pass over the rows [a, b) of a row block whose rows from glo
+// to ghi are held in `cu` (pitch W), into `nx`.  Rows 0 and R - 1 read the
+// fixed boundary rows `top` and `bottom`; a pass never reaches another row
+// outside [glo, ghi).  A thread takes a column and walks its rows with the
+// values above, at and below the cell in registers; the rows' updates are
+// independent, so the unrolled walk overlaps their loads and arithmetic.
+__device__ void stencil_pass(const float* cu, float* nx, const uint8_t* wl,
+                             const float* top, const float* bottom, int a,
+                             int b, int glo, int ghi, int W) {
+  for (int c = threadIdx.x; c < W; c += NT) {
+    const bool has_lf = c > 0, has_rt = c + 1 < W;
+    int l = (a - glo) * W + c;
+    float up = a > glo ? cu[l - W] : top[c];
+    float mid = cu[l];
+#pragma unroll 4
+    for (int i = a; i < b; ++i, l += W) {
+      const float dn = i + 1 < ghi ? cu[l + W] : bottom[c];
+      const float lf = has_lf ? cu[l - 1] : BIG;
+      const float rt = has_rt ? cu[l + 1] : BIG;
+      const float cand = godunov(fminf(up, dn), fminf(lf, rt));
+      nx[l] = wl[l] ? BIG : fminf(mid, cand);
+      up = mid;
+      mid = dn;
     }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < K_MAX; ++j) {
-      int e = threadIdx.x + j * NT;
-      if (e < n) {
-        sa[e] = na[j];
-        sb[e] = nb[j];
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -212,127 +233,217 @@ __global__ void __launch_bounds__(NT, 1)
 fused_eikonal_kernel(const uint8_t* __restrict__ trav,
                      const uint8_t* __restrict__ src, float* __restrict__ out,
                      int H, int W, int rounds, int block, int inner,
-                     int scan_chunk, int vscan) {
+                     int scan_chunk, int vscan, int seg) {
   extern __shared__ float smem[];
+  const Cluster cl = cluster_init(block, seg);
+  const int C = cl.size, lo = cl.c0;
   const size_t plane = (size_t)H * W;
-  const uint8_t* tv = trav + blockIdx.x * plane;
-  const uint8_t* sr = src + blockIdx.x * plane;
-  float* D = out + blockIdx.x * plane;
+  const uint8_t* tv = trav + cl.grid * plane;
+  const uint8_t* sr = src + cl.grid * plane;
+  float* D = out + cl.grid * plane;
 
-  const int S = imax(block * W, H * VSCAN_COLS);
-  float* cur = smem;
-  float* nxt = cur + S;
-  float* sa = nxt + S;
-  float* rowA = sa + S;
-  float* rowB = rowA + W;
-  uint8_t* wl = reinterpret_cast<uint8_t*>(rowB + W);
+  const Layout L(H, W, block, seg, scan_chunk);
+  const int warp = threadIdx.x / 32;
+  // the row phase
+  float* buf0 = smem;                      // own and ghost rows, twice
+  float* buf1 = buf0 + (size_t)L.G * W;
+  float* rcv0 = buf1 + (size_t)L.G * W;    // ghost rows received, by parity
+  float* rcv1 = rcv0 + 2 * (size_t)L.S * W;
+  float* top = rcv1 + 2 * (size_t)L.S * W; // the row above the row block
+  float* bottom = top + W;                 // the row below it
+  uint8_t* wl = reinterpret_cast<uint8_t*>(bottom + W);   // walls, G rows
+  // the column scans, in the same memory: a column to a warp
+  const int HP = H + 1;
+  float* col = smem;
+  uint8_t* cw = reinterpret_cast<uint8_t*>(col + (size_t)VSCAN_COLS * HP);
 
-  for (size_t e = threadIdx.x; e < plane; e += NT)
-    D[e] = sr[e] ? 0.0f : BIG;
+  const int S = L.S;                       // ghost rows a side
+  const int n_rounds = inner / scan_chunk;
+  const int nb = (H + block - 1) / block;
+  auto owned = [&](int r) {
+    const int i = r % block;
+    return i >= lo && i < lo + seg;
+  };
+
+  for (int r = 0; r < H; ++r)
+    if (owned(r))
+      for (int c = threadIdx.x; c < W; c += NT) {
+        const size_t g = (size_t)r * W + c;
+        D[g] = sr[g] ? 0.0f : BIG;
+      }
   __syncthreads();
 
-  const int nb = (H + block - 1) / block;
+  int par = 0;            // the published buffer of the next scan round
   for (int rd = 0; rd < rounds; ++rd) {
     if (vscan) {
-      // column scans, both directions, chunk by chunk (fused
-      // vscan_chunks): e = r * cw + cc within a chunk of cw columns
-      for (int c0 = 0; c0 < W; c0 += VSCAN_COLS) {
-        int cw = imin(VSCAN_COLS, W - c0);
-        int n = H * cw;
-        for (int dir = 0; dir < 2; ++dir) {
-          for (int e = threadIdx.x; e < n; e += NT) {
-            size_t g = (size_t)(e / cw) * W + c0 + e % cw;
-            bool w = !tv[g] && !sr[g];
-            sa[e] = w ? BIG : 1.0f;
-            nxt[e] = w ? BIG : D[g];
-          }
-          __syncthreads();
-          hs_scan(sa, nxt, n, H, cw, dir == 1);
-          for (int e = threadIdx.x; e < n; e += NT) {
-            size_t g = (size_t)(e / cw) * W + c0 + e % cw;
-            D[g] = fminf(D[g], nxt[e]);
-          }
-          __syncthreads();
+      cluster_barrier(C);   // every row of the grid is written
+      const int cb = (W + C - 1) / C;
+      const int c_hi = imin(W, (cl.rank + 1) * cb);
+      for (int c0 = cl.rank * cb; c0 < c_hi; c0 += VSCAN_COLS) {
+        const int nc = imin(VSCAN_COLS, c_hi - c0);
+        for (int e = threadIdx.x; e < nc * H; e += NT) {
+          const int r = e / nc, q = e - r * nc;
+          const size_t g = (size_t)r * W + c0 + q;
+          col[q * HP + r] = __ldcg(D + g);
+          cw[q * HP + r] = !tv[g] && !sr[g];
         }
+        __syncthreads();
+        if (warp < nc)
+          warp_line_scans<KW>(col + (size_t)warp * HP,
+                              cw + (size_t)warp * HP, H);
+        __syncthreads();
+        for (int e = threadIdx.x; e < nc * H; e += NT) {
+          const int r = e / nc, q = e - r * nc;
+          D[(size_t)r * W + c0 + q] = col[q * HP + r];
+        }
+        __syncthreads();    // the lines are read before the next stage
       }
+      cluster_barrier(C);   // every band is back in the grid
     }
-    for (int pass = 0; pass < 2; ++pass) {
-      const bool up_pass = pass == 1;
-      // carried boundary row: rowA (top) going down, rowB (bottom) going up
-      float* carry = up_pass ? rowB : rowA;
-      for (int c = threadIdx.x; c < W; c += NT) carry[c] = BIG;
+    for (int pass = 0; pass < 2; ++pass)
       for (int j = 0; j < nb; ++j) {
-        int k = up_pass ? nb - 1 - j : j;
-        int r0 = k * block;
-        int R = imin(block, H - r0);
-        int n = R * W;
-        const float* blk_in = D + (size_t)r0 * W;
-        for (int e = threadIdx.x; e < n; e += NT) {
-          size_t g = (size_t)r0 * W + e;
-          cur[e] = blk_in[e];
-          wl[e] = !tv[g] && !sr[g];
-        }
-        // the uncarried boundary row, as it stands in the grid
-        for (int c = threadIdx.x; c < W; c += NT) {
-          if (!up_pass)
-            rowB[c] = r0 + R < H ? D[(size_t)(r0 + R) * W + c] : BIG;
-          else
-            rowA[c] = k > 0 ? D[(size_t)(r0 - 1) * W + c] : BIG;
+        const int k = pass ? nb - 1 - j : j;
+        const int r0 = k * block, R = imin(block, H - r0);
+        // own rows [lo, lo + nr), held with the ghost rows [glo, ghi)
+        const int nr = imax(0, imin(seg, R - lo));
+        const int glo = imax(0, lo - S), ghi = imin(R, lo + nr + S);
+        const size_t own = (size_t)(lo - glo) * W;
+        if (nr > 0) {
+          for (int e = threadIdx.x; e < nr * W; e += NT)
+            buf0[own + e] = __ldcg(D + (size_t)(r0 + lo) * W + e);
+          for (int e = threadIdx.x; e < (ghi - glo) * W; e += NT) {
+            const size_t g = (size_t)(r0 + glo) * W + e;
+            wl[e] = !tv[g] && !sr[g];
+          }
         }
         __syncthreads();
-        float* res = relax_block<NT, KW>(cur, nxt, wl, rowA, rowB, R, W,
-                                         inner, scan_chunk);
-        float* blk_out = D + (size_t)r0 * W;
-        for (int e = threadIdx.x; e < n; e += NT) blk_out[e] = res[e];
-        const float* edge = up_pass ? res : res + (size_t)(R - 1) * W;
-        __syncthreads();   // relax_block's readers of carry are done
-        for (int c = threadIdx.x; c < W; c += NT) carry[c] = edge[c];
-        __syncthreads();
+
+        int p = 0;          // the buffer that holds the current rows
+        for (int it = 0; it < n_rounds; ++it, par ^= 1) {
+          float* cur = p ? buf1 : buf0;
+          float* rcv = par ? rcv1 : rcv0;
+          if (nr > 0) {
+            // a warp a row
+            for (int q = warp; q < nr; q += NT / 32)
+              warp_line_scans<KW>(cur + own + (size_t)q * W,
+                                  wl + own + (size_t)q * W, W);
+            __syncthreads();
+            // the scanned rows to the peers that hold them as ghost rows:
+            // slot i - lo2 + S above a peer's rows, S + i - lo2 - nr2 below
+            for (int q2 = 0; q2 < C; ++q2) {
+              const int lo2 = q2 * seg, nr2 = imax(0, imin(seg, R - lo2));
+              if (q2 == cl.rank || nr2 == 0) continue;
+              const bool above = q2 > cl.rank;
+              const int a = above ? imax(lo, lo2 - S) : lo;
+              const int b = above ? lo + nr : imin(lo + nr, lo2 + nr2 + S);
+              const int slot = above ? S - lo2 : S - lo2 - nr2;
+              float* dst = peer(rcv, q2);
+              for (int i = a; i < b; ++i)
+                for (int c = threadIdx.x; c < W; c += NT)
+                  dst[(size_t)(slot + i) * W + c] =
+                      cur[own + (size_t)(i - lo) * W + c];
+            }
+          }
+          // the round's ghost rows are in place; at the first round the
+          // previous row block's rows are in the grid
+          cluster_barrier(C);
+          if (nr == 0) continue;
+          if (it == 0) {
+            if (glo == 0)
+              for (int c = threadIdx.x; c < W; c += NT)
+                top[c] = r0 > 0 ? __ldcg(D + (size_t)(r0 - 1) * W + c) : BIG;
+            if (ghi == R)
+              for (int c = threadIdx.x; c < W; c += NT)
+                bottom[c] =
+                    r0 + R < H ? __ldcg(D + (size_t)(r0 + R) * W + c) : BIG;
+          }
+          // the ghost rows, as their owners scanned them
+          for (int e = threadIdx.x; e < (lo - glo) * W; e += NT)
+            cur[e] = rcv[(size_t)(glo - lo + S) * W + e];
+          for (int e = threadIdx.x; e < (ghi - lo - nr) * W; e += NT)
+            cur[own + (size_t)nr * W + e] = rcv[(size_t)S * W + e];
+          __syncthreads();
+          // pass s reaches scan_chunk - s rows beyond the own ones
+          for (int s = 1; s <= scan_chunk; ++s) {
+            const int ext = imin(scan_chunk - s, block);
+            stencil_pass(p ? buf1 : buf0, p ? buf0 : buf1, wl, top, bottom,
+                         imax(0, lo - ext), imin(R, lo + nr + ext), glo, ghi,
+                         W);
+            __syncthreads();
+            p ^= 1;
+          }
+        }
+        if (nr > 0) {
+          const float* res = (p ? buf1 : buf0) + own;
+          for (int e = threadIdx.x; e < nr * W; e += NT)
+            D[(size_t)(r0 + lo) * W + e] = res[e];
+        }
+        __syncthreads();    // the buffers are read before the next loads
       }
-    }
   }
-  for (size_t e = threadIdx.x; e < plane; e += NT)
-    if (D[e] >= HALF_BIG) D[e] = __int_as_float(0x7f800000);   // +inf
+  // every row is final; no block leaves while a peer may read its shared
+  // memory
+  cluster_barrier(C);
+  for (int r = 0; r < H; ++r)
+    if (owned(r))
+      for (int c = threadIdx.x; c < W; c += NT) {
+        const size_t g = (size_t)r * W + c;
+        if (__ldcg(D + g) >= HALF_BIG) D[g] = __int_as_float(0x7f800000);
+      }
 }
 
 }  // namespace
 
-extern "C" size_t fused_eikonal_smem_bytes(int H, int W, int block) {
-  size_t S = (size_t)imax(block * W, H * VSCAN_COLS);
-  return 3 * S * sizeof(float) + 2 * (size_t)W * sizeof(float) +
-         (size_t)block * W;
+extern "C" size_t fused_eikonal_smem_bytes(int H, int W, int block, int seg,
+                                           int scan_chunk) {
+  return Layout(H, W, block, seg, scan_chunk).bytes();
 }
 
-// (B, H, W) uint8 traversible/source masks -> (B, H, W) float32 distances,
-// +inf at walls and unreachable cells.  Launches on `stream`; returns the
-// cudaError_t of the launch.
+// Resident clusters of `cluster` blocks of `seg` rows each, into *out;
+// returns the cudaError_t of the query.  Lines (rows and columns) of up to
+// 512 cells take the kernel with 16 cells a lane, longer ones 32.
+extern "C" int fused_eikonal_max_clusters(int H, int W, int block, int seg,
+                                          int scan_chunk, int cluster,
+                                          int* out) {
+  const size_t smem = fused_eikonal_smem_bytes(H, W, block, seg, scan_chunk);
+  return imax(H, W) <= 512
+             ? max_active_clusters(fused_eikonal_kernel<16>, cluster, smem,
+                                   out)
+             : max_active_clusters(fused_eikonal_kernel<32>, cluster, smem,
+                                   out);
+}
+
 template <int KW>
 static int launch(const uint8_t* trav, const uint8_t* src, float* out, int B,
                   int H, int W, int rounds, int block, int inner,
-                  int scan_chunk, int vscan, cudaStream_t stream) {
-  size_t smem = fused_eikonal_smem_bytes(H, W, block);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_eikonal_kernel<KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                  int scan_chunk, int vscan, int cluster, int seg,
+                  cudaStream_t stream) {
+  const size_t smem = fused_eikonal_smem_bytes(H, W, block, seg, scan_chunk);
+  cudaError_t err = cluster_attributes(fused_eikonal_kernel<KW>, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_eikonal_kernel<KW><<<B, NT, smem, stream>>>(
-      trav, src, out, H, W, rounds, block, inner, scan_chunk, vscan);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_eikonal_kernel<KW>, trav, src, out, H,
+                           W, rounds, block, inner, scan_chunk, vscan, seg);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// (B, H, W) uint8 traversible/source masks -> (B, H, W) float32 distances,
+// +inf at walls and unreachable cells, B clusters of `cluster` blocks, each
+// owning `seg` rows of every row block (the launch plan's).  Launches on
+// `stream`; returns the cudaError_t of the launch.
 extern "C" int fused_eikonal_launch(const uint8_t* trav, const uint8_t* src,
                                     float* out, int B, int H, int W,
                                     int rounds, int block, int inner,
-                                    int scan_chunk, int vscan,
-                                    void* stream) {
+                                    int scan_chunk, int vscan, int cluster,
+                                    int seg, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (W <= 32 * 16)
+  if (imax(H, W) <= 512)
     return launch<16>(trav, src, out, B, H, W, rounds, block, inner,
-                      scan_chunk, vscan, st);
-  if (W <= 32 * 32)
+                      scan_chunk, vscan, cluster, seg, st);
+  if (imax(H, W) <= 1024)
     return launch<32>(trav, src, out, B, H, W, rounds, block, inner,
-                      scan_chunk, vscan, st);
-  return (int)cudaErrorInvalidValue;     // rows wider than 1024 cells
+                      scan_chunk, vscan, cluster, seg, st);
+  return (int)cudaErrorInvalidValue;     // lines longer than 1024 cells
 }
-
-extern "C" int fused_eikonal_max_cells() { return NT * K_MAX; }

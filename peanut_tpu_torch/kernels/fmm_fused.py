@@ -12,17 +12,20 @@ sweeps: the row-sequential down/up passes give vertical coverage, and
 
 On the card the kernel and the plain version agree bit for bit (the kernel
 keeps the plain version's operation order and scan association; see the
-note at the top of the source).
+note at the top of the source).  The kernel solves each grid with a
+thread-block cluster; ``fmm_sweep.launch_plan`` picks its size.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ._build import check, library
 from .fmm import BIG, _seg_scan_1d, _v_sweep
+from .fmm_sweep import launch_plan
 
 
 def fused_eikonal_reference(traversible: torch.Tensor, sources: torch.Tensor,
@@ -52,24 +55,28 @@ def _lib():
     lib = library("fmm_fused")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_eikonal_launch.argtypes = [p, p, p] + [i] * 8 + [p]
+        lib.fused_eikonal_launch.argtypes = [p, p, p] + [i] * 10 + [p]
         lib.fused_eikonal_launch.restype = i
-        lib.fused_eikonal_smem_bytes.argtypes = [i, i, i]
+        lib.fused_eikonal_smem_bytes.argtypes = [i] * 5
         lib.fused_eikonal_smem_bytes.restype = ctypes.c_size_t
-        lib.fused_eikonal_max_cells.restype = i
+        lib.fused_eikonal_max_clusters.argtypes = [i] * 6 + [p]
+        lib.fused_eikonal_max_clusters.restype = i
         lib._typed = True
     return lib
 
 
 def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
                   rounds: int = 3, block: int = 8, inner: int = 24,
-                  scan_chunk: int = 4, vscan: bool = True) -> torch.Tensor:
+                  scan_chunk: int = 4, vscan: bool = True,
+                  cluster: Optional[int] = None) -> torch.Tensor:
     """Whole FIRST-ORDER eikonal solve: (B, H, W) traversible/sources ->
     float32 distances, +inf at walls/unreachable.  A source on a
     non-traversible cell is still a source.
 
     CPU tensor: the plain version.  CUDA tensor: one launch of the kernel
-    (``fused_eikonal.launches`` counts them); no fallback."""
+    (``fused_eikonal.launches`` counts them) with ``launch_plan``'s cluster
+    size unless ``cluster`` forces one; no fallback.  Grids over 1024 cells
+    wide or tall raise ValueError."""
     if not traversible.is_cuda:
         return fused_eikonal_reference(traversible, sources, rounds=rounds,
                                        block=block, inner=inner,
@@ -82,13 +89,8 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
         raise ValueError("traversible and sources must be on one device")
     if scan_chunk < 1 or block < 1 or inner < 0 or rounds < 0:
         raise ValueError("block, scan_chunk >= 1 and rounds, inner >= 0")
-    lib = _lib()
     bsz, h, w = traversible.shape
-    if (w > 1024 or h * 16 > lib.fused_eikonal_max_cells()
-            or lib.fused_eikonal_smem_bytes(h, w, block) > 232448):
-        raise ValueError(f"grid {h}x{w} with block {block} exceeds the "
-                         f"kernel's row width (1024), column-scan staging "
-                         f"or shared memory (227 KB)")
+    plan = launch_plan(1, traversible, block, cluster, fused_chunk=scan_chunk)
     trav = (traversible > 0).to(torch.uint8).contiguous()
     src = (sources > 0).to(torch.uint8).contiguous()
     out = torch.empty((bsz, h, w), dtype=torch.float32,
@@ -96,10 +98,10 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
     if bsz:
         with torch.cuda.device(traversible.device):
             stream = torch.cuda.current_stream().cuda_stream
-            check(lib.fused_eikonal_launch(
+            check(_lib().fused_eikonal_launch(
                 trav.data_ptr(), src.data_ptr(), out.data_ptr(), bsz, h, w,
-                rounds, block, inner, scan_chunk, int(vscan), stream),
-                "fused_eikonal launch")
+                rounds, block, inner, scan_chunk, int(vscan), plan.cluster,
+                plan.seg, stream), "fused_eikonal launch")
         fused_eikonal.launches += 1
     return out
 

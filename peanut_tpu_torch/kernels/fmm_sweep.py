@@ -10,13 +10,14 @@ dispatchers are what ``fmm.eikonal_distance`` calls for every directed
 sweep.  The kernels take any (B, H, W) grid in either direction: rows need
 no padding to a multiple of the block and no flip for the reverse sweep.
 
-Both kernels solve each grid with a thread-block cluster of C blocks:
-the second-order kernel gives each block a segment of the columns, the
-first-order one (whose row scans need whole rows) a segment of each row
-block's rows.  ``sweep_plan`` picks C and the segments from the shape and
-how many clusters the card holds at once; the wrappers query that count
-(``resident_clusters``) and hand the plan to the kernel.  A block holds
-its SM alone (``csrc/fmm_common.cuh::reserved_smem``).
+Both kernels, and the fused first-order solve (``fmm_fused``), solve
+each grid with a thread-block cluster of C blocks: the second-order kernel
+gives each block a segment of the columns, the first-order ones (whose row
+scans need whole rows) a segment of each row block's rows.  ``sweep_plan``
+picks C and the segments from the shape and how many clusters the card
+holds at once; the wrappers query that count (``resident_clusters``) and
+hand the plan to the kernel.  A block holds its SM alone
+(``csrc/fmm_common.cuh::reserved_smem``).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def _check_grids(name: str, d: torch.Tensor, *masks: torch.Tensor) -> None:
 CLUSTER_SIZES = (16, 8, 6, 4, 2, 1)
 MIN_SEG = 16          # the plan splits a row no finer than this
 SMEM_LIMIT = 231424   # 227 KB a block, less 1 KB for static shared memory
-MAX_W1 = 1024         # order 1 scans a row as at most 32 chunks of 32
+MAX_W1 = 1024         # order 1 scans a line as at most 32 chunks of 32
+VSCAN_COLS = 16       # columns the fused solve stages for its column scans
 
 
 @dataclass(frozen=True)
@@ -60,7 +62,8 @@ class SweepPlan:
     [q * seg, q * seg + widths[q]).  Order 1 splits each row block's rows:
     block q owns its rows [q * seg, q * seg + widths[q]) (of a full row
     block; a ragged last one leaves the later blocks fewer or none).
-    ``smem_bytes`` of dynamic shared memory a block."""
+    ``smem_bytes`` of dynamic shared memory a block (a fused solve's plan
+    is order 1's split with the layout of ``csrc/fmm_fused.cu``)."""
     order: int
     cluster: int
     seg: int
@@ -78,30 +81,40 @@ def _scan_pitches(w: int) -> Tuple[int, int]:
     return p, k2
 
 
-def smem_bytes(order: int, w: int, block: int, seg: int) -> int:
+def smem_bytes(order: int, w: int, block: int, seg: int,
+               fused: Optional[Tuple[int, int]] = None) -> int:
     """A block's dynamic shared memory: the ``Layout`` of
-    ``csrc/fmm_sweep.cu`` (order 1, ``seg`` rows) and the buffers of
-    ``csrc/fmm_sweep2.cu`` (order 2, ``seg`` columns)."""
+    ``csrc/fmm_sweep.cu`` (order 1, ``seg`` rows), the buffers of
+    ``csrc/fmm_sweep2.cu`` (order 2, ``seg`` columns), or with ``fused``
+    (H, scan_chunk) the ``Layout`` of ``csrc/fmm_fused.cu``: ``seg`` rows,
+    up to scan_chunk ghost rows a side and their receive buffers, or the
+    column scans' staging, whichever is larger."""
     if order == 2:
         return 2 * (block + 4) * seg * 4 + 2 * block * seg
+    if fused is not None:
+        h, chunk = fused
+        ghosts = min(chunk, block)            # a side
+        g = min(block, seg + 2 * ghosts)
+        rows = (2 * g * w + 4 * ghosts * w + 2 * w) * 4 + g * w
+        return max(rows, VSCAN_COLS * (h + 1) * 5)
     p, k2 = _scan_pitches(w)
     return ((2 * seg * w + 2 * w + 4 * seg * k2 * 33) * 4 + seg * 32 * 4
             + 2 * seg * p * 2 + seg * w)
 
 
-def _layout(order: int, w: int, block: int,
-            cluster: int) -> Optional[SweepPlan]:
+def _layout(order: int, w: int, block: int, cluster: int,
+            fused: Optional[Tuple[int, int]] = None) -> Optional[SweepPlan]:
     """The plan for ``cluster`` blocks, or None where it cannot run: a
     block left without columns (rows, order 1), a segment narrower than
-    order 2's two halo columns, order-1 rows over MAX_W1 cells, or more
-    shared memory than a block has."""
+    order 2's two halo columns, order-1 rows (or a fused solve's columns)
+    over MAX_W1 cells, or more shared memory than a block has."""
     n = block if order == 1 else w        # what the blocks split
     seg = -(-n // cluster)
     if -(-n // seg) != cluster or (order == 2 and cluster > 1 and seg < 2):
         return None
-    if order == 1 and w > MAX_W1:
+    if order == 1 and max(w, fused[0] if fused else 0) > MAX_W1:
         return None
-    smem = smem_bytes(order, w, block, seg)
+    smem = smem_bytes(order, w, block, seg, fused)
     if smem > SMEM_LIMIT:
         return None
     widths = tuple(min(seg, n - q * seg) for q in range(cluster))
@@ -110,9 +123,12 @@ def _layout(order: int, w: int, block: int,
 
 def sweep_plan(order: int, b: int, w: int, block: int,
                resident: Mapping[int, int],
-               cluster: Optional[int] = None) -> SweepPlan:
+               cluster: Optional[int] = None,
+               fused: Optional[Tuple[int, int]] = None) -> SweepPlan:
     """Cluster size and segments (``SweepPlan``) for ``b`` grids of rows
-    ``w`` cells wide in ``block``-row blocks.
+    ``w`` cells wide in ``block``-row blocks; with ``fused`` (H,
+    scan_chunk), for the fused first-order solve of (b, H, w) grids
+    (``csrc/fmm_fused.cu``: order 1's row split, its own layout).
 
     resident[C]: clusters of C blocks the card holds at once at that
     layout (``resident_clusters``).  The plan takes the largest C with
@@ -121,20 +137,24 @@ def sweep_plan(order: int, b: int, w: int, block: int,
     all resident; if none is, the smallest C that fits, since the grids
     then queue anyway.  ``cluster`` forces C.
     """
-    if order not in (1, 2):
-        raise ValueError(f"order 1 or 2, got {order}")
+    if order not in (1, 2) or (fused is not None and order != 1):
+        raise ValueError(f"order 1 or 2 (1 for a fused solve), got {order}")
     if w < 1 or block < order:
         raise ValueError(f"rows of >= 1 cells and blocks of >= {order} "
                          f"rows, got w={w}, block={block}")
+    if fused is not None and (fused[0] < 1 or fused[1] < 1):
+        raise ValueError(f"a fused solve of >= 1 rows and a scan_chunk "
+                         f">= 1, got (H, scan_chunk) = {fused}")
     if cluster is not None:
-        plan = (_layout(order, w, block, cluster)
+        plan = (_layout(order, w, block, cluster, fused)
                 if cluster in CLUSTER_SIZES else None)
         if plan is None:
             raise ValueError(f"order {order} cannot split rows of {w} "
                              f"cells in {block}-row blocks over {cluster} "
                              f"blocks")
         return plan
-    plans = [p for p in (_layout(order, w, block, c) for c in CLUSTER_SIZES
+    plans = [p for p in (_layout(order, w, block, c, fused)
+                         for c in CLUSTER_SIZES
                          if c == 1 or -(-w // c) >= MIN_SEG) if p]
     if not plans:
         raise ValueError(f"rows of {w} cells in {block}-row blocks exceed "
@@ -146,14 +166,19 @@ def sweep_plan(order: int, b: int, w: int, block: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(order: int, w: int, block: int, cluster: int,
-              device: int) -> int:
-    plan = _layout(order, w, block, cluster)
+def _resident(order: int, w: int, block: int, cluster: int, device: int,
+              fused: Optional[Tuple[int, int]] = None) -> int:
+    plan = _layout(order, w, block, cluster, fused)
     if plan is None:
         return 0
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        if order == 1:
+        if fused is not None:
+            from .fmm_fused import _lib as lib_fused
+            err = lib_fused().fused_eikonal_max_clusters(
+                fused[0], w, block, plan.seg, fused[1], cluster,
+                ctypes.byref(out))
+        elif order == 1:
             err = _lib1().block_sweep_max_clusters(
                 w, plan.seg, cluster, ctypes.byref(out))
         else:
@@ -163,21 +188,26 @@ def _resident(order: int, w: int, block: int, cluster: int,
     return out.value if err == 0 else 0
 
 
-def resident_clusters(order: int, w: int, block: int,
-                      device=None) -> dict:
+def resident_clusters(order: int, w: int, block: int, device=None,
+                      fused: Optional[Tuple[int, int]] = None) -> dict:
     """{C: clusters of C blocks the card holds at once}, queried with
-    cudaOccupancyMaxActiveClusters at each C's layout."""
+    cudaOccupancyMaxActiveClusters on the kernel at each C's layout."""
     dev = torch.device(device if device is not None else "cuda")
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    return {c: _resident(order, w, block, c, idx) for c in CLUSTER_SIZES}
+    return {c: _resident(order, w, block, c, idx, fused)
+            for c in CLUSTER_SIZES}
 
 
 def launch_plan(order: int, d: torch.Tensor, block: int,
-                cluster: Optional[int] = None) -> SweepPlan:
-    """The plan the wrapper launches for CUDA grids ``d`` (B, H, W)."""
-    bsz, _, w = d.shape
+                cluster: Optional[int] = None,
+                fused_chunk: Optional[int] = None) -> SweepPlan:
+    """The plan the wrapper launches for CUDA grids ``d`` (B, H, W); with
+    ``fused_chunk`` (its scan_chunk), for a fused solve of them."""
+    bsz, h, w = d.shape
+    fused = None if fused_chunk is None else (h, fused_chunk)
     return sweep_plan(order, bsz, w, block,
-                      resident_clusters(order, w, block, d.device), cluster)
+                      resident_clusters(order, w, block, d.device, fused),
+                      cluster, fused)
 
 
 def cluster_barrier_us(cluster: int, grids: int = 1, n: int = 20000,

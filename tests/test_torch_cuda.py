@@ -6,14 +6,15 @@ the H100 (where JAX is not installed, hence no conftest):
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q --noconftest
 
-Tolerance: bitwise for the eikonal kernels (B1, B2, B4), which keep their plain
-versions' operation order, scan association and rounding (see the notes in
-kernels/csrc/*.cu) at every cluster size of B2 and B4, and for ``nms_keep`` (both give the unique greedy keep
-set).  ``roi_window_pool`` sums in another association than its plain
-version (x before y): rtol/atol 2e-5, in bfloat16 too, since both sides
-contract the same bfloat16-rounded operands in float32.  The bfloat16 bar
-of tests/test_roi_window.py (2e-2) would pass a kernel that skips rounding
-A_y; 2e-5 does not (``test_roi_window_pool_bar_sees_unrounded_ay``).
+Tolerance: bitwise for the eikonal kernels (B1, B2, B4), which keep their
+plain versions' operation order, scan association and rounding (see the
+notes in kernels/csrc/*.cu) at every cluster size, and for ``nms_keep``
+(both give the unique greedy keep set).  ``roi_window_pool`` sums in
+another association than its plain version (x before y): rtol/atol 2e-5,
+in bfloat16 too, since both sides contract the same bfloat16-rounded
+operands in float32.  The bfloat16 bar of tests/test_roi_window.py (2e-2)
+would pass a kernel that skips rounding A_y; 2e-5 does not
+(``test_roi_window_pool_bar_sees_unrounded_ay``).
 """
 
 import numpy as np
@@ -69,6 +70,89 @@ def test_fused_eikonal_kernel_equals_plain(cuda, shape, params):
     assert torch.equal(got, want)
 
 
+def _fused_case(trav, src, cluster=None, **kw):
+    """The kernel's solve (one launch) and the plain version's."""
+    before = fused_eikonal.launches
+    got = fused_eikonal(trav, src, cluster=cluster, **kw)
+    assert fused_eikonal.launches == before + 1
+    want = fused_eikonal_reference(trav, src, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 6, 8, 16])
+@pytest.mark.parametrize("w", [37, 64, 481, 482, 960, 1024])
+@pytest.mark.parametrize("vscan", [False, True])
+def test_fused_eikonal_equals_plain_at_every_cluster(cuda, cluster, w,
+                                                     vscan):
+    """B1 at every forced cluster size, bit-equal, with walls and sources
+    on the row segments' boundaries and on the edges of their ghost rows,
+    and a ragged last row block (50 = 3 x 16 + 2 rows)."""
+    try:
+        plan = fmm_sweep.sweep_plan(1, 1, w, 16, {}, cluster=cluster,
+                                    fused=(50, 4))
+    except ValueError:
+        # a split the kernel does not take (tests/test_torch_sweep_plan.py)
+        return
+    if fmm_sweep.resident_clusters(1, w, 16, cuda, (50, 4))[cluster] < 1:
+        pytest.skip(f"this card holds no cluster of {cluster} blocks")
+    trav, src = _boundary_grids(20 + cluster, 1, 50, w, plan.seg, cuda,
+                                rows=True, ghost=4)
+    got, want = _fused_case(trav, src, cluster=cluster, rounds=2, block=16,
+                            inner=12, scan_chunk=4, vscan=vscan)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w", [64, 482])
+@pytest.mark.parametrize("kw", [
+    dict(rounds=0), dict(rounds=1), dict(rounds=4, vscan=True),
+    dict(inner=0), dict(inner=0, vscan=True), dict(scan_chunk=1),
+    dict(scan_chunk=40, vscan=True), dict(inner=10, scan_chunk=4),
+    dict(block=8, inner=12, scan_chunk=3),
+    dict(block=5, inner=6, scan_chunk=2, vscan=True)])
+def test_fused_eikonal_rounds_inner_and_scan_chunk(cuda, w, kw):
+    params = dict(rounds=2, block=16, inner=40, scan_chunk=4, vscan=False)
+    params.update(kw)
+    seg = fmm_sweep.launch_plan(1, torch.empty(2, 41, w, device=cuda),
+                                params["block"],
+                                fused_chunk=params["scan_chunk"]).seg
+    trav, src = _boundary_grids(21, 2, 41, w, seg, cuda, rows=True,
+                                ghost=params["scan_chunk"])
+    got, want = _fused_case(trav, src, **params)
+    assert torch.equal(got, want)
+
+
+def test_fused_eikonal_on_more_grids_than_resident_clusters(cuda):
+    """40 planning grids: more clusters than the card holds at once at the
+    width's own cluster size, so the plan shrinks them or they queue."""
+    trav, src = _grids(22, 40, 482, 482, cuda)
+    assert fmm_sweep.launch_plan(1, trav, 16, fused_chunk=4).cluster >= 1
+    got, want = _fused_case(trav, src, rounds=1, block=16, inner=8,
+                            scan_chunk=4, vscan=True)
+    assert torch.equal(got, want)
+
+
+def test_fused_eikonal_carry_isolated_between_grids(cuda):
+    """Each grid of a batch solved by clusters of 8 equals the same grid
+    solved alone: neither the carry nor a ghost row reaches another grid."""
+    trav, src = _boundary_grids(23, 3, 40, 482, 2, cuda, rows=True, ghost=4)
+    kw = dict(rounds=2, block=16, inner=8, scan_chunk=4, vscan=True,
+              cluster=8)
+    got = fused_eikonal(trav, src, **kw)
+    for i in range(3):
+        sl = slice(i, i + 1)
+        assert torch.equal(got[sl], fused_eikonal(trav[sl], src[sl], **kw))
+
+
+def test_fused_eikonal_takes_rows_up_to_1024(cuda):
+    with pytest.raises(ValueError):
+        fused_eikonal(*_grids(24, 1, 16, 1025, cuda))
+    with pytest.raises(ValueError):
+        fused_eikonal(*_grids(24, 1, 1025, 16, cuda))
+    with pytest.raises(ValueError):      # not a cluster size
+        fused_eikonal(*_grids(24, 1, 16, 64, cuda), cluster=3)
+
+
 @pytest.mark.parametrize("shape", [(3, 50, 37), (2, 49, 64), (1, 482, 482),
                                    (1, 960, 960)])
 @pytest.mark.parametrize("reverse", [False, True])
@@ -117,15 +201,20 @@ def test_block_sweep2_kernel_equals_plain(cuda, shape, reverse):
     assert torch.equal(got, want)
 
 
-def _boundary_grids(seed, b, h, w, seg, dev, rows=False):
+def _boundary_grids(seed, b, h, w, seg, dev, rows=False, ghost=0):
     """Random grids with sources on both sides of every segment boundary
     and a wall along each boundary with a door in it, so that distances
     cross every boundary of a cluster's segments: columns every ``seg``
-    cells, or (``rows``) rows every ``seg`` rows of each 16-row block."""
+    cells, or (``rows``) rows every ``seg`` rows of each 16-row block, and
+    with ``ghost`` also the edges of each segment's ``ghost`` rows beyond
+    it on either side (the fused solve's ghost rows)."""
     trav, src = _grids(seed, b, h, w, dev)
     if rows:
         trav, src = trav.transpose(1, 2), src.transpose(1, 2)
-        cuts = [r for r in range(1, h) if r % 16 % seg == 0]
+        edges = {lo + d for lo in range(0, 16, seg)
+                 for d in ((0, -ghost, seg + ghost) if ghost else (0,))}
+        cuts = [r for r in range(1, h) if r % 16 % seg == 0
+                or r % 16 in edges]
     else:
         cuts = range(seg, w, seg)
     n = trav.shape[1]
@@ -231,7 +320,7 @@ def test_sweep_carry_isolated_between_grids_in_clusters(cuda, order):
 
 def test_sweep_plans_agree_with_the_kernels(cuda):
     """The plan's shared-memory bytes are the kernels' own, and the card
-    holds the paths' plans."""
+    holds the paths' plans (B1's clusters above one at its path shapes)."""
     for w in (37, 242, 482, 960, 1024):
         for order in (1, 2):
             plan = fmm_sweep.sweep_plan(order, 1, w, 16,
@@ -248,6 +337,16 @@ def test_sweep_plans_agree_with_the_kernels(cuda):
                 order, w, 16, cuda)[plan.cluster] >= 1
     assert fmm_sweep.launch_plan(
         2, torch.zeros(16, 482, 482, device=cuda), 16).cluster > 1
+    from peanut_tpu_torch.kernels import fmm_fused
+    for b, h, w, block in ((16, 482, 482, 16), (8, 480, 480, 8),
+                           (16, 962, 962, 16), (2, 50, 37, 16)):
+        plan = fmm_sweep.launch_plan(1, torch.zeros(b, h, w, device=cuda),
+                                     block, fused_chunk=4)
+        assert fmm_fused._lib().fused_eikonal_smem_bytes(
+            h, w, block, plan.seg, 4) == plan.smem_bytes
+        assert fmm_sweep.resident_clusters(
+            1, w, block, cuda, (h, 4))[plan.cluster] >= b
+        assert plan.cluster > 1
 
 
 @pytest.mark.parametrize("order", [1, 2])

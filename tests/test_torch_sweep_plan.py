@@ -155,6 +155,103 @@ def test_shapes_the_kernels_do_not_take(args, kw):
         sweep_plan(*args, RESIDENT, **kw)
 
 
+# B1, the fused solve: (B, H, W, block, scan_chunk) -> (cluster, seg,
+# widths, smem bytes) at its path shapes (the 16-env tick's blanket, the
+# column-scan solve, the exact profile's full-resolution width) and the CPU
+# tests' narrow ones
+FUSED = {
+    (16, 482, 482, 16, 4): (6, 3, (3, 3, 3, 3, 3, 1), 82422),
+    (8, 480, 480, 8, 4): (8, 1, (1,) * 8, 69120),
+    (16, 962, 962, 16, 4): (6, 3, (3, 3, 3, 3, 3, 1), 164502),
+    (1, 482, 482, 16, 4): (16, 1, (1,) * 16, 73746),
+    (3, 50, 37, 16, 4): (2, 8, (8, 8), 7992),
+    (2, 41, 64, 16, 40): (4, 4, (4,) * 4, 26112),
+}
+
+
+@pytest.mark.parametrize("key", sorted(FUSED))
+def test_fused_plan_at_the_paths_shapes(key):
+    b, h, w, block, chunk = key
+    p = sweep_plan(1, b, w, block, RESIDENT, fused=(h, chunk))
+    assert (p.cluster, p.seg, p.widths, p.smem_bytes) == FUSED[key]
+    assert p.order == 1 and len(p.widths) == p.cluster
+    assert p.smem_bytes == smem_bytes(1, w, block, p.seg, (h, chunk))
+    assert p.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("w", [1, 31, 37, 64, 200, 481, 482, 960, 1024])
+@pytest.mark.parametrize("block", [5, 8, 16])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 6, 8, 16])
+def test_fused_segments_cover_every_row_once(w, block, cluster):
+    """B1's row segments cover the row block once, the last one ragged,
+    within the shared memory a block has, whatever C is chosen."""
+    try:
+        p = sweep_plan(1, 1, w, block, RESIDENT, cluster=cluster,
+                       fused=(482, 4))
+    except ValueError:
+        # only where a block would own no rows or shared memory runs out
+        assert cluster is not None
+        seg = -(-block // cluster)
+        assert (-(-block // seg) != cluster
+                or smem_bytes(1, w, block, seg, (482, 4)) > SMEM_LIMIT)
+        return
+    rows = [r for q, width in enumerate(p.widths)
+            for r in range(q * p.seg, q * p.seg + width)]
+    assert rows == list(range(block))
+    assert all(width == p.seg for width in p.widths[:-1])
+    assert 1 <= p.widths[-1] <= p.seg
+    assert p.smem_bytes <= SMEM_LIMIT
+
+
+def test_fused_plan_ghost_rows_and_column_staging():
+    # the ghost rows reach scan_chunk rows a side, as far as the row block
+    base = smem_bytes(1, 482, 16, 3, (40, 1))
+    assert smem_bytes(1, 482, 16, 3, (40, 4)) > base
+    assert (smem_bytes(1, 482, 16, 3, (40, 16))
+            == smem_bytes(1, 482, 16, 3, (40, 40)))
+    # the 482-cell blanket at C = 6: 11 rows held twice, 2 x 8 rows
+    # received, the two boundary rows, the walls of the 11 rows
+    assert smem_bytes(1, 482, 16, 3, (482, 4)) == (
+        (2 * 11 + 2 * 8 + 2) * 482 * 4 + 11 * 482)
+    # the column scans' staging (16 columns of H + 1 floats and bytes) sets
+    # the size where it is the larger
+    assert smem_bytes(1, 64, 16, 8, (1024, 4)) == 16 * 1025 * 5
+    # a cluster of one holds the whole row block; at scan_chunk 40 its
+    # receive buffers leave no room for rows of 1024 cells
+    assert sweep_plan(1, 1, 64, 16, RESIDENT, cluster=1,
+                      fused=(50, 4)).seg == 16
+    with pytest.raises(ValueError):
+        sweep_plan(1, 1, 1024, 16, RESIDENT, cluster=1, fused=(482, 40))
+
+
+@pytest.mark.parametrize("w", [1, 2, 17, 24, 30])
+def test_fused_narrow_grids_run_one_block(w):
+    p = sweep_plan(1, 4, w, 16, RESIDENT, fused=(50, 4))
+    assert p.cluster == 1 and p.widths == (16,)
+
+
+def test_fused_plan_keeps_the_batch_resident():
+    assert sweep_plan(1, 16, 482, 16, RESIDENT, fused=(482, 4)).cluster == 6
+    assert sweep_plan(1, 16, 482, 16, {**RESIDENT, 8: 16},
+                      fused=(482, 4)).cluster == 8
+    # block 8 leaves no rows for a 16th block
+    assert sweep_plan(1, 8, 480, 8, RESIDENT, fused=(480, 4)).cluster == 8
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((1, 1, 1025, 16), {"fused": (482, 4)}),   # rows wider than 1024
+    ((1, 1, 482, 16), {"fused": (1025, 4)}),   # columns taller than 1024
+    ((1, 1, 2000, 16), {"fused": (2000, 4)}),
+    ((2, 1, 482, 16), {"fused": (482, 4)}),    # the fused solve is order 1
+    ((1, 1, 482, 16), {"fused": (0, 4)}),      # no rows
+    ((1, 1, 482, 16), {"fused": (482, 0)}),    # no passes a round
+    ((1, 1, 482, 8), {"fused": (482, 4), "cluster": 16}),
+])
+def test_fused_shapes_the_kernel_does_not_take(args, kw):
+    with pytest.raises(ValueError):
+        sweep_plan(*args, RESIDENT, **kw)
+
+
 def test_plan_is_a_value():
     p = sweep_plan(2, 1, 482, 16, RESIDENT)
     assert p == SweepPlan(2, 16, 31, (31,) * 15 + (17,), 5952)
