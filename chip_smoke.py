@@ -1,13 +1,20 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--ticks N]
+    python3 chip_smoke.py [--seed N] [--ticks N] [--only b3|wide]
+
+With --only, the device line and one phase alone, with no result line: "b3"
+phase 5's roi_window_pool lines, "wide" phase 3's lines over 1024 cells
+(run from a copy of another tree, it times that tree's kernels beside
+these, in one call).
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
   2. build   — nvcc builds every kernel in peanut_tpu_torch/kernels/csrc
                (one process per source, in parallel); ptxas registers and
-               shared memory per kernel; the launch plans of the two sweeps
-               and of fused_eikonal at the paths' shapes with
+               shared memory per kernel; the HMMA instructions of
+               roi_window's bf16 kernels in cuobjdump's SASS (none fails);
+               the launch plans of the two sweeps and of fused_eikonal at
+               the paths' shapes (and B1 at 1 and 16 x 1042^2) with
                cudaOccupancyMaxActiveClusters at each cluster size; then one
                cluster barrier's time at each size the plans use;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
@@ -17,7 +24,10 @@ Phases (each prints one JSON line):
                version beside the kernel's bound (B1/B2/B4 bit-equal, with
                their cluster size, chain of row blocks x passes (B1: x scan
                rounds), time per link and the floor the chain's cluster
-               barriers set); then fused_eikonal's time split into its scan
+               barriers set); then lines over 1024 cells (wide_lines: B4
+               at 1x48x1040 and 1x48x2000, B1 at 2x48x1040 and 2x1040x48
+               with column scans, 1x1024^2 and 1x1042^2 blankets), all
+               bit-equal; then fused_eikonal's time split into its scan
                rounds and local stencil passes;
   4. slice   — BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=1,
                only_explore=1, switch_step=999) at the default geometry:
@@ -33,11 +43,18 @@ Phases (each prints one JSON line):
                of the largest |value| (both sides contract the same
                rounded operands), bfloat16 also within the elementwise
                rtol/atol 2e-2 of tests/test_roi_window.py, and a pool
-               that skips rounding A_y must miss the bar; kernel, plain
-               and library (window gather + two torch.bmm) times beside
-               the bound.  Then nms_keep (the greedy NMS kernel) on the
-               RPN's and the box head's suppression matrices of that
-               detect, bit-equal to its plain version, with times;
+               that skips rounding A_y must miss the bar; in both types
+               kernel, plain and library (window gather + two torch.bmm)
+               times beside the bound, and (kernel_breakdown) each launch
+               split into the output write, the window loads and the
+               contraction, bfloat16 also timed with ring stages of
+               32-512 rows.
+               Then nms_chain, one dependent step of a walk (a shuffle and
+               the shared-memory read it addresses), and nms_keep (the
+               pack and the greedy walk) on the RPN's and the box head's
+               suppression matrices of that detect, bit-equal to its
+               plain version, with times, the pack's alone and the chain
+               floor (n steps);
   6. detect  — the whole detect in float32 through the kernel against the
                plain ROI path (the golden-test bar, masks compared as
                probabilities within 1e-4 and IoU on the decided pixels),
@@ -62,7 +79,9 @@ Phases (each prints one JSON line):
                random-weight checkpoints that the script writes (480^2
                local window, 482^2 planning and 960^2 goal-weighting
                solves, PSPNet on the 720^2 crop): the same readings, and
-               B2, B3, B4 and nms_keep all launched.
+               B2, B3, B4 and nms_keep all launched; then its first
+               detect's B3 (float32, timed) and nms_keep calls against
+               their plain versions.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -86,6 +105,7 @@ import torch
 # The card's published peaks used for bounds (H100 SXM data sheet, at the
 # full 700 W power limit): float32 outside the tensor cores, HBM3 rate.
 PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12     # dense, tensor cores
 PEAK_BYTES = 3.35e12
 
 # Operations per cell, counted as a sequential program needs them (a
@@ -161,12 +181,16 @@ def plans(rng, b, n):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over reps calls, by CUDA events."""
+    """Mean device time of fn() over reps calls, by CUDA events.  The card
+    first spins ~10 ms (torch.cuda._sleep), so the host has enqueued the
+    calls before the first event runs: a short kernel is timed on the
+    card, not at the rate its wrapper launches it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     t0.record()
     for _ in range(reps):
         fn()
@@ -280,17 +304,26 @@ def roi_support(w: torch.Tensor):
 def roi_bound(flat, ay, ax, row0, col0, p):
     """Least time for these inputs: the distinct buffer cells the windows'
     weighted supports cover read once + hat matrices + origins + output
-    written once, at 3.35 TB/s; or 2 C p R X + 2 C p^2 min(R, X) float32
-    operations per ROI over its R x X support (the cheaper contraction
-    order), at 67 TFLOP/s (the kernel's float32 FMA units)."""
+    written once, at 3.35 TB/s; or the operations per ROI over its R x X
+    support in the cheaper contraction order: y first, 2 C p R X products
+    of A_y (bf16 operands on the tensor cores at 989 TFLOP/s when the
+    buffer is bf16, else float32 at 67 TFLOP/s) and 2 C p^2 X float32
+    (A_x is float32) at 67 TFLOP/s; or x first, 2 C p R X + 2 C p^2 R, all
+    float32 (the intermediate is float32).  Returns (ms, bound_by, cells,
+    y-first operations, operations ms)."""
     n, c = ay.shape[0], flat.shape[-1]
     hs, ws = flat.shape[0], flat.shape[1]
     ylo, rows = roi_support(ay.to(flat.dtype))
     xlo, cols = roi_support(ax)
     ok = (rows > 0) & (cols > 0)
-    ops = float((2 * c * p * rows * cols
-                 + 2 * c * p * p * torch.minimum(rows, cols))[ok].double()
-                .sum())
+    rows_, cols_ = rows[ok].double(), cols[ok].double()
+    y_ops = float((2 * c * p * rows_ * cols_).sum())
+    x_ops = float((2 * c * p * p * cols_).sum())
+    alt_ops = float((2 * c * p * rows_ * cols_
+                     + 2 * c * p * p * rows_).sum())
+    peak_y = PEAK_BF16_OPS if flat.dtype == torch.bfloat16 else PEAK_F32_OPS
+    t_ops = min(y_ops / peak_y + x_ops / PEAK_F32_OPS,
+                alt_ops / PEAK_F32_OPS) * 1e3
     r0 = (row0 + ylo).clamp(0, hs)[ok].long()
     r1 = (row0 + ylo + rows).clamp(0, hs)[ok].long()
     c0 = (col0 + xlo).clamp(0, ws)[ok].long()
@@ -302,9 +335,8 @@ def roi_bound(flat, ay, ax, row0, col0, p):
     nbytes = (cells * c * flat.element_size()
               + 4 * (ay.numel() + ax.numel() + 2 * n) + 4 * n * p * p * c)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32_OPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", cells, ops)
+            else "operations", cells, y_ops + x_ops, t_ops)
 
 
 def library_pool(padded, pad, ay, ax, row0, col0, win_y, win_x):
@@ -329,7 +361,8 @@ def check_pool(call, timed: bool):
     elementwise bar of tests/test_roi_window.py, and the plain version
     over a float32 copy of the buffer (A_y left unrounded) must miss the
     ROI_TOL bar, or the bar could not tell a kernel that skips the
-    rounding.  With ``timed``, kernel/plain/library ms and the bound."""
+    rounding.  With ``timed``, kernel/plain/library ms, the bound and
+    ``pool_breakdown``."""
     from peanut_tpu_torch.kernels.roi_window import (
         roi_window_pool, roi_window_pool_reference)
     flat, ay, ax, row0, col0, win_y, win_x = call
@@ -369,17 +402,56 @@ def check_pool(call, timed: bool):
             padded, pad, ay, ax, row0, col0, win_y, win_x), reps=3)
         del padded
         (out["bound_ms"], out["bound_by"], out["cells_read"],
-         out["operations"]) = roi_bound(flat, ay, ax, row0, col0,
-                                        ay.shape[1])
+         out["operations"], out["operations_ms"]) = roi_bound(
+             flat, ay, ax, row0, col0, ay.shape[1])
+        out.update(pool_breakdown(call))
     return out
 
 
-def check_nms(call, timed: bool):
+RING_SWEEP = (32, 64, 128, 256, 512)     # rows of a ring stage
+
+
+def pool_breakdown(call):
+    """Where a roi_window_pool launch's time goes: the output write alone
+    (with the hats and their support), the window loads, the contraction
+    (uncounted part launches of the kernel); and in bfloat16 its time with
+    ring stages of each RING_SWEEP row count that fits shared memory,
+    beside the rows it serves with.  Empty where the package has no part
+    launches."""
+    from peanut_tpu_torch.kernels import roi_window as rw
+    if not hasattr(rw, "roi_window_pool_part"):
+        return {}
+    flat = call[0]
+    part = {k: cuda_ms(lambda k=k: rw.roi_window_pool_part(*call, part=k),
+                       reps=10)
+            for k in ("write", "load_write", "whole")}
+    out = {"breakdown_ms": {
+        "write": part["write"],
+        "loads": part["load_write"] - part["write"],
+        "contraction": part["whole"] - part["load_write"],
+        "whole": part["whole"]}}
+    if flat.dtype != torch.bfloat16:
+        return out
+    sweep = {}
+    for rows in RING_SWEEP:
+        try:
+            rw.roi_window_pool_part(*call, part="whole", rows=rows)
+        except ValueError:             # past shared memory
+            continue
+        sweep[str(rows)] = cuda_ms(lambda r=rows: rw.roi_window_pool_part(
+            *call, part="whole", rows=r), reps=10)
+    return dict(out, ring_rows=rw.ring_rows(), ms_by_ring_rows=sweep)
+
+
+def check_nms(call, timed: bool, step_us: float = 0.0):
     """nms_keep against its plain version on one captured call (bit-equal:
     both give the unique greedy keep set).  The bound moves valid, keep
     and, per kept box, its sup row right of the diagonal (the rest of sup
-    cannot change the answer), at 3.35 TB/s."""
-    from peanut_tpu_torch.kernels.nms import nms_keep, nms_keep_reference
+    cannot change the answer), at 3.35 TB/s.  The chain floor: n dependent
+    steps of the walk at ``step_us`` each (phase nms_chain); the pack, the
+    kernel that reads sup, timed alone."""
+    from peanut_tpu_torch.kernels.nms import (nms_keep, nms_keep_reference,
+                                              nms_pack)
     sup, valid = call
     got = nms_keep(sup, valid)
     want = nms_keep_reference(sup, valid)
@@ -398,6 +470,10 @@ def check_nms(call, timed: bool):
         out["bound_ms"] = out["bytes"] / PEAK_BYTES * 1e3
         out["bound_by"] = "bytes"
         out["library_ms"] = None
+        out["pack_ms"] = cuda_ms(lambda: nms_pack(sup), reps=10)
+        out["chain_floor_ms"] = n * step_us / 1e3
+        out["ms_over_floor_plus_pack"] = out["ms"] / (
+            out["chain_floor_ms"] + out["pack_ms"])
     return out
 
 
@@ -500,7 +576,8 @@ def mask_rcnn_phases(args, dev):
     rgb, cats = seg_frames(cfg32, args.seed, 8)
     goal = torch.as_tensor(cats, device=dev)
 
-    # float32: every window shape, and the whole detect, kernel vs plain
+    # float32 (single-nav's kernel): every window shape timed, and the
+    # whole detect, kernel vs plain
     img32 = seg32.preprocess(rgb)
     calls = []
     with capture(roi_align_mod, "roi_window_pool", calls):
@@ -508,8 +585,11 @@ def mask_rcnn_phases(args, dev):
     if len(calls) != 6:
         fail(f"expected 6 ROI pool calls in a detect, got {len(calls)} "
              "(the square window covers every ROI at this geometry?)")
-    b3_f32 = {name: check_pool(calls[i], timed=False)
-              for i, name in enumerate(ROI_SHAPES)}
+    b3_f32 = {}
+    for i, name in enumerate(ROI_SHAPES):
+        b3_f32[name] = check_pool(calls[i], timed=True)
+        emit({"phase": "kernel", "kernel": f"roi_window_pool/float32_{name}",
+              **b3_f32[name]})
     del calls
     with Patch(roi_align_mod, "roi_window_pool",
                lambda _: roi_window_pool_reference):
@@ -529,22 +609,32 @@ def mask_rcnn_phases(args, dev):
     b3 = {}
     for i, name in enumerate(ROI_SHAPES):
         b3[name] = check_pool(calls[i], timed=True)
-        b3[name]["float32"] = {k: b3_f32[name][k] for k in
-                               ("max_abs_err", "max_abs_want",
-                                "median_abs_want", "max_err_rel_to_max",
-                                "tolerance", "ok")}
         emit({"phase": "kernel", "kernel": f"roi_window_pool/{name}",
               **b3[name]})
+    b3.update({f"float32_{k}": v for k, v in b3_f32.items()})
+    emit({"phase": "kernel_breakdown", "kernel": "roi_window_pool",
+          "ms": {k: v.get("breakdown_ms") for k, v in b3.items()},
+          "ms_by_ring_rows": {k: v.get("ms_by_ring_rows")
+                              for k, v in b3.items()}})
     del calls
-    if not all(c["ok"] and c["float32"]["ok"] for c in b3.values()):
+    if not all(c["ok"] for c in b3.values()):
         fail("roi_window_pool disagrees with its plain version, or the "
              "bar cannot see a pool that skips rounding A_y")
+    if args.only == "b3":
+        return b3, None, None
     if len(nms_calls) != len(NMS_CALLS):
         fail(f"expected {len(NMS_CALLS)} NMS calls in a detect, got "
              f"{len(nms_calls)}")
+    # the walk's chain floor: one dependent step, a shuffle and the shared-
+    # memory read it addresses
+    from peanut_tpu_torch.kernels.nms import chain_step_us
+    step_us = chain_step_us()
+    emit({"phase": "nms_chain", "us_per_step": step_us,
+          "floor_ms_by_n": {str(c[0].shape[-1]): c[0].shape[-1] * step_us
+                            / 1e3 for c in nms_calls}})
     nms = {}
     for name, call in zip(NMS_CALLS, nms_calls):
-        nms[name] = check_nms(call, timed=True)
+        nms[name] = check_nms(call, timed=True, step_us=step_us)
         emit({"phase": "kernel", "kernel": f"nms_keep/{name}", **nms[name]})
     del nms_calls
     if not all(c["equal"] for c in nms.values()):
@@ -867,7 +957,7 @@ def single_env_phases(args, dev):
                     capture(boxes_mod, "nms_keep", nms_calls,
                             when=first_detect)])
     nav_checks = {
-        "roi_window_pool": {f"single_nav_{i}": check_pool(c, timed=False)
+        "roi_window_pool": {f"single_nav_{i}": check_pool(c, timed=True)
                             for i, c in enumerate(pool_calls)},
         "nms_keep": {name: check_nms(c, timed=False)
                      for name, c in zip(("single_nav_rpn", "single_nav_box"),
@@ -903,10 +993,87 @@ def single_env_phases(args, dev):
     return explore, nav, nav_checks
 
 
+# bit-equal to 1e-3 (see TOL in main), in the lines over 1024 cells too
+WIDE_TOL = 1e-3
+
+
+def wide_lines(args, dev):
+    """Lines over 1024 cells: B4's rows, B1's rows and, with column scans,
+    columns (lines of 48 cells the other way); B1 at the exact profile's
+    1042^2 blanket beside 1024^2; bit-equal to the plain versions, with
+    times."""
+    from peanut_tpu_torch.kernels import fmm_sweep
+    from peanut_tpu_torch.kernels.fmm import BIG, _axis_relax
+    from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
+                                                    fused_eikonal_reference)
+    from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
+                                                    block_sweep_reference)
+    rng = np.random.RandomState(args.seed + 3)
+    wide = {}
+    blanket = {k: v for k, v in B1_CASES["blanket_16x962"].items()
+               if k != "shape"}
+    vscan_kw = {k: v for k, v in B1_CASES["vscan_8x480"].items()
+                if k != "shape"}
+    for key, shape, kw in (("B4_1x48x1040", (1, 48, 1040), None),
+                           ("B4_1x48x2000", (1, 48, 2000), None),
+                           ("B1_vscan_2x48x1040", (2, 48, 1040), vscan_kw),
+                           ("B1_vscan_2x1040x48", (2, 1040, 48), vscan_kw),
+                           ("B1_vscan_1x2000x48", (1, 2000, 48), vscan_kw),
+                           ("B1_blanket_1x1024", (1, 1024, 1024), blanket),
+                           ("B1_blanket_1x1042", (1, 1042, 1042), blanket)):
+        if shape[1] == shape[2]:
+            trav_np, src_np = plans(rng, shape[0], shape[1])
+        else:
+            trav_np = rng.rand(*shape) > 0.25
+            src_np = np.zeros(shape, bool)
+            for i in range(shape[0]):
+                src_np[i, rng.randint(shape[1]), rng.randint(shape[2])] = True
+        trav = torch.as_tensor(trav_np, device=dev)
+        src = torch.as_tensor(src_np, device=dev)
+        if kw is None:
+            wall = ~trav & ~src
+            d_in = _axis_relax(torch.where(src, 0.0, BIG).float(), wall)
+            run = lambda: block_sweep(d_in, wall, False)      # noqa: E731
+            want = block_sweep_reference(d_in, wall, False)
+            plan = fmm_sweep.launch_plan(1, d_in, 16)
+        else:
+            run = lambda: fused_eikonal(trav, src, **kw)      # noqa: E731
+            want = fused_eikonal_reference(trav, src, **kw)
+            plan = fmm_sweep.launch_plan(1, trav, kw["block"],
+                                         fused_chunk=kw["scan_chunk"])
+        got = run()
+        torch.cuda.synchronize()
+        wide[key] = dict(compare(got, want, WIDE_TOL),
+                         bit_equal=bool(torch.equal(got, want)),
+                         ms=cuda_ms(run, reps=3), cluster=plan.cluster,
+                         seg=plan.seg, smem_bytes=plan.smem_bytes)
+    emit({"phase": "wide_lines", "cases": wide})
+    if not all(c["ok"] and c["bit_equal"] for c in wide.values()):
+        fail("a kernel disagrees with its plain version on lines over "
+             "1024 cells")
+
+
+def only_phase(args, dev) -> int:
+    """``--only``: one phase alone, to compare trees (the parent's, a
+    variant's) in one call: "b3" B3's kernel lines in both types, "wide"
+    the lines over 1024 cells.  Prints no result line."""
+    from peanut_tpu_torch.kernels import _build
+    for stem in {"b3": ("roi_window",),
+                 "wide": ("fmm_fused", "fmm_sweep")}[args.only]:
+        _build.library(stem)
+    if args.only == "b3":
+        mask_rcnn_phases(args, dev)
+    else:
+        wide_lines(args, dev)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--only", choices=("b3", "wide"),
+                    help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -944,6 +1111,8 @@ def main() -> int:
     emit({"phase": "device", "kind": name, "count": count,
           "nvidia_smi": smi_line, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if args.only:
+        return only_phase(args, dev)
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -955,10 +1124,10 @@ def main() -> int:
         fail(f"kernel build failed: {e}")
     from peanut_tpu_torch.kernels import fmm_fused, fmm_sweep, roi_window
     smem = {  # dynamic shared memory per block at the main path's shapes
-        "roi_window_bf16_p7_26x274":
-            roi_window._lib().roi_window_smem_bytes(1, 7, 26, 274),
-        "roi_window_f32_p14_26x274":
-            roi_window._lib().roi_window_smem_bytes(0, 14, 26, 274)}
+        "roi_window_bf16_p7_26x274": roi_window._lib().roi_window_smem_bytes(
+            1, 7, 26, 274, roi_window.ring_rows()),
+        "roi_window_f32_p14_26x274": roi_window._lib().roi_window_smem_bytes(
+            0, 14, 26, 274, 0)}
     # the sweeps' launch plans at the paths' shapes (block 16): cluster
     # size, segment, shared memory (the kernel's own count) and the
     # clusters the card holds at once at each size
@@ -995,7 +1164,33 @@ def main() -> int:
             "block": block, "smem_bytes": plan.smem_bytes,
             "max_active_clusters": fmm_sweep.resident_clusters(
                 1, n, block, dev, (n, chunk))}
+    # B1 at the exact profile's full map (map_size_cm=5200: 1042^2): one
+    # grid and the 16-env batch
+    for b in (1, 16):
+        plan = fmm_sweep.launch_plan(1, torch.empty(b, 1042, 1042,
+                                                    device=dev), 16,
+                                     fused_chunk=4)
+        sweep_plans[f"fused_eikonal_{b}x1042"] = {
+            "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
+            "block": 16, "smem_bytes": plan.smem_bytes}
+    # B3's bf16 y-contraction must run on the tensor cores: HMMA in the
+    # library's SASS
+    sass = subprocess.run(
+        [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                      "cuobjdump"), "-sass",
+         str(_build.build_dir() / "libroi_window.so")],
+        capture_output=True, text=True, timeout=120).stdout
+    hmma = {}
+    func = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+        elif "HMMA" in line and func:
+            hmma[func] = hmma.get(func, 0) + 1
+    if not any("nv_bfloat16" in f for f in hmma):
+        fail(f"no HMMA in roi_window's bf16 kernels: {hmma}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
+          "roi_window_hmma_by_function": hmma,
           "nvcc_seconds": round(_build.build_seconds, 2),
           "dir": str(_build.build_dir()), "dynamic_smem_bytes": smem,
           "sweep_plans": sweep_plans, "ptxas": _build.ptxas_report()})
@@ -1141,6 +1336,8 @@ def main() -> int:
               **results[key]})
     if not ok:
         fail("a kernel disagrees with its plain version")
+
+    wide_lines(args, dev)
 
     # where a fused_eikonal launch spends its time, at the blanket's shape
     p = B1_CASES["blanket_16x482"]
@@ -1323,7 +1520,9 @@ def main() -> int:
                            [*nms.values(), *nav_checks["nms_keep"].values()]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": None, "cases": {**nms, **nav_checks["nms_keep"]}})
+        "library_ms": None, "chain_floor_ms": main_case["chain_floor_ms"],
+        "pack_ms": main_case["pack_ms"],
+        "cases": {**nms, **nav_checks["nms_keep"]}})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",

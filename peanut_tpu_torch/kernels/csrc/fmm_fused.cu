@@ -75,20 +75,39 @@
 
 #include "fmm_common.cuh"
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NT = SWEEP_NT;
 constexpr int VSCAN_COLS = NT / 32;   // columns a column-scan step stages
+// Lines (rows, and columns with vscan) of up to MAX_LINE cells.  Past 1024
+// cells a pair of warps scans a line, 32 cells a lane each (one warp with
+// 64 cells a lane would need 2 x 64 registers for the line alone, more
+// than the 128 a thread has at 512 threads a block).
+constexpr int MAX_LINE = 2048;
+constexpr int PAIRS = NT / 64;          // warp pairs a block
+constexpr int XCH = 1024;               // floats of a pair's exchange
+
+// The values of a neighbour outside a warp's KW registers: one warp holds
+// the whole line, so the neighbour is before its start (after its end):
+// (0, BIG).
+struct LineEdge {
+  __device__ float a(int, int) const { return 0.0f; }
+  __device__ float b(int, int) const { return BIG; }
+};
 
 // One forward (reverse) Hillis-Steele step of shift S over a line held in
 // registers by one warp: lane l owns cells c = l + 32 k, k < KW.  Cells
-// before the start (after the end, or past the line) are (0, BIG).  Shifts
-// below 32 read other lanes through shuffles, larger ones other registers
-// of the same lane; either way every cell reads its neighbour's value from
-// before the step.  The arithmetic is the plain version's (fmm.py::_RowScan).
-template <int KW, int S, bool REVERSE>
+// past the line are (0, BIG); a neighbour outside the registers comes from
+// `e`: e.a(slot, lane), e.b(slot, lane), slot 0 at lane `src` for shifts
+// below 32, else slot k (k + M - KW reverse) at the own lane.  Shifts below
+// 32 read other lanes through shuffles, larger ones other registers of the
+// same lane; either way every cell reads its neighbour's value from before
+// the step.  The arithmetic is the plain version's (fmm.py::_RowScan).
+template <int KW, int S, bool REVERSE, typename Edge = LineEdge>
 __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
-                                        int lane) {
+                                        int lane, const Edge& e = Edge()) {
   if constexpr (S < 32) {
     const unsigned full = 0xffffffffu;
     const int src = REVERSE ? (lane + S) & 31 : (lane - S) & 31;
@@ -103,9 +122,9 @@ __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
       const int kn = REVERSE ? k + 1 : k - 1;
       const bool kn_ok = REVERSE ? kn < KW : kn >= 0;
       const float na = kn_ok ? __shfl_sync(full, a[kn_ok ? kn : 0], src)
-                             : 0.0f;
+                             : e.a(0, src);
       const float nb = kn_ok ? __shfl_sync(full, b[kn_ok ? kn : 0], src)
-                             : BIG;
+                             : e.b(0, src);
       const float a_n = same_k ? sa : na;
       const float b_n = same_k ? sb : nb;
       b[k] = fminf(b[k], b_n + a[k]);
@@ -121,8 +140,9 @@ __device__ __forceinline__ void hs_step(float (&a)[KW], float (&b)[KW],
       const int k = REVERSE ? i : KW - 1 - i;
       const int kn = REVERSE ? k + M : k - M;
       const bool ok = REVERSE ? kn < KW : kn >= 0;
-      const float a_n = ok ? a[ok ? kn : 0] : 0.0f;
-      const float b_n = ok ? b[ok ? kn : 0] : BIG;
+      const int slot = REVERSE ? kn - KW : k;
+      const float a_n = ok ? a[ok ? kn : 0] : e.a(slot, lane);
+      const float b_n = ok ? b[ok ? kn : 0] : e.b(slot, lane);
       b[k] = fminf(b[k], b_n + a[k]);
       a[k] = fminf(a_n + a[k], BIG);
     }
@@ -142,6 +162,7 @@ __device__ __forceinline__ void hs_line(float (&a)[KW], float (&b)[KW],
   hs_step<KW, 128, REVERSE>(a, b, lane);
   hs_step<KW, 256, REVERSE>(a, b, lane);
   if constexpr (KW > 16) hs_step<KW, 512, REVERSE>(a, b, lane);
+  if constexpr (KW > 32) hs_step<KW, 1024, REVERSE>(a, b, lane);
 }
 
 // Both scans of one line of n <= 32 KW cells (walls at `wline`), forward,
@@ -175,6 +196,157 @@ __device__ void warp_line_scans(float* line, const uint8_t* wline, int n) {
   }
 }
 
+// A line of 1024 < n <= 2048 cells scanned by a pair of warps: warp h of
+// the pair holds cells 1024 h + l + 32 k (k < 32) as one warp holds 1024,
+// and runs the same Hillis-Steele steps.  A step's neighbours in the other
+// half come through the pair's exchange `x` (XCH floats of shared memory):
+// the half they come from (the sender: the lower half forward, the upper
+// reverse) stores the registers they are in, slot j of a holds a's at
+// x[32 j + lane] and b's at x[XCH / 2 + 32 j + lane], and the other half
+// (the receiver) reads them between two barriers of the pair's 64 threads
+// (named barrier `id`).
+__device__ __forceinline__ void pair_bar(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+struct PairEdge {
+  const float* x;
+  bool recv;
+  __device__ float a(int slot, int l) const {
+    return recv ? x[32 * slot + l] : 0.0f;
+  }
+  __device__ float b(int slot, int l) const {
+    return recv ? x[XCH / 2 + 32 * slot + l] : BIG;
+  }
+};
+
+// Shifts below 1024: the sender's M = max(1, S / 32) registers nearest the
+// receiver (forward its last, reverse its first) are the receiver's
+// neighbours: slot j holds the sender's register 32 - M + j forward, j
+// reverse, which hs_step's slots address.
+template <int S, bool REVERSE>
+__device__ __forceinline__ void pair_step(float (&a)[32], float (&b)[32],
+                                          int lane, bool recv, float* x,
+                                          int id) {
+  constexpr int M = S < 32 ? 1 : S / 32;
+  static_assert(M <= XCH / 64, "a step's registers fit the exchange");
+  if (!recv)
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const int k = REVERSE ? j : 32 - M + j;
+      x[32 * j + lane] = a[k];
+      x[XCH / 2 + 32 * j + lane] = b[k];
+    }
+  pair_bar(id);
+  hs_step<32, S, REVERSE>(a, b, lane, PairEdge{x, recv});
+  pair_bar(id);
+}
+
+// Shift 1024: every receiver cell's neighbour is the sender's cell in the
+// same register and lane, every sender cell's is outside the line; the
+// sender's 32 registers cross in two rounds of 16.
+template <bool REVERSE>
+__device__ __forceinline__ void pair_last(float (&a)[32], float (&b)[32],
+                                          int lane, bool recv, float* x,
+                                          int id) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!recv)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        x[32 * j + lane] = a[16 * r + j];
+        x[XCH / 2 + 32 * j + lane] = b[16 * r + j];
+      }
+    pair_bar(id);
+    if (recv)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int k = 16 * r + j;
+        b[k] = fminf(b[k], x[XCH / 2 + 32 * j + lane] + a[k]);
+        a[k] = fminf(x[32 * j + lane] + a[k], BIG);
+      }
+    pair_bar(id);
+  }
+  if (!recv)
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      b[k] = fminf(b[k], BIG + a[k]);
+      a[k] = fminf(0.0f + a[k], BIG);
+    }
+}
+
+template <bool REVERSE>
+__device__ __forceinline__ void pair_line(float (&a)[32], float (&b)[32],
+                                          int lane, bool recv, float* x,
+                                          int id) {
+  pair_step<1, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<2, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<4, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<8, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<16, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<32, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<64, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<128, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<256, REVERSE>(a, b, lane, recv, x, id);
+  pair_step<512, REVERSE>(a, b, lane, recv, x, id);
+  pair_last<REVERSE>(a, b, lane, recv, x, id);
+}
+
+// Both scans of one line of n <= 2048 cells (walls at `wline`), forward,
+// then reverse, in place, by the pair of warps 2 pr, 2 pr + 1 of the block
+// (exchange x, named barrier 1 + pr), as warp_line_scans does them.
+__device__ void pair_line_scans(float* line, const uint8_t* wline, int n,
+                                float* x, int pr) {
+  const int lane = threadIdx.x & 31, h = (threadIdx.x >> 5) & 1;
+  float* ln = line + 1024 * h;
+  const uint8_t* wl = wline + 1024 * h;
+  const int nh = n - 1024 * h;
+  for (int dir = 0; dir < 2; ++dir) {
+    float a[32], b[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int c = lane + 32 * k;
+      const bool real = c < nh;
+      const bool w = real && wl[c];
+      a[k] = real ? (w ? BIG : 1.0f) : 0.0f;
+      b[k] = real ? (w ? BIG : ln[c]) : BIG;
+    }
+    if (dir == 0)
+      pair_line<false>(a, b, lane, h == 1, x, 1 + pr);
+    else
+      pair_line<true>(a, b, lane, h == 0, x, 1 + pr);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int c = lane + 32 * k;
+      if (c < nh) ln[c] = fminf(ln[c], b[k]);
+    }
+    __syncwarp();
+  }
+}
+
+// A block's scans of `lines` lines of n cells at `line0 + i * pitch` (walls
+// at `wall0 + i * pitch`), K cells a lane: a warp a line, or for K = 64 a
+// pair of warps a line, the first `pairs` pairs of the block with the
+// exchanges at `xch` (XCH floats a pair).
+template <int K>
+__device__ __forceinline__ void block_line_scans(float* line0,
+                                                 const uint8_t* wall0,
+                                                 size_t pitch, int lines,
+                                                 int n, float* xch,
+                                                 int pairs) {
+  const int warp = threadIdx.x / 32;
+  if constexpr (K == 64) {
+    const int pr = warp / 2;
+    if (pr < pairs)
+      for (int q = pr; q < lines; q += pairs)
+        pair_line_scans(line0 + q * pitch, wall0 + q * pitch, n,
+                        xch + (size_t)pr * XCH, pr);
+  } else {
+    for (int q = warp; q < lines; q += NT / 32)
+      warp_line_scans<K>(line0 + q * pitch, wall0 + q * pitch, n);
+  }
+}
+
 // The shared-memory layout of a block, the same in every block of the
 // cluster.  The row phase and the column scans use the same memory in
 // turn; fused_eikonal_smem_bytes is the larger of the two.  G rows hold a
@@ -191,9 +363,11 @@ struct Layout {
     return (2 * g * w + 4 * (size_t)S * w + 2 * w) * 4 + g * w;
   }
   // VSCAN_COLS columns of H cells and their walls, at a pitch of H + 1
-  // (the staging writes a row's columns to distinct banks)
+  // (the staging writes a row's columns to distinct banks); past 1024
+  // cells the warp pairs' exchanges
   __host__ __device__ size_t col_bytes() const {
-    return (size_t)VSCAN_COLS * (H + 1) * 5;
+    return (size_t)VSCAN_COLS * (H + 1) * 5 +
+           (H > 1024 ? (size_t)PAIRS * XCH * 4 : 0);
   }
   __host__ __device__ size_t bytes() const {
     const size_t r = row_bytes(), c = col_bytes();
@@ -228,7 +402,8 @@ __device__ void stencil_pass(const float* cu, float* nx, const uint8_t* wl,
   }
 }
 
-template <int KW>
+// KR cells a lane scan the rows (W <= 32 KR), KC the columns (H <= 32 KC)
+template <int KR, int KC>
 __global__ void __launch_bounds__(NT, 1)
 fused_eikonal_kernel(const uint8_t* __restrict__ trav,
                      const uint8_t* __restrict__ src, float* __restrict__ out,
@@ -243,7 +418,6 @@ fused_eikonal_kernel(const uint8_t* __restrict__ trav,
   float* D = out + cl.grid * plane;
 
   const Layout L(H, W, block, seg, scan_chunk);
-  const int warp = threadIdx.x / 32;
   // the row phase
   float* buf0 = smem;                      // own and ghost rows, twice
   float* buf1 = buf0 + (size_t)L.G * W;
@@ -252,10 +426,12 @@ fused_eikonal_kernel(const uint8_t* __restrict__ trav,
   float* top = rcv1 + 2 * (size_t)L.S * W; // the row above the row block
   float* bottom = top + W;                 // the row below it
   uint8_t* wl = reinterpret_cast<uint8_t*>(bottom + W);   // walls, G rows
-  // the column scans, in the same memory: a column to a warp
+  // the column scans, in the same memory: a column to a warp (past 1024
+  // cells to a pair, their exchanges at cx)
   const int HP = H + 1;
   float* col = smem;
   uint8_t* cw = reinterpret_cast<uint8_t*>(col + (size_t)VSCAN_COLS * HP);
+  float* cx = reinterpret_cast<float*>(cw + (size_t)VSCAN_COLS * HP);
 
   const int S = L.S;                       // ghost rows a side
   const int n_rounds = inner / scan_chunk;
@@ -288,9 +464,7 @@ fused_eikonal_kernel(const uint8_t* __restrict__ trav,
           cw[q * HP + r] = !tv[g] && !sr[g];
         }
         __syncthreads();
-        if (warp < nc)
-          warp_line_scans<KW>(col + (size_t)warp * HP,
-                              cw + (size_t)warp * HP, H);
+        block_line_scans<KC>(col, cw, HP, nc, H, cx, PAIRS);
         __syncthreads();
         for (int e = threadIdx.x; e < nc * H; e += NT) {
           const int r = e / nc, q = e - r * nc;
@@ -323,10 +497,11 @@ fused_eikonal_kernel(const uint8_t* __restrict__ trav,
           float* cur = p ? buf1 : buf0;
           float* rcv = par ? rcv1 : rcv0;
           if (nr > 0) {
-            // a warp a row
-            for (int q = warp; q < nr; q += NT / 32)
-              warp_line_scans<KW>(cur + own + (size_t)q * W,
-                                  wl + own + (size_t)q * W, W);
+            // a warp a row (rows over 1024 cells: a pair, its exchange in
+            // the other buffer, which the passes write before they read)
+            block_line_scans<KR>(cur + own, wl + own, W, nr, W,
+                                 p ? buf0 : buf1,
+                                 imin(PAIRS, L.G * W / XCH));
             __syncthreads();
             // the scanned rows to the peers that hold them as ghost rows:
             // slot i - lo2 + S above a peer's rows, S + i - lo2 - nr2 below
@@ -399,32 +574,54 @@ extern "C" size_t fused_eikonal_smem_bytes(int H, int W, int block, int seg,
   return Layout(H, W, block, seg, scan_chunk).bytes();
 }
 
+// Cells a lane of a line of n cells: 16 up to 512, 32 up to 1024, 64 (a
+// pair of warps, 32 each) up to MAX_LINE; 0 past it.
+static int lane_cells(int n) {
+  return n <= 512 ? 16 : n <= 1024 ? 32 : n <= MAX_LINE ? 64 : 0;
+}
+
+// f(KR, KC) for the kernel of (H, W) grids: KR from the rows' W cells, KC
+// from the columns' H (the columns' scans run only with vscan).
+template <typename F>
+static int with_kernel(int H, int W, F f) {
+  const int kr = lane_cells(W), kc = lane_cells(H);
+  auto rows = [&](auto c) {
+    if (kr == 16) return f(std::integral_constant<int, 16>(), c);
+    if (kr == 32) return f(std::integral_constant<int, 32>(), c);
+    return f(std::integral_constant<int, 64>(), c);
+  };
+  if (kr == 0 || kc == 0) return (int)cudaErrorInvalidValue;
+  if (kc == 16) return rows(std::integral_constant<int, 16>());
+  if (kc == 32) return rows(std::integral_constant<int, 32>());
+  return rows(std::integral_constant<int, 64>());
+}
+
 // Resident clusters of `cluster` blocks of `seg` rows each, into *out;
-// returns the cudaError_t of the query.  Lines (rows and columns) of up to
-// 512 cells take the kernel with 16 cells a lane, longer ones 32.
+// returns the cudaError_t of the query.
 extern "C" int fused_eikonal_max_clusters(int H, int W, int block, int seg,
                                           int scan_chunk, int cluster,
                                           int* out) {
   const size_t smem = fused_eikonal_smem_bytes(H, W, block, seg, scan_chunk);
-  return imax(H, W) <= 512
-             ? max_active_clusters(fused_eikonal_kernel<16>, cluster, smem,
-                                   out)
-             : max_active_clusters(fused_eikonal_kernel<32>, cluster, smem,
-                                   out);
+  return with_kernel(H, W, [&](auto kr, auto kc) {
+    return max_active_clusters(
+        fused_eikonal_kernel<decltype(kr)::value, decltype(kc)::value>,
+        cluster, smem, out);
+  });
 }
 
-template <int KW>
+template <int KR, int KC>
 static int launch(const uint8_t* trav, const uint8_t* src, float* out, int B,
                   int H, int W, int rounds, int block, int inner,
                   int scan_chunk, int vscan, int cluster, int seg,
                   cudaStream_t stream) {
   const size_t smem = fused_eikonal_smem_bytes(H, W, block, seg, scan_chunk);
-  cudaError_t err = cluster_attributes(fused_eikonal_kernel<KW>, smem);
+  cudaError_t err = cluster_attributes(fused_eikonal_kernel<KR, KC>, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(B, cluster, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, fused_eikonal_kernel<KW>, trav, src, out, H,
-                           W, rounds, block, inner, scan_chunk, vscan, seg);
+  err = cudaLaunchKernelEx(&cfg, fused_eikonal_kernel<KR, KC>, trav, src,
+                           out, H, W, rounds, block, inner, scan_chunk, vscan,
+                           seg);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -438,12 +635,9 @@ extern "C" int fused_eikonal_launch(const uint8_t* trav, const uint8_t* src,
                                     int rounds, int block, int inner,
                                     int scan_chunk, int vscan, int cluster,
                                     int seg, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (imax(H, W) <= 512)
-    return launch<16>(trav, src, out, B, H, W, rounds, block, inner,
-                      scan_chunk, vscan, cluster, seg, st);
-  if (imax(H, W) <= 1024)
-    return launch<32>(trav, src, out, B, H, W, rounds, block, inner,
-                      scan_chunk, vscan, cluster, seg, st);
-  return (int)cudaErrorInvalidValue;     // lines longer than 1024 cells
+  return with_kernel(H, W, [&](auto kr, auto kc) {
+    return launch<decltype(kr)::value, decltype(kc)::value>(
+        trav, src, out, B, H, W, rounds, block, inner, scan_chunk, vscan,
+        cluster, seg, (cudaStream_t)stream);
+  });
 }

@@ -36,7 +36,8 @@
 // phases (scan_phase1, scan_phase2): shifts below 32 in registers through
 // shuffles, a warp over 32 cells of a row; the larger shifts through
 // shuffles again after a transpose in shared memory, K2 lanes over the
-// 32-cell chunks of one column position; a step's a-value comes from the
+// 32-cell chunks of one column position (rows over 1024 cells: two chunks
+// a lane, scan_phase2_wide); a step's a-value comes from the
 // walls' run-lengths, computed once per row block (step_a), so only b moves
 // between lanes.  The stencil and the scans keep the plain version's
 // arithmetic (fmm_common.cuh: fma1, a correctly rounded sqrtf), so the
@@ -61,8 +62,12 @@ namespace {
 
 constexpr int NT = SWEEP_NT;
 
+// Rows of up to MAX_W cells: 64 chunks of 32, two a lane in the second
+// phase of a scan (scan_phase2_wide).
+constexpr int MAX_W = 2048;
+
 // The row scans' shared buffers for `nr` rows of W cells.  P is W rounded
-// up to 32 and K2 the power of two >= P / 32 (at most 32): a warp holds 32
+// up to 32 and K2 the power of two >= P / 32 (at most 64): a warp holds 32
 // consecutive cells of a row in the first phase of a scan, or the K2 chunks
 // of one column position in the second.  The [nr][K2][33] arrays hold cell
 // 32 k + l at (q K2 + k) 33 + l, which neither phase reads with bank
@@ -72,9 +77,20 @@ struct ScanBufs {
   float* bt[2];     // [nr][K2][33] b of the forward and reverse scans
   float* runt[2];   // [nr][K2][33] `run` of both directions, as floats
   uint16_t* run;    // [2][nr][P] cells back to the last wall (forward) and
-                    //   on to the next one (reverse), capped at 2048
-  uint32_t* mask;   // [nr][32] wall bits of each 32-cell chunk
+                    //   on to the next one (reverse), capped at MAX_W: a
+                    //   scan's shifts stay below W <= MAX_W, and a run only
+                    //   meets them in `run >= s`
+  uint32_t* mask;   // [nr][MW] wall bits of each 32-cell chunk
+  int mw;           // words a row of `mask`: max(32, K2)
 };
+
+// Rows over 1024 cells (WIDE) take the second phase two chunks a lane and
+// a wall-bit row of K2 words; narrower ones keep 32 words a row, a
+// constant, and no branch on the width in the scans.
+template <bool WIDE>
+__device__ __forceinline__ int mask_words(const ScanBufs& sb) {
+  return WIDE ? sb.mw : 32;
+}
 
 __device__ __forceinline__ int tidx(int q, int c, int K2) {
   return (q * K2 + (c >> 5)) * 33 + (c & 31);
@@ -96,6 +112,7 @@ __device__ __forceinline__ float step_a(float run, float s, float left) {
 // `wall` (pitch W): ballots give each 32-cell chunk's wall bits, then a
 // cell finds the last (next) wall in its chunk or the chunks before
 // (after).  Past W there are no walls, and a cell there has run 0.
+template <bool WIDE>
 __device__ void wall_runs(const uint8_t* wall, int nr, int W, int P,
                           int K2, const ScanBufs& sb) {
   const int lane = threadIdx.x & 31;
@@ -103,24 +120,24 @@ __device__ void wall_runs(const uint8_t* wall, int nr, int W, int P,
     for (int c = threadIdx.x; c < P; c += NT) {
       const unsigned m = __ballot_sync(0xffffffffu,
                                        c < W && wall[(size_t)q * W + c]);
-      if (lane == 0) sb.mask[q * 32 + c / 32] = m;
+      if (lane == 0) sb.mask[q * mask_words<WIDE>(sb) + c / 32] = m;
     }
   __syncthreads();
   const int K = P / 32;
   for (int q = 0; q < nr; ++q)
     for (int c = threadIdx.x; c < P; c += NT) {
       const int k = c >> 5, l = c & 31;
-      const uint32_t* mk = sb.mask + q * 32;
-      int fwd = 2048, rev = 2048;
+      const uint32_t* mk = sb.mask + q * mask_words<WIDE>(sb);
+      int fwd = MAX_W, rev = MAX_W;
       if (c < W) {
         unsigned m = mk[k] & (0xffffffffu >> (31 - l));   // bits <= l
         int kk = k;
         while (!m && kk > 0) m = mk[--kk];
-        if (m) fwd = imin(c - (32 * kk + 31 - __clz(m)), 2048);
+        if (m) fwd = imin(c - (32 * kk + 31 - __clz(m)), MAX_W);
         m = mk[k] & (0xffffffffu << l);                    // bits >= l
         kk = k;
         while (!m && kk < K - 1) m = mk[++kk];
-        if (m) rev = imin(32 * kk + __ffs(m) - 1 - c, 2048);
+        if (m) rev = imin(32 * kk + __ffs(m) - 1 - c, MAX_W);
       } else {
         fwd = rev = 0;
       }
@@ -204,13 +221,64 @@ __device__ void scan_phase2(int nr, int W, int P, int K2, int log_k2,
   __syncthreads();
 }
 
-template <typename Put>
+// Phase 2 of rows over 1024 cells (K2 = 64): a warp holds one column
+// position, lane k its chunks k and k + 32.  A step of m < 32 chunks reads
+// lane k - m (k + m going up): the chunk it needs is in that lane's same
+// register, or, across the middle, in its other one; the step of 32 chunks
+// reads the lane's own other register.  Every cell still reads its
+// neighbour's value from before the step, so the steps are phase 2's, one
+// for one.
+template <int DIR>
+__device__ void scan_phase2_wide(int nr, int W, int P, const ScanBufs& sb) {
+  const unsigned full = 0xffffffffu;
+  const int K = P / 32;
+  for (int e = threadIdx.x; e < nr * 32 * 32; e += NT) {
+    const int k = e & 31, gl = e >> 5;
+    const int l = gl & 31, q = gl >> 5;
+    const int c0 = 32 * k + l, c1 = c0 + 1024;
+    const int t0 = (q * 64 + k) * 33 + l, t1 = t0 + 32 * 33;
+    const bool in1 = k + 32 < K;            // chunk k (< 32 < K) is real
+    float b0 = sb.bt[DIR][t0];
+    float b1 = in1 ? sb.bt[DIR][t1] : BIG;
+    const float run0 = sb.runt[DIR][t0];
+    const float run1 = in1 ? sb.runt[DIR][t1] : 0.0f;
+    const float left0 = DIR ? W - c0 : c0 + 1;
+    const float left1 = DIR ? W - c1 : c1 + 1;
+    for (int m = 1; 32 * m < W; m <<= 1) {
+      float n0, n1;
+      if (m < 32) {
+        const int from = DIR ? (k + m) & 31 : (k - m) & 31;
+        const float s0 = __shfl_sync(full, b0, from);
+        const float s1 = __shfl_sync(full, b1, from);
+        const bool same = DIR ? k + m < 32 : k >= m;
+        n0 = DIR ? (same ? s0 : s1) : (same ? s0 : BIG);
+        n1 = DIR ? (same ? s1 : BIG) : (same ? s1 : s0);
+      } else {
+        n0 = DIR ? b1 : BIG;
+        n1 = DIR ? BIG : b0;
+      }
+      b0 = fminf(b0, n0 + step_a(run0, 32.0f * m, left0));
+      b1 = fminf(b1, n1 + step_a(run1, 32.0f * m, left1));
+    }
+    sb.bt[DIR][t0] = b0;
+    if (in1) sb.bt[DIR][t1] = b1;
+  }
+  __syncthreads();
+}
+
+template <bool WIDE, typename Put>
 __device__ void scan_rows(int nr, int W, int P, int K2, int log_k2,
                           const ScanBufs& sb, Put put) {
   scan_phase1<0>(nr, W, P, K2, sb);
-  scan_phase2<0>(nr, W, P, K2, log_k2, sb);
+  if constexpr (WIDE)
+    scan_phase2_wide<0>(nr, W, P, sb);
+  else
+    scan_phase2<0>(nr, W, P, K2, log_k2, sb);
   scan_phase1<1>(nr, W, P, K2, sb);
-  scan_phase2<1>(nr, W, P, K2, log_k2, sb);
+  if constexpr (WIDE)
+    scan_phase2_wide<1>(nr, W, P, sb);
+  else
+    scan_phase2<1>(nr, W, P, K2, log_k2, sb);
   for (int q = 0; q < nr; ++q)
     for (int c = threadIdx.x; c < W; c += NT) {
       const int t = tidx(q, c, K2);
@@ -222,21 +290,23 @@ __device__ void scan_rows(int nr, int W, int P, int K2, int log_k2,
 // The shared-memory layout of a block, the same in every block of the
 // cluster; block_sweep_smem_bytes is its size.
 struct Layout {
-  size_t RW, rows, P, K2;
+  size_t RW, rows, P, K2, MW;
   __host__ __device__ Layout(int W, int rows_)
       : RW((size_t)rows_ * W), rows(rows_), P((W + 31) / 32 * 32), K2(1) {
     while (32 * K2 < P) K2 *= 2;
+    MW = K2 > 32 ? K2 : 32;
   }
   // floats: buf0, buf1 (rows x W each), top, bottom (W each), the scans'
-  // bt[2] and runt[2] (rows x K2 x 33 each); then the masks (rows x 32
+  // bt[2] and runt[2] (rows x K2 x 33 each); then the masks (rows x MW
   // words), the wall runs (2 x rows x P halfwords) and the walls (rows x W
   // bytes)
   __host__ __device__ size_t bytes(int W) const {
     return (2 * RW + 2 * (size_t)W + 4 * rows * K2 * 33) * 4 +
-           rows * 32 * 4 + 2 * rows * P * 2 + RW;
+           rows * MW * 4 + 2 * rows * P * 2 + RW;
   }
 };
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 block_sweep_kernel(const float* __restrict__ d_in,
                    const uint8_t* __restrict__ wall,
@@ -263,7 +333,8 @@ block_sweep_kernel(const float* __restrict__ d_in,
   sb.runt[0] = sb.bt[1] + T;
   sb.runt[1] = sb.runt[0] + T;
   sb.mask = reinterpret_cast<uint32_t*>(sb.runt[1] + T);
-  sb.run = reinterpret_cast<uint16_t*>(sb.mask + L.rows * 32);
+  sb.mw = (int)L.MW;
+  sb.run = reinterpret_cast<uint16_t*>(sb.mask + L.rows * L.MW);
   uint8_t* wl = reinterpret_cast<uint8_t*>(sb.run + 2 * L.rows * P);
   // the neighbours' rows: the last row of the block above, the first of
   // the block below (only read where that neighbour owns them)
@@ -298,7 +369,7 @@ block_sweep_kernel(const float* __restrict__ d_in,
         top[c] = k > 0 ? Din[(size_t)(r0 - 1) * W + c] : BIG;
     // the walls' runs hold for the whole row block
     if (nr > 0 && inner > 0)
-      wall_runs(wl_g + (size_t)(r0 + lo) * W, nr, W, P, K2, sb);
+      wall_runs<WIDE>(wl_g + (size_t)(r0 + lo) * W, nr, W, P, K2, sb);
     cluster_barrier(C);  // every block's rows (and the carry) are in place
 
     int p = 0;           // the buffer that holds the current field
@@ -307,7 +378,7 @@ block_sweep_kernel(const float* __restrict__ d_in,
       float* cur = p ? buf1 : buf0;
       if (nr > 0) {
         sb.row = cur;
-        scan_rows(nr, W, P, K2, log_k2, sb,
+        scan_rows<WIDE>(nr, W, P, K2, log_k2, sb,
                   [&](int q, int c, float v) { cur[q * W + c] = v; });
       }
       cluster_barrier(C);  // the neighbours' scanned rows are readable
@@ -381,27 +452,34 @@ extern "C" size_t block_sweep_smem_bytes(int W, int rows) {
 // returns the cudaError_t of the query.
 extern "C" int block_sweep_max_clusters(int W, int rows, int cluster,
                                         int* out) {
-  return max_active_clusters(block_sweep_kernel, cluster,
-                             block_sweep_smem_bytes(W, rows), out);
+  const size_t smem = block_sweep_smem_bytes(W, rows);
+  return W > 1024
+             ? max_active_clusters(block_sweep_kernel<true>, cluster, smem,
+                                   out)
+             : max_active_clusters(block_sweep_kernel<false>, cluster, smem,
+                                   out);
 }
 
 // (B, H, W) float32 field, uint8 wall mask -> (B, H, W) float32 into d_out
 // (which must not alias d_in), B clusters of `cluster` blocks, each owning
-// `rows` rows of every row block (the launch plan's).  Launches on
-// `stream`; returns the cudaError_t of the launch.
+// `rows` rows of every row block (the launch plan's), rows of at most
+// MAX_W cells.  Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int block_sweep_launch(const float* d_in, const uint8_t* wall,
                                   float* d_out, int B, int H, int W,
                                   int block, int inner, int scan_chunk,
                                   int reverse, int cluster, int rows,
                                   void* stream) {
+  if (W > MAX_W) return (int)cudaErrorInvalidValue;
   const size_t smem = block_sweep_smem_bytes(W, rows);
-  cudaError_t err = cluster_attributes(block_sweep_kernel, smem);
+  auto kernel =
+      W > 1024 ? block_sweep_kernel<true> : block_sweep_kernel<false>;
+  cudaError_t err = cluster_attributes(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       cluster_config(B, cluster, smem, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, block_sweep_kernel, d_in, wall, d_out, H, W,
-                           block, inner, scan_chunk, reverse, rows);
+  err = cudaLaunchKernelEx(&cfg, kernel, d_in, wall, d_out, H, W, block,
+                           inner, scan_chunk, reverse, rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -75,8 +75,9 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
 
     CPU tensor: the plain version.  CUDA tensor: one launch of the kernel
     (``fused_eikonal.launches`` counts them) with ``launch_plan``'s cluster
-    size unless ``cluster`` forces one; no fallback.  Grids over 1024 cells
-    wide or tall raise ValueError."""
+    size unless ``cluster`` forces one; no fallback.  Grids over 2048 cells
+    wide or tall, or whose rows no plan fits in a block's shared memory
+    (over ~1600 cells at block 8, scan_chunk 4), raise ValueError."""
     if not traversible.is_cuda:
         return fused_eikonal_reference(traversible, sources, rounds=rounds,
                                        block=block, inner=inner,

@@ -51,8 +51,11 @@ def _check_grids(name: str, d: torch.Tensor, *masks: torch.Tensor) -> None:
 CLUSTER_SIZES = (16, 8, 6, 4, 2, 1)
 MIN_SEG = 16          # the plan splits a row no finer than this
 SMEM_LIMIT = 231424   # 227 KB a block, less 1 KB for static shared memory
-MAX_W1 = 1024         # order 1 scans a line as at most 32 chunks of 32
+MAX_W1 = 2048         # order 1 (and B1) scans lines of at most 64 chunks
 VSCAN_COLS = 16       # columns the fused solve stages for its column scans
+# past 1024 cells a pair of warps scans a fused solve's column: the 8 pairs'
+# exchanges (1024 floats each) beside the staged columns
+PAIR_EXCHANGE_BYTES = 8 * 1024 * 4
 
 
 @dataclass(frozen=True)
@@ -88,7 +91,8 @@ def smem_bytes(order: int, w: int, block: int, seg: int,
     ``csrc/fmm_sweep2.cu`` (order 2, ``seg`` columns), or with ``fused``
     (H, scan_chunk) the ``Layout`` of ``csrc/fmm_fused.cu``: ``seg`` rows,
     up to scan_chunk ghost rows a side and their receive buffers, or the
-    column scans' staging, whichever is larger."""
+    column scans' staging, whichever is larger.  Order 1's wall bits take
+    a word a 32-cell chunk, at least 32 words a row."""
     if order == 2:
         return 2 * (block + 4) * seg * 4 + 2 * block * seg
     if fused is not None:
@@ -96,23 +100,24 @@ def smem_bytes(order: int, w: int, block: int, seg: int,
         ghosts = min(chunk, block)            # a side
         g = min(block, seg + 2 * ghosts)
         rows = (2 * g * w + 4 * ghosts * w + 2 * w) * 4 + g * w
-        return max(rows, VSCAN_COLS * (h + 1) * 5)
+        cols = VSCAN_COLS * (h + 1) * 5
+        if h > 1024:                          # the warp pairs' exchanges
+            cols += PAIR_EXCHANGE_BYTES
+        return max(rows, cols)
     p, k2 = _scan_pitches(w)
-    return ((2 * seg * w + 2 * w + 4 * seg * k2 * 33) * 4 + seg * 32 * 4
-            + 2 * seg * p * 2 + seg * w)
+    return ((2 * seg * w + 2 * w + 4 * seg * k2 * 33) * 4
+            + seg * max(32, k2) * 4 + 2 * seg * p * 2 + seg * w)
 
 
 def _layout(order: int, w: int, block: int, cluster: int,
             fused: Optional[Tuple[int, int]] = None) -> Optional[SweepPlan]:
     """The plan for ``cluster`` blocks, or None where it cannot run: a
     block left without columns (rows, order 1), a segment narrower than
-    order 2's two halo columns, order-1 rows (or a fused solve's columns)
-    over MAX_W1 cells, or more shared memory than a block has."""
+    order 2's two halo columns, or more shared memory than a block has
+    (``sweep_plan`` turns away order-1 lines over MAX_W1 cells first)."""
     n = block if order == 1 else w        # what the blocks split
     seg = -(-n // cluster)
     if -(-n // seg) != cluster or (order == 2 and cluster > 1 and seg < 2):
-        return None
-    if order == 1 and max(w, fused[0] if fused else 0) > MAX_W1:
         return None
     smem = smem_bytes(order, w, block, seg, fused)
     if smem > SMEM_LIMIT:
@@ -145,20 +150,28 @@ def sweep_plan(order: int, b: int, w: int, block: int,
     if fused is not None and (fused[0] < 1 or fused[1] < 1):
         raise ValueError(f"a fused solve of >= 1 rows and a scan_chunk "
                          f">= 1, got (H, scan_chunk) = {fused}")
+    line = max(w, fused[0] if fused else 0)
+    if order == 1 and line > MAX_W1:
+        raise ValueError(f"order-1 kernels scan lines (rows, and a fused "
+                         f"solve's columns) of at most {MAX_W1} cells, "
+                         f"got {line}")
     if cluster is not None:
         plan = (_layout(order, w, block, cluster, fused)
                 if cluster in CLUSTER_SIZES else None)
         if plan is None:
             raise ValueError(f"order {order} cannot split rows of {w} "
                              f"cells in {block}-row blocks over {cluster} "
-                             f"blocks")
+                             f"blocks (a block without rows or columns, or "
+                             f"past its shared memory)")
         return plan
     plans = [p for p in (_layout(order, w, block, c, fused)
                          for c in CLUSTER_SIZES
                          if c == 1 or -(-w // c) >= MIN_SEG) if p]
     if not plans:
         raise ValueError(f"rows of {w} cells in {block}-row blocks exceed "
-                         f"the order-{order} kernel's shared memory")
+                         f"the order-{order} kernel's shared memory "
+                         f"({SMEM_LIMIT} bytes a block) at every cluster "
+                         f"size")
     for p in plans:
         if b <= resident.get(p.cluster, 0):
             return p

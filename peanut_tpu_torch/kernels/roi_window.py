@@ -22,7 +22,9 @@ import torch
 
 from ._build import check, library
 
-MAX_SMEM = 232448   # shared memory one block may use on the H100
+# dynamic shared memory a block may use on the H100 (227 KB, less 1 KB for
+# the kernel's static shared memory)
+MAX_SMEM = 232448 - 1024
 # detect chunks launch from the runtime's env-step threads: count under a lock
 _count_lock = threading.Lock()
 
@@ -61,12 +63,18 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.roi_window_pool_launch.argtypes = \
-            [p, i, p, p, p, p, p] + [i] * 7 + [p]
+            [p, i, p, p, p, p, p, p] + [i] * 7 + [p]
         lib.roi_window_pool_launch.restype = i
-        lib.roi_window_smem_bytes.argtypes = [i, i, i, i]
+        lib.roi_window_pool_part_launch.argtypes = \
+            [p, i, p, p, p, p, p, p] + [i] * 9 + [p]
+        lib.roi_window_pool_part_launch.restype = i
+        lib.roi_window_rec_bytes.argtypes = [i, i, i]
+        lib.roi_window_rec_bytes.restype = ctypes.c_size_t
+        lib.roi_window_smem_bytes.argtypes = [i, i, i, i, i]
         lib.roi_window_smem_bytes.restype = ctypes.c_size_t
         lib.roi_window_supports_p.argtypes = [i]
         lib.roi_window_supports_p.restype = i
+        lib.roi_window_ring_rows.restype = i
         lib._typed = True
     return lib
 
@@ -92,6 +100,36 @@ def roi_window_pool(flat: torch.Tensor, ay: torch.Tensor, ax: torch.Tensor,
     if not flat.is_cuda:
         return roi_window_pool_reference(flat, ay, ax, row0, col0, win_y,
                                          win_x)
+    return _launch(flat, ay, ax, row0, col0, win_y, win_x, None, None)
+
+
+roi_window_pool.launches = 0
+
+
+# the parts of a launch that ``roi_window_pool_part`` runs
+PARTS = {"whole": 0, "write": 1, "load_write": 2}
+
+
+def roi_window_pool_part(flat, ay, ax, row0, col0, win_y: int, win_x: int,
+                         part: str, rows=None) -> torch.Tensor:
+    """One launch of the kernel that runs ``part`` of the pool (for
+    chip_smoke.py's breakdown and ring sweep; not counted): "whole" the
+    pool, "write" the hats, their support and the output write alone,
+    "load_write" also the window loads; bf16 with ring stages of ``rows``
+    rows (default the pool's, ``ring_rows()``)."""
+    return _launch(flat, ay, ax, row0, col0, win_y, win_x, rows,
+                   PARTS[part])
+
+
+def ring_rows() -> int:
+    """The rows of a bf16 ring stage the pool launches with: XC =
+    max(R16max, rows) / R16 window columns of a ROI's R16 support rows (R
+    rounded up to 16); float32 streams whole support rows."""
+    return _lib().roi_window_ring_rows()
+
+
+def _launch(flat, ay, ax, row0, col0, win_y, win_x, rows, part):
+    """The pool's launch (``part`` None, counted) or a part launch."""
     n, p, wy = ay.shape
     hs, ws, c = flat.shape
     if wy != win_y or tuple(ax.shape) != (n, p, win_x):
@@ -105,11 +143,14 @@ def roi_window_pool(flat: torch.Tensor, ay: torch.Tensor, ax: torch.Tensor,
                for t in (ay, ax, row0, col0)):
         raise ValueError("all inputs must be on the buffer's device")
     lib = _lib()
+    if rows is None:
+        rows = lib.roi_window_ring_rows()
     is_bf16 = int(flat.dtype == torch.bfloat16)
     if not lib.roi_window_supports_p(p):
         raise ValueError(f"pooled size {p} is not built (7, 14)")
-    if lib.roi_window_smem_bytes(is_bf16, p, win_y, win_x) > MAX_SMEM:
-        raise ValueError(f"window {win_y}x{win_x} exceeds shared memory")
+    if lib.roi_window_smem_bytes(is_bf16, p, win_y, win_x, rows) > MAX_SMEM:
+        raise ValueError(f"window {win_y}x{win_x} with {rows}-row stages "
+                         f"exceeds shared memory")
     flat = flat.contiguous()
     if flat.data_ptr() % 16:
         raise ValueError("flat must start on a 16-byte boundary (cp.async)")
@@ -118,16 +159,23 @@ def roi_window_pool(flat: torch.Tensor, ay: torch.Tensor, ax: torch.Tensor,
     row0 = row0.to(torch.int32).contiguous()
     col0 = col0.to(torch.int32).contiguous()
     out = torch.empty((n, p, p, c), dtype=torch.float32, device=flat.device)
+    # bf16: the kernels' per-ROI records (support, hat matrices), scratch
+    recs = torch.empty(n * lib.roi_window_rec_bytes(p, win_y, win_x)
+                       if is_bf16 else 0, dtype=torch.uint8,
+                       device=flat.device)
     if n:
         with torch.cuda.device(flat.device):
+            args = (flat.data_ptr(), is_bf16, ay.data_ptr(), ax.data_ptr(),
+                    row0.data_ptr(), col0.data_ptr(), recs.data_ptr(),
+                    out.data_ptr(), n, p, hs, ws, c, win_y, win_x)
             stream = torch.cuda.current_stream().cuda_stream
-            check(lib.roi_window_pool_launch(
-                flat.data_ptr(), is_bf16, ay.data_ptr(), ax.data_ptr(),
-                row0.data_ptr(), col0.data_ptr(), out.data_ptr(), n, p, hs,
-                ws, c, win_y, win_x, stream), "roi_window_pool launch")
-        with _count_lock:
-            roi_window_pool.launches += 1
+            if part is None:
+                check(lib.roi_window_pool_launch(*args, stream),
+                      "roi_window_pool launch")
+                with _count_lock:
+                    roi_window_pool.launches += 1
+            else:
+                check(lib.roi_window_pool_part_launch(*args, rows, part,
+                                                      stream),
+                      "roi_window_pool part launch")
     return out
-
-
-roi_window_pool.launches = 0

@@ -10,7 +10,8 @@ Tolerance: bitwise for the eikonal kernels (B1, B2, B4), which keep their
 plain versions' operation order, scan association and rounding (see the
 notes in kernels/csrc/*.cu) at every cluster size, and for ``nms_keep``
 (both give the unique greedy keep set).  ``roi_window_pool`` sums in
-another association than its plain version (x before y): rtol/atol 2e-5,
+another association than its plain version (tensor-core accumulation
+order in bfloat16, the x-contraction's order in both): rtol/atol 2e-5,
 in bfloat16 too, since both sides contract the same bfloat16-rounded
 operands in float32.  The bfloat16 bar of tests/test_roi_window.py (2e-2)
 would pass a kernel that skips rounding A_y; 2e-5 does not
@@ -144,13 +145,61 @@ def test_fused_eikonal_carry_isolated_between_grids(cuda):
         assert torch.equal(got[sl], fused_eikonal(trav[sl], src[sl], **kw))
 
 
-def test_fused_eikonal_takes_rows_up_to_1024(cuda):
-    with pytest.raises(ValueError):
-        fused_eikonal(*_grids(24, 1, 16, 1025, cuda))
-    with pytest.raises(ValueError):
-        fused_eikonal(*_grids(24, 1, 1025, 16, cuda))
+def test_fused_eikonal_takes_lines_past_1024(cuda):
+    """Rows and columns of 1025 cells solve, bit-equal to the plain
+    version; rows past a block's shared memory and lines over 2048 cells
+    raise, saying which."""
+    for shape in ((1, 16, 1025), (1, 1025, 16)):
+        trav, src = _grids(24, *shape, cuda)
+        got = fused_eikonal(trav, src)
+        assert torch.equal(got, fused_eikonal_reference(trav, src))
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_eikonal(*_grids(24, 1, 16, 1700, cuda))
+    with pytest.raises(ValueError, match="2048 cells"):
+        fused_eikonal(*_grids(24, 1, 2049, 16, cuda))
     with pytest.raises(ValueError):      # not a cluster size
         fused_eikonal(*_grids(24, 1, 16, 64, cuda), cluster=3)
+
+
+@pytest.mark.parametrize("shape,vscan", [((2, 48, 1040), False),
+                                         ((2, 48, 1040), True),
+                                         ((2, 1040, 48), True),
+                                         ((1, 2000, 48), True),
+                                         ((1, 2048, 40), True)])
+@pytest.mark.parametrize("cluster", [None, 1])
+def test_fused_eikonal_past_1024_equals_plain(cuda, shape, vscan, cluster):
+    """A pair of warps a line: rows of 1040 cells, columns of up to 2048
+    (the column scans), bit-equal to the plain version."""
+    trav, src = _grids(25, *shape, cuda)
+    kw = dict(rounds=2, block=8, inner=24, scan_chunk=4, vscan=vscan)
+    got = fused_eikonal(trav, src, cluster=cluster, **kw)
+    want = fused_eikonal_reference(trav, src, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).sum() > got.numel() // 2
+
+
+@pytest.mark.parametrize("shape,vscan,block,cluster", [
+    ((1, 24, 1600), False, 8, None), ((1, 40, 1060), False, 8, None),
+    ((1, 40, 1060), False, 16, 1), ((2, 1300, 40), True, 8, None),
+    ((2, 1300, 40), True, 16, 1), ((1, 2048, 24), True, 8, None)])
+def test_fused_eikonal_runs_across_the_pair_boundary(cuda, shape, vscan,
+                                                      block, cluster):
+    """Lines whose wall-free runs cross cell 1024, where the pair's two
+    warps meet, and a line without walls; a cluster of one runs its 16
+    rows with all 8 pairs, twice."""
+    trav, src = _grids(27, *shape, cuda)
+    if vscan:
+        trav[:, 1000:1050, :] = True
+        trav[:, :, 3] = True
+    else:
+        trav[:, :, 1000:1050] = True
+        trav[:, 3, :] = True
+    kw = dict(rounds=2, block=block, inner=8, scan_chunk=4, vscan=vscan)
+    got = fused_eikonal(trav, src, cluster=cluster, **kw)
+    want = fused_eikonal_reference(trav, src, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(3, 50, 37), (2, 49, 64), (1, 482, 482),
@@ -170,6 +219,28 @@ def test_block_sweep_kernel_equals_plain(cuda, shape, reverse, scan_chunk):
     want = block_sweep_reference(d, wall, reverse, scan_chunk=scan_chunk)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w", [1025, 1040, 1500, 2000, 2048])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cluster", [None, 6])
+def test_block_sweep_rows_past_1024_equal_plain(cuda, w, reverse, cluster):
+    """Rows of 33-64 chunks (two a lane in the scans' second phase),
+    walls placed so that runs cross the middle chunk, bit-equal to the
+    plain version."""
+    trav, src = _grids(26, 2, 40, w, cuda)
+    trav[:, :, 1020:1030] = True         # a run across chunk 32
+    trav[:, 5, :] = True                 # a row without walls
+    wall = ~trav & ~src
+    d = block_sweep_reference(torch.where(src, 0.0, fmm.BIG).float(), wall,
+                              not reverse)
+    got = block_sweep(d, wall, reverse, cluster=cluster)
+    want = block_sweep_reference(d, wall, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="2048 cells"):
+        block_sweep(torch.zeros(1, 16, 2049, device=cuda),
+                    torch.zeros(1, 16, 2049, dtype=torch.bool, device=cuda))
 
 
 def test_block_sweep_carry_isolated_between_grids(cuda):
@@ -409,6 +480,72 @@ def test_roi_window_pool_kernel_matches_plain(cuda, dtype, tol, p, win_y,
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,win_y,win_x,hs,ws", [
+    (7, 40, 40, 200, 272), (7, 26, 274, 60, 272), (7, 208, 26, 208, 100),
+    (14, 40, 40, 100, 136), (14, 208, 26, 208, 60)])
+def test_roi_window_pool_error_far_under_the_bar(cuda, dtype, p, win_y,
+                                                 win_x, hs, ws):
+    """The path's window shapes at C = 256 with hat-matrix supports (two
+    taps a sample), origins across every edge of the buffer, a ROI without
+    support on either axis: the kernel (bf16 on the tensor cores, their
+    accumulation order) stays an order of magnitude under the 2e-5 x max
+    bar of its plain version."""
+    rng = np.random.RandomState(p + win_y + win_x)
+    n = 64
+    flat = torch.as_tensor(rng.standard_normal((hs, ws, 256)).astype(
+        np.float32), device=cuda).to(dtype)
+
+    def hats(length, count):
+        out = np.zeros((n, p, length), np.float32)
+        for i in range(n):
+            span = rng.randint(1, length - 1)
+            lo = rng.randint(0, length - span)
+            for q in range(p):
+                for s in range(count):
+                    x = lo + (q + (s + 0.5) / count) * span / p
+                    f = int(np.floor(x))
+                    out[i, q, f] += 1.0 - (x - f)
+                    if f + 1 < length:
+                        out[i, q, f + 1] += x - f
+        return out
+    ay, ax = hats(win_y, 2), hats(win_x, 2)
+    ay[1] = 0.0                                   # no rows
+    ax[2] = 0.0                                   # no columns
+    row0 = rng.randint(-win_y, hs, n).astype(np.int32)
+    col0 = rng.randint(-win_x, ws, n).astype(np.int32)
+    args = (flat, *(torch.as_tensor(a, device=cuda)
+                    for a in (ay, ax, row0, col0)), win_y, win_x)
+    got = roi_window_pool(*args)
+    want = roi_window_pool_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[1]) == 0
+    assert torch.count_nonzero(got[2]) == 0
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 2e-6 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_window_pool_parts(cuda, dtype):
+    """The breakdown's launches: the whole pool equals the wrapper's, with
+    ring stages of any size (a stage's columns are contracted in window
+    order), the write alone (and with the loads) writes zeros; none is
+    counted."""
+    from peanut_tpu_torch.kernels.roi_window import roi_window_pool_part
+    args = _roi_inputs(3, 37, 7, 26, 274, 90, 300, 136, cuda, dtype)
+    want = roi_window_pool(*args, 26, 274)
+    before = roi_window_pool.launches
+    assert torch.equal(roi_window_pool_part(*args, 26, 274, "whole"), want)
+    for rows in (32, 64, 128, 256):
+        assert torch.equal(roi_window_pool_part(*args, 26, 274, "whole",
+                                                rows=rows), want)
+    for part in ("write", "load_write"):
+        assert torch.count_nonzero(
+            roi_window_pool_part(*args, 26, 274, part)) == 0
+    assert roi_window_pool.launches == before
+
+
 def test_roi_window_pool_bar_sees_unrounded_ay(cuda):
     """In bfloat16 the pool rounds A_y before it meets the window.  A pool
     that skipped it (the plain version over a float32 copy of the same
@@ -458,6 +595,26 @@ def test_nms_keep_kernel_equals_plain(cuda, problems, n, density):
     ones = torch.ones(1000, dtype=torch.bool, device=cuda)
     assert torch.equal(nms_keep(chain, ones), nms_keep_reference(chain, ones))
     assert int(nms_keep(chain, ones).sum()) == 500
+
+
+@pytest.mark.parametrize("problems,n", [(3, 33), (2, 1025), (2, 1312),
+                                        (2, 1400), (1, 3001)])
+def test_nms_keep_packed_walk_equals_plain(cuda, problems, n):
+    """n not a multiple of 32, past 32 words, and past the shared-memory
+    bit matrix (~1300 boxes: the rows stream through the ring), with noise
+    below the diagonal that the kernels must not read; and the adversarial
+    chain (each box suppresses only the next) at those n."""
+    rng = np.random.RandomState(n)
+    sup = np.triu(rng.rand(problems, n, n) < 0.004, 1)
+    sup |= np.tril(rng.rand(problems, n, n) < 0.5)
+    sup_t = torch.as_tensor(sup, device=cuda)
+    valid = torch.as_tensor(rng.rand(problems, n) > 0.05, device=cuda)
+    got = nms_keep(sup_t, valid)
+    assert torch.equal(got, nms_keep_reference(sup_t.triu(1), valid))
+    chain = torch.ones(n, n, dtype=torch.bool, device=cuda).triu(1).tril(1)
+    ones = torch.ones(n, dtype=torch.bool, device=cuda)
+    got = nms_keep(chain, ones)
+    assert torch.equal(got, torch.arange(n, device=cuda) % 2 == 0)
 
 
 def test_nms_fixed_on_the_card_equals_the_cpu(cuda):

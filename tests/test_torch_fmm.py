@@ -173,6 +173,25 @@ def test_composed_2d_bit_equal_to_jax_cpu(order):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(1, 16, 1040), (1, 1040, 16)])
+@pytest.mark.parametrize("order", [1, 2])
+def test_composed_schedule_past_1024_bit_equal_to_jax_cpu(shape, order):
+    """Lines over 1024 cells (a full map at map_size_cm=5200): the plain
+    solve, which the order-1 kernels are held to bit for bit on the card,
+    equals the JAX package's."""
+    rng = np.random.RandomState(11)
+    trav = rng.rand(*shape) > 0.2
+    src = np.zeros(shape, bool)
+    src[0, shape[1] // 3, shape[2] // 3] = True
+    kw = dict(order=order, n_iters=1, n_iters2=1)
+    want = np.asarray(jfmm.eikonal_distance(jnp.asarray(trav),
+                                            jnp.asarray(src), **kw))
+    got = tfmm.eikonal_distance(T(trav), T(src), schedule="composed",
+                                **kw).numpy()
+    assert np.isfinite(got).sum() > shape[1] * shape[2] // 2
+    np.testing.assert_array_equal(got, want)
+
+
 def _jax_fused_order2(trav, src, n_iters=2, block=16, inner=40, n_iters2=2):
     """The fused order-2 schedule of fmm.py:417-483 assembled from the JAX
     package's parts (interpret-mode blanket, XLA refinement sweeps)."""

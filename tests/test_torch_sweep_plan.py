@@ -65,8 +65,8 @@ def test_segments_cover_every_column_once(order, w, cluster):
         p = sweep_plan(order, 1, w, 16, RESIDENT, cluster=cluster)
     except ValueError:
         # only where a block would own nothing, order 2's halo would reach
-        # past a neighbour, order 1's row is too long, or shared memory
-        # runs out
+        # past a neighbour, order 1's row is over 64 chunks, or shared
+        # memory runs out
         if order == 1 and w > MAX_W1:
             return
         assert cluster is not None
@@ -148,11 +148,23 @@ def test_the_plan_keeps_the_batch_resident():
     ((2, 1, 2, 16), {"cluster": 2}),          # halo past the neighbour
     ((2, 1, 1024, 400), {"cluster": 1}),      # shared memory
     ((1, 1, 960, 4000), {}),                  # too tall for any plan
-    ((1, 1, 1025, 16), {}),                   # order 1 past 32 chunks
+    ((1, 1, 2049, 16), {}),                   # order 1 past 64 chunks
 ])
 def test_shapes_the_kernels_do_not_take(args, kw):
     with pytest.raises(ValueError):
         sweep_plan(*args, RESIDENT, **kw)
+
+
+@pytest.mark.parametrize("w", [1025, 1040, 1042, 1500, 2000, 2048])
+@pytest.mark.parametrize("b", [1, 16])
+def test_order1_plan_takes_rows_up_to_2048(b, w):
+    """B4 scans rows of up to 64 chunks of 32 cells: the plan takes them
+    at block 16, the row block split over a cluster, within shared
+    memory."""
+    p = sweep_plan(1, b, w, 16, RESIDENT)
+    assert p.cluster > 1 and p.smem_bytes <= SMEM_LIMIT
+    assert p.smem_bytes == smem_bytes(1, w, 16, p.seg)
+    assert sum(p.widths) == 16
 
 
 # B1, the fused solve: (B, H, W, block, scan_chunk) -> (cluster, seg,
@@ -179,7 +191,8 @@ def test_fused_plan_at_the_paths_shapes(key):
     assert p.smem_bytes <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize("w", [1, 31, 37, 64, 200, 481, 482, 960, 1024])
+@pytest.mark.parametrize("w", [1, 31, 37, 64, 200, 481, 482, 960, 1024,
+                               1040, 1500])
 @pytest.mark.parametrize("block", [5, 8, 16])
 @pytest.mark.parametrize("cluster", [None, 1, 2, 4, 6, 8, 16])
 def test_fused_segments_cover_every_row_once(w, block, cluster):
@@ -224,6 +237,16 @@ def test_fused_plan_ghost_rows_and_column_staging():
         sweep_plan(1, 1, 1024, 16, RESIDENT, cluster=1, fused=(482, 40))
 
 
+@pytest.mark.parametrize("h", [1025, 1040, 2000, 2048])
+def test_fused_column_staging_past_1024_holds_the_pair_exchanges(h):
+    """Columns over 1024 cells are scanned by pairs of warps: the staging
+    of 16 columns grows by the 8 pairs' exchanges (1024 floats each), and
+    still fits a block at 2048."""
+    assert smem_bytes(1, 48, 16, 8, (h, 4)) == (16 * (h + 1) * 5
+                                                + 8 * 1024 * 4)
+    assert smem_bytes(1, 48, 16, 8, (h, 4)) <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize("w", [1, 2, 17, 24, 30])
 def test_fused_narrow_grids_run_one_block(w):
     p = sweep_plan(1, 4, w, 16, RESIDENT, fused=(50, 4))
@@ -239,9 +262,9 @@ def test_fused_plan_keeps_the_batch_resident():
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((1, 1, 1025, 16), {"fused": (482, 4)}),   # rows wider than 1024
-    ((1, 1, 482, 16), {"fused": (1025, 4)}),   # columns taller than 1024
-    ((1, 1, 2000, 16), {"fused": (2000, 4)}),
+    ((1, 1, 1608, 8), {"fused": (482, 4)}),    # rows past shared memory
+    ((1, 1, 482, 16), {"fused": (2049, 4)}),   # columns taller than 2048
+    ((1, 1, 2000, 16), {"fused": (2000, 4)}),  # rows past shared memory
     ((2, 1, 482, 16), {"fused": (482, 4)}),    # the fused solve is order 1
     ((1, 1, 482, 16), {"fused": (0, 4)}),      # no rows
     ((1, 1, 482, 16), {"fused": (482, 0)}),    # no passes a round
@@ -250,6 +273,32 @@ def test_fused_plan_keeps_the_batch_resident():
 def test_fused_shapes_the_kernel_does_not_take(args, kw):
     with pytest.raises(ValueError):
         sweep_plan(*args, RESIDENT, **kw)
+
+
+@pytest.mark.parametrize("b,h,w,block", [
+    (1, 1042, 1042, 16), (16, 1042, 1042, 16), (1, 1042, 1042, 8),
+    (2, 48, 1040, 16), (2, 1040, 48, 16), (1, 16, 1025, 16),
+    (1, 1025, 16, 16), (2, 2000, 48, 16), (1, 1607, 1607, 8)])
+def test_fused_plan_takes_lines_past_1024(b, h, w, block):
+    """B1 takes every grid up to 2048 cells a line whose plan fits a
+    block's shared memory: the exact profile's 1042^2 goal-weighting
+    solve, rows of 1040 and columns of up to 2048 (column scans)."""
+    p = sweep_plan(1, b, w, block, RESIDENT, fused=(h, 4))
+    assert p.smem_bytes <= SMEM_LIMIT
+    assert p.smem_bytes == smem_bytes(1, w, block, p.seg, (h, 4))
+    assert sum(p.widths) == block
+
+
+def test_fused_plan_past_shared_memory_says_so():
+    """Rows too wide for a block's shared memory at any cluster size
+    raise a ValueError that names shared memory; lines over 2048 cells
+    name the line limit."""
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep_plan(1, 1, 1608, 8, RESIDENT, fused=(1608, 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep_plan(1, 16, 1700, 16, RESIDENT, fused=(1700, 4))
+    with pytest.raises(ValueError, match="2048 cells"):
+        sweep_plan(1, 1, 482, 8, RESIDENT, fused=(2049, 4))
 
 
 def test_plan_is_a_value():
