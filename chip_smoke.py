@@ -1,11 +1,11 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--ticks N] [--only b3|wide]
+    python3 chip_smoke.py [--seed N] [--ticks N] [--only b3|b1|wide]
 
 With --only, the device line and one phase alone, with no result line: "b3"
-phase 5's roi_window_pool lines, "wide" phase 3's lines over 1024 cells
-(run from a copy of another tree, it times that tree's kernels beside
-these, in one call).
+phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
+phase 3's lines over 1024 cells (run from a copy of another tree, it times
+that tree's kernels beside these, in one call).
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -24,11 +24,15 @@ Phases (each prints one JSON line):
                version beside the kernel's bound (B1/B2/B4 bit-equal, with
                their cluster size, chain of row blocks x passes (B1: x scan
                rounds), time per link and the floor the chain's cluster
-               barriers set); then lines over 1024 cells (wide_lines: B4
-               at 1x48x1040 and 1x48x2000, B1 at 2x48x1040 and 2x1040x48
-               with column scans, 1x1024^2 and 1x1042^2 blankets), all
-               bit-equal; then fused_eikonal's time split into its scan
-               rounds and local stencil passes;
+               barriers set), at both tilings of the 16-env tick (block
+               16 and the serving profile's block 8, inner 24) and the
+               exact profile's 8 x 960^2 goal-weighting field; then lines
+               over 1024 cells (wide_lines: B4 at 1x48x1040, 2000, 2049,
+               4096; B1 at 2x48x1040, 2x1040x48, 1x2000x48 and 2x4096x48
+               with column scans, 1x1024^2 and 1x1042^2 blankets, and rows
+               past full ghost rows: 1x1608^2 at block 8, 16x1700^2 at
+               block 16), all bit-equal; then fused_eikonal's time split
+               into its scan rounds and local stencil passes;
   4. slice   — BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=1,
                only_explore=1, switch_step=999) at the default geometry:
                steps/s, tick times, StageTimer stages, peak memory and the
@@ -65,6 +69,21 @@ Phases (each prints one JSON line):
                tick times, stages (detect included), peak memory and the
                launches of B1, B2, B3 and nms_keep in the measured ticks
                (all > 0);
+ 7b. serve_16, exact_16 — bench.py::bench_env_steps's two profiles:
+               BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=0,
+               serve_bf16=True) and the serving profile's settings
+               (dd_downscale=2, dd_order=1, dd_block/plan_block 8,
+               dd_inner/plan_inner 24, pred_async=1; 20 ticks) or the exact
+               one's (dd_downscale=1, synchronous prediction; 10 ticks),
+               Mask R-CNN R101-FPN and PSPNet-R50-v1c from seeds, 5 warm-up
+               ticks and warmup_rare_paths first: steps/s, median tick, the
+               stages per tick, peak memory and the launches of B1, B2, B3
+               and nms_keep (all > 0); then pred_parity: 8 envs with GT
+               semantics, 12 ticks of the serving profile and 4 of the
+               exact one (its plain solves take ~37 s a tick), the
+               prediction branch's goal-weighting solve through the
+               kernels and through the plain versions: equal actions and
+               goals, bit-equal target_pred and dd_wt;
   8. single_explore — the single-env agent through cli/collect_maps.main:
                one episode of 100 steps on FakeNavEnv(size_m=14.0) with GT
                semantics at the default geometry (240^2 local window, 242^2
@@ -126,6 +145,12 @@ B1_CASES = {
                         scan_chunk=4, vscan=True),
     "blanket_16x962": dict(shape=(16, 962), rounds=2, block=16, inner=40,
                            scan_chunk=4, vscan=False),
+    # the serving profile's planning blanket (plan_block 8, plan_inner 24)
+    # and the exact profile's goal-weighting blanket (K = 8 of 960^2)
+    "blanket_16x482_b8": dict(shape=(16, 482), rounds=2, block=8, inner=24,
+                              scan_chunk=4, vscan=False),
+    "blanket_8x960": dict(shape=(8, 960), rounds=2, block=16, inner=40,
+                          scan_chunk=4, vscan=False),
 }
 
 
@@ -738,7 +763,175 @@ def mask_rcnn_phases(args, dev):
     if not maps_finite or sem_cells <= 0:
         fail("the seg slice's maps are not finite or hold no Mask R-CNN "
              "semantics")
-    return b3, nms, launches
+    return b3, nms, launches, model
+
+
+# ---------------------------------------------------------------------------
+# The 16-env serving tick with target prediction (bench.py::bench_env_steps)
+
+# bench.py:308-311: the serving profile (half-resolution first-order goal
+# field, 8-row tiling, the prediction program after the tick's collect) and
+# the exact one (the order-2 field at full resolution, synchronous
+# prediction in the tick), both with Mask R-CNN and bf16 serving
+PROFILES = {
+    "serve_16": dict(dd_downscale=2, dd_order=1, dd_block=8, dd_inner=24,
+                     plan_block=8, plan_inner=24, pred_async=1),
+    "exact_16": dict(dd_downscale=1),
+}
+PROFILE_TICKS = {"serve_16": 20, "exact_16": 10}
+PARITY_ENVS = 8
+# the exact profile's plain goal-weighting solve (order 2 at 8 x 960^2)
+# takes ~37 s a tick on the H100, and under random PSPNet weights every
+# tick triggers: 4 of its ticks keep the script inside its time limit
+PARITY_TICKS = {"serve_16": 12, "exact_16": 4}
+SERVE_STAGES = ("env_phase", "dispatch", "tick_wait", "pred_dispatch",
+                "pred_goal_wait", "detect")
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """The launch counts of every kernel (set to 0 with ``reset``)."""
+    from peanut_tpu_torch.kernels.fmm_fused import fused_eikonal
+    from peanut_tpu_torch.kernels.fmm_sweep import block_sweep, block_sweep2
+    from peanut_tpu_torch.kernels.nms import nms_keep
+    from peanut_tpu_torch.kernels.roi_window import roi_window_pool
+    fns = {"fused_eikonal": fused_eikonal, "block_sweep2": block_sweep2,
+           "roi_window_pool": roi_window_pool, "nms_keep": nms_keep,
+           "block_sweep": block_sweep}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def serving_phases(args, dev, maskrcnn):
+    """Phases serve_16, exact_16 and pred_parity; returns the launches of
+    each profile's measured ticks."""
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.envs.batch_runner import BatchRunner
+    from peanut_tpu_torch.agent.batched_runtime import BatchedNavRuntime
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    from peanut_tpu_torch.perception import MaskRCNNSegmenter
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    # PSPNet-R50-v1c from a seed; bf16 like the serving configs
+    pspnet = build_segmentor(peanut_prediction_config(), seed=args.seed)
+    launches = {}
+    for name, kw in PROFILES.items():
+        cfg = NavConfig(use_gt_seg=0, serve_bf16=True, **kw)
+        ticks = PROFILE_TICKS[name]
+        runner = BatchRunner(
+            cfg, [lambda s=s: FakeNavEnv(cfg, size_m=14.0,
+                                         seed=args.seed + s,
+                                         emit_gt_seg=False)
+                  for s in range(16)],
+            prediction_model=PredictionModel(cfg, model=pspnet, device=dev),
+            segmenter=MaskRCNNSegmenter(cfg, model=maskrcnn, device=dev),
+            device=dev)
+        runner.reset_all()
+        for _ in range(5):
+            runner.tick()
+        runner.warmup_rare_paths()
+        runner.reset_timers()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_counts(reset=True)
+        tick_ms = []
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            t1 = time.perf_counter()
+            runner.tick()
+            tick_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[name] = kernel_counts()
+        st = runner.runtime.state
+        stages = {k: v / ticks * 1e3 for k, v in runner.stage_totals().items()}
+        reading = {
+            "phase": name, "envs": 16, "ticks": ticks,
+            "config": f"NavConfig(use_gt_seg=0, serve_bf16=True, {kw})",
+            "steps_per_sec": 16 * ticks / dt,
+            "tick_ms_median": float(np.median(tick_ms)),
+            "tick_ms_mean": dt / ticks * 1e3,
+            "stage_ms_per_tick": {k: stages.get(k, 0.0)
+                                  for k in SERVE_STAGES},
+            "stage_ms_per_tick_all": stages,
+            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "launches": launches[name],
+            "goal_fields_set": int(st.dd_valid.sum()),
+            "episodes_done": len(runner.metrics)}
+        emit(reading)
+        finite = bool(torch.isfinite(st.local_maps).all()
+                      and torch.isfinite(st.target_pred).all())
+        runner.close()
+        need = ("fused_eikonal", "block_sweep2", "roi_window_pool",
+                "nms_keep")
+        if min(launches[name][k] for k in need) <= 0:
+            fail(f"{name} did not launch every kernel: {launches[name]}")
+        if not finite or reading["goal_fields_set"] <= 0:
+            fail(f"{name}: maps not finite, or no prediction ran")
+
+    # pred_parity: the prediction branch through the kernels and through
+    # the plain versions (its goal-weighting solve), GT semantics, 8 envs
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    parity = {}
+    try:
+        for name, kw in PROFILES.items():
+            cfg = NavConfig(use_gt_seg=1, serve_bf16=True, **kw)
+            pm = PredictionModel(cfg, model=pspnet, device=dev)
+            runs = []
+            for plain in (False, True):
+                rt = BatchedNavRuntime(cfg, PARITY_ENVS, prediction_model=pm,
+                                       device=dev, plain=plain)
+                envs = [FakeNavEnv(cfg, size_m=14.0, seed=args.seed + s)
+                        for s in range(PARITY_ENVS)]
+                obs = [e.reset() for e in envs]
+                for i in range(PARITY_ENVS):
+                    rt.reset_env(i)
+                t0 = time.perf_counter()
+                c0 = kernel_counts()["fused_eikonal"]
+                acts, fields = [], []
+                for _ in range(PARITY_TICKS[name]):
+                    out = rt.act_batch(obs)
+                    rt.wait_pending_goal()
+                    acts.append([a["action"] for a in out])
+                    fields.append({k: getattr(rt.state, k).clone() for k in
+                                   ("cur_goal", "target_pred", "dd_wt")})
+                    obs = [e.step(a) for e, a in zip(envs, out)]
+                torch.cuda.synchronize()
+                runs.append(dict(
+                    acts=acts, fields=fields,
+                    seconds=time.perf_counter() - t0,
+                    b1=kernel_counts()["fused_eikonal"] - c0,
+                    triggers=int(rt.state.dd_valid.sum())))
+            k_run, p_run = runs
+            eq = {f: all(torch.equal(a[f], b[f]) for a, b in
+                         zip(k_run["fields"], p_run["fields"]))
+                  for f in ("cur_goal", "target_pred", "dd_wt")}
+            parity[name] = dict(
+                actions_equal=k_run["acts"] == p_run["acts"],
+                cur_goal_equal=eq["cur_goal"],
+                target_pred_bit_equal=eq["target_pred"],
+                dd_wt_bit_equal=eq["dd_wt"],
+                b1_launches_kernel_run=k_run["b1"],
+                b1_launches_plain_run=p_run["b1"],
+                envs_with_goal_field=k_run["triggers"],
+                seconds_kernel_run=k_run["seconds"],
+                seconds_plain_run=p_run["seconds"])
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    emit({"phase": "pred_parity", "envs": PARITY_ENVS,
+          "ticks": PARITY_TICKS, "profiles": parity})
+    for name, p in parity.items():
+        if not (p["actions_equal"] and p["cur_goal_equal"]
+                and p["target_pred_bit_equal"] and p["dd_wt_bit_equal"]):
+            fail(f"pred_parity {name}: the kernels' prediction branch "
+                 f"differs from the plain versions': {p}")
+        if p["envs_with_goal_field"] <= 0:
+            fail(f"pred_parity {name}: no prediction ran")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -993,15 +1186,65 @@ def single_env_phases(args, dev):
     return explore, nav, nav_checks
 
 
-# bit-equal to 1e-3 (see TOL in main), in the lines over 1024 cells too
-WIDE_TOL = 1e-3
+# bitwise by design (same operation order, association and rounding as the
+# plain version; see the notes in the .cu sources); the tolerance admits no
+# more than float32 rounding noise on ~1000-cell distances
+TOL = 1e-3
+WIDE_TOL = TOL       # the lines over 1024 cells too
+
+
+def b1_cases(rng, dev, barrier_us) -> dict:
+    """B1 at the paths' shapes (B1_CASES) against its plain version, with
+    its time, bound and chain; one kernel line each.  The plain version at
+    960^2 and over is timed by the one call it is compared by."""
+    from peanut_tpu_torch.kernels import fmm_sweep
+    from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
+                                                    fused_eikonal_reference)
+    results = {}
+    for case, p in B1_CASES.items():
+        (b, n), kw = p["shape"], {k: v for k, v in p.items() if k != "shape"}
+        trav_np, src_np = plans(rng, b, n)
+        trav = torch.as_tensor(trav_np, device=dev)
+        src = torch.as_tensor(src_np, device=dev)
+        got = fused_eikonal(trav, src, **kw)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = fused_eikonal_reference(trav, src, **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        cmp = dict(compare(got, want, TOL),
+                   bit_equal=bool(torch.equal(got, want)))
+        ms = cuda_ms(lambda: fused_eikonal(trav, src, **kw), reps=10)
+        plain_ms = (t0.elapsed_time(t1) if n > 482 else cuda_ms(
+            lambda: fused_eikonal_reference(trav, src, **kw), reps=1))
+        plan = fmm_sweep.launch_plan(1, trav, kw["block"],
+                                     fused_chunk=kw["scan_chunk"])
+        links = fused_links(n, kw)
+        cells = b * n * n
+        ops = cells * kw["rounds"] * 2 * (
+            GODUNOV1_OPS * kw["inner"]
+            + 2 * SCAN_OPS * (kw["inner"] // kw["scan_chunk"]))
+        if kw["vscan"]:
+            ops += cells * kw["rounds"] * 2 * SCAN_OPS
+        bound_ms, bound_by = bound(cells, 2 + 4, ops)
+        results[f"B1_{case}"] = dict(
+            cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, cluster=plan.cluster, blocks_x_passes=links,
+            us_per_pass=ms / links * 1e3,
+            chain_floor_ms=links * barrier_us.get(plan.cluster, 0.0) / 1e3)
+        emit({"phase": "kernel", "kernel": f"fused_eikonal/{case}",
+              **results[f"B1_{case}"]})
+    return results
 
 
 def wide_lines(args, dev):
     """Lines over 1024 cells: B4's rows, B1's rows and, with column scans,
     columns (lines of 48 cells the other way); B1 at the exact profile's
-    1042^2 blanket beside 1024^2; bit-equal to the plain versions, with
-    times."""
+    1042^2 blanket beside 1024^2; past 2048 cells (a group of up to four
+    warps a line) and rows too wide for B1's full ghost rows (1608^2 at
+    block 8, 16 x 1700^2 at block 16); bit-equal to the plain versions,
+    with times."""
     from peanut_tpu_torch.kernels import fmm_sweep
     from peanut_tpu_torch.kernels.fmm import BIG, _axis_relax
     from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
@@ -1016,11 +1259,17 @@ def wide_lines(args, dev):
                 if k != "shape"}
     for key, shape, kw in (("B4_1x48x1040", (1, 48, 1040), None),
                            ("B4_1x48x2000", (1, 48, 2000), None),
+                           ("B4_1x48x2049", (1, 48, 2049), None),
+                           ("B4_1x48x4096", (1, 48, 4096), None),
                            ("B1_vscan_2x48x1040", (2, 48, 1040), vscan_kw),
                            ("B1_vscan_2x1040x48", (2, 1040, 48), vscan_kw),
                            ("B1_vscan_1x2000x48", (1, 2000, 48), vscan_kw),
+                           ("B1_vscan_2x4096x48", (2, 4096, 48), vscan_kw),
                            ("B1_blanket_1x1024", (1, 1024, 1024), blanket),
-                           ("B1_blanket_1x1042", (1, 1042, 1042), blanket)):
+                           ("B1_blanket_1x1042", (1, 1042, 1042), blanket),
+                           ("B1_vscan_1x1608_b8", (1, 1608, 1608), vscan_kw),
+                           ("B1_blanket_16x1700", (16, 1700, 1700),
+                            blanket)):
         if shape[1] == shape[2]:
             trav_np, src_np = plans(rng, shape[0], shape[1])
         else:
@@ -1046,7 +1295,8 @@ def wide_lines(args, dev):
         wide[key] = dict(compare(got, want, WIDE_TOL),
                          bit_equal=bool(torch.equal(got, want)),
                          ms=cuda_ms(run, reps=3), cluster=plan.cluster,
-                         seg=plan.seg, smem_bytes=plan.smem_bytes)
+                         seg=plan.seg, ghosts=plan.ghosts,
+                         smem_bytes=plan.smem_bytes)
     emit({"phase": "wide_lines", "cases": wide})
     if not all(c["ok"] and c["bit_equal"] for c in wide.values()):
         fail("a kernel disagrees with its plain version on lines over "
@@ -1058,11 +1308,13 @@ def only_phase(args, dev) -> int:
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
     the lines over 1024 cells.  Prints no result line."""
     from peanut_tpu_torch.kernels import _build
-    for stem in {"b3": ("roi_window",),
+    for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
                  "wide": ("fmm_fused", "fmm_sweep")}[args.only]:
         _build.library(stem)
     if args.only == "b3":
         mask_rcnn_phases(args, dev)
+    elif args.only == "b1":
+        b1_cases(np.random.RandomState(args.seed), dev, {})
     else:
         wide_lines(args, dev)
     return 0
@@ -1072,7 +1324,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=20)
-    ap.add_argument("--only", choices=("b3", "wide"),
+    ap.add_argument("--only", choices=("b3", "b1", "wide"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -1154,14 +1406,15 @@ def main() -> int:
         (b, n), block, chunk = p["shape"], p["block"], p["scan_chunk"]
         plan = fmm_sweep.launch_plan(1, torch.empty(b, n, n, device=dev),
                                      block, fused_chunk=chunk)
-        smem_c = fmm_fused._lib().fused_eikonal_smem_bytes(n, n, block,
-                                                           plan.seg, chunk)
+        smem_c = fmm_fused._lib().fused_eikonal_smem_bytes(
+            n, n, block, plan.seg, plan.ghosts)
         if smem_c != plan.smem_bytes:
             fail(f"fused_eikonal plan at {b}x{n}: {plan.smem_bytes} bytes "
                  f"of shared memory, the kernel counts {smem_c}")
         sweep_plans[f"fused_eikonal_{b}x{n}"] = {
             "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
-            "block": block, "smem_bytes": plan.smem_bytes,
+            "block": block, "ghosts": plan.ghosts,
+            "smem_bytes": plan.smem_bytes,
             "max_active_clusters": fmm_sweep.resident_clusters(
                 1, n, block, dev, (n, chunk))}
     # B1 at the exact profile's full map (map_size_cm=5200: 1042^2): one
@@ -1201,62 +1454,25 @@ def main() -> int:
                   if c > 1}
     emit({"phase": "cluster_barrier", "us_by_cluster": barrier_us})
 
-    def chain(kernel_order, d):
+    def chain(kernel_order, d, block=16, inner=40):
         """The plan's cluster size, the chain's length (row blocks x
         dependent passes; a B4 round of scans and a pass is one link) and
         the floor its cluster barriers set (one a link)."""
-        plan = fmm_sweep.launch_plan(kernel_order, d, 16)
-        links = -(-d.shape[1] // 16) * 40
+        plan = fmm_sweep.launch_plan(kernel_order, d, block)
+        links = -(-d.shape[1] // block) * inner
         floor = links * barrier_us.get(plan.cluster, 0.0) / 1e3
         return {"cluster": plan.cluster, "blocks_x_passes": links,
                 "chain_floor_ms": floor}
 
     # ---- 3. kernels vs plain versions ----------------------------------
     rng = np.random.RandomState(args.seed)
-    # bitwise by design (same operation order, association and rounding as
-    # the plain version; see the notes in the .cu sources); the tolerance
-    # admits no more than float32 rounding noise on ~1000-cell distances
-    TOL = 1e-3
     results = {}
     ok = True
 
-    # B1 (B1_CASES); bit-equal required.  The plain version at 16 x 962^2
-    # is timed by the one call it is compared by
-    for case, p in B1_CASES.items():
-        (b, n), kw = p["shape"], {k: v for k, v in p.items() if k != "shape"}
-        trav_np, src_np = plans(rng, b, n)
-        trav = torch.as_tensor(trav_np, device=dev)
-        src = torch.as_tensor(src_np, device=dev)
-        got = fused_eikonal(trav, src, **kw)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        want = fused_eikonal_reference(trav, src, **kw)
-        t1.record()
-        torch.cuda.synchronize()
-        cmp = dict(compare(got, want, TOL),
-                   bit_equal=bool(torch.equal(got, want)))
-        ms = cuda_ms(lambda: fused_eikonal(trav, src, **kw), reps=10)
-        plain_ms = (t0.elapsed_time(t1) if n > 482 else cuda_ms(
-            lambda: fused_eikonal_reference(trav, src, **kw), reps=1))
-        plan = fmm_sweep.launch_plan(1, trav, kw["block"],
-                                     fused_chunk=kw["scan_chunk"])
-        links = fused_links(n, kw)
-        cells = b * n * n
-        ops = cells * kw["rounds"] * 2 * (
-            GODUNOV1_OPS * kw["inner"]
-            + 2 * SCAN_OPS * (kw["inner"] // kw["scan_chunk"]))
-        if kw["vscan"]:
-            ops += cells * kw["rounds"] * 2 * SCAN_OPS
-        bound_ms, bound_by = bound(cells, 2 + 4, ops)
-        results[f"B1_{case}"] = dict(
-            cmp, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, cluster=plan.cluster, blocks_x_passes=links,
-            us_per_pass=ms / links * 1e3,
-            chain_floor_ms=links * barrier_us.get(plan.cluster, 0.0) / 1e3)
-        ok &= cmp["ok"] and cmp["bit_equal"]
-        emit({"phase": "kernel", "kernel": f"fused_eikonal/{case}",
-              **results[f"B1_{case}"]})
+    # B1 (B1_CASES); bit-equal required
+    b1 = b1_cases(rng, dev, barrier_us)
+    results.update(b1)
+    ok &= all(c["ok"] and c["bit_equal"] for c in b1.values())
 
     # B2: both directions on the planning shape, from the refinement's
     # from-scratch start and from a forward-swept field; the single-env
@@ -1267,6 +1483,11 @@ def main() -> int:
     wall = torch.as_tensor(~trav_np & ~src_np, device=dev)
     d0 = torch.where(src, 0.0, BIG).float()
     d1 = block_sweep2_reference(d0, wall, src, False)
+    # the exact profile's goal-weighting refinement: K = 8 grids of 960^2
+    trav_np, src_np = plans(rng, 8, 960)
+    src8 = torch.as_tensor(src_np, device=dev)
+    exact_b2 = (torch.where(src8, 0.0, BIG).float(),
+                torch.as_tensor(~trav_np & ~src_np, device=dev), src8)
     single_b2 = {}
     for n in (960, 482, 242):
         trav_np, src_np = plans(rng, 1, n)
@@ -1274,23 +1495,27 @@ def main() -> int:
         single_b2[n] = (torch.where(src_n, 0.0, BIG).float(),
                         torch.as_tensor(~trav_np & ~src_np, device=dev),
                         src_n)
-    for key, reverse, d_in, wall, src in (
-            ("B2_down_16x482", False, d0, wall, src),
-            ("B2_up_16x482", True, d1, wall, src),
-            ("B2_down_1x960", False, *single_b2[960]),
-            ("B2_down_1x482", False, *single_b2[482]),
-            ("B2_down_1x242", False, *single_b2[242])):
-        got = block_sweep2(d_in, wall, src, reverse)
-        want = block_sweep2_reference(d_in, wall, src, reverse)
+    for key, reverse, d_in, wall, src, blk, inn in (
+            ("B2_down_16x482", False, d0, wall, src, 16, 40),
+            ("B2_up_16x482", True, d1, wall, src, 16, 40),
+            ("B2_down_1x960", False, *single_b2[960], 16, 40),
+            ("B2_down_1x482", False, *single_b2[482], 16, 40),
+            ("B2_down_1x242", False, *single_b2[242], 16, 40),
+            ("B2_down_16x482_b8", False, d0, wall, src, 8, 24),
+            ("B2_down_8x960", False, *exact_b2, 16, 40)):
+        kw2 = dict(block=blk, inner=inn)
+        got = block_sweep2(d_in, wall, src, reverse, **kw2)
+        want = block_sweep2_reference(d_in, wall, src, reverse, **kw2)
         torch.cuda.synchronize()
         cmp = compare(got, want, TOL)
-        ms = cuda_ms(lambda: block_sweep2(d_in, wall, src, reverse), reps=10)
-        plain_ms = cuda_ms(
-            lambda: block_sweep2_reference(d_in, wall, src, reverse), reps=1)
+        ms = cuda_ms(lambda: block_sweep2(d_in, wall, src, reverse, **kw2),
+                     reps=10)
+        plain_ms = cuda_ms(lambda: block_sweep2_reference(
+            d_in, wall, src, reverse, **kw2), reps=1)
         cells = d_in.numel()
         bound_ms, bound_by = bound(cells, 4 + 1 + 1 + 4,
-                                   cells * 40 * GODUNOV2_OPS)
-        link = chain(2, d_in)
+                                   cells * inn * GODUNOV2_OPS)
+        link = chain(2, d_in, blk, inn)
         results[key] = dict(cmp, bit_equal=bool(torch.equal(got, want)),
                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, **link,
@@ -1440,7 +1665,11 @@ def main() -> int:
     runner.close()
 
     # ---- 5-7. Mask R-CNN: kernel B3, detect, the seg slice --------------
-    b3, nms, seg_launches = mask_rcnn_phases(args, dev)
+    b3, nms, seg_launches, maskrcnn = mask_rcnn_phases(args, dev)
+
+    # ---- 7b. the 16-env serving tick with prediction ---------------------
+    serve_launches = serving_phases(args, dev, maskrcnn)
+    del maskrcnn
     launches_seg = {"fused_eikonal": seg_launches["fused_eikonal"],
                     "block_sweep2": seg_launches["block_sweep2"]}
 
@@ -1452,19 +1681,25 @@ def main() -> int:
     for name_, src_file, replaces, keys, count_key in (
             ("fused_eikonal", "peanut_tpu_torch/kernels/csrc/fmm_fused.cu",
              "peanut_tpu/kernels/fmm_fused.py:256",
-             tuple(f"B1_{k}" for k in B1_CASES), "fused_eikonal"),
+             # the serving tick's planning blanket first: the main case
+             ("B1_blanket_16x482_b8",) + tuple(
+                 f"B1_{k}" for k in B1_CASES if k != "blanket_16x482_b8"),
+             "fused_eikonal"),
             ("block_sweep2", "peanut_tpu_torch/kernels/csrc/fmm_sweep2.cu",
              "peanut_tpu/kernels/fmm_pallas.py:298",
-             ("B2_down_16x482", "B2_up_16x482", "B2_down_1x960",
-              "B2_down_1x482", "B2_down_1x242"),
+             ("B2_down_16x482_b8", "B2_down_16x482", "B2_up_16x482",
+              "B2_down_1x960", "B2_down_1x482", "B2_down_1x242",
+              "B2_down_8x960"),
              "block_sweep2")):
         main_case = results[keys[0]]
         by_path = {"slice": launches[count_key],
-                   "slice_seg": launches_seg[count_key]}
+                   "slice_seg": launches_seg[count_key],
+                   **{k: v[count_key] for k, v in serve_launches.items()}}
         by_path.update({k: v[count_key] for k, v in single.items()})
         kernels.append({
             "name": name_, "route": "cuda", "source": src_file,
-            "replaces": replaces, "launches": launches_seg[count_key],
+            "replaces": replaces,
+            "launches": serve_launches["serve_16"][count_key],
             "launches_by_path": by_path,
             "max_abs_err": max(results[k]["max_abs_err"] for k in keys),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -1482,7 +1717,11 @@ def main() -> int:
         "source": "peanut_tpu_torch/kernels/csrc/fmm_sweep.cu",
         "replaces": "peanut_tpu/kernels/fmm_pallas.py:159",
         "launches": nav["block_sweep"],
-        "launches_by_path": {k: v["block_sweep"] for k, v in single.items()},
+        "launches_note": "2-D solves only: single_nav's count; the batched "
+                         "ticks launch none",
+        "launches_by_path": {
+            **{k: v["block_sweep"] for k, v in serve_launches.items()},
+            **{k: v["block_sweep"] for k, v in single.items()}},
         "max_abs_err": max(results[k]["max_abs_err"] for k in keys),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -1495,8 +1734,10 @@ def main() -> int:
         "name": "roi_window_pool", "route": "cuda",
         "source": "peanut_tpu_torch/kernels/csrc/roi_window.cu",
         "replaces": "peanut_tpu/kernels/roi_window.py:183",
-        "launches": seg_launches["roi_window_pool"],
+        "launches": serve_launches["serve_16"]["roi_window_pool"],
         "launches_by_path": {"slice_seg": seg_launches["roi_window_pool"],
+                             **{k: v["roi_window_pool"]
+                                for k, v in serve_launches.items()},
                              **{k: v["roi_window_pool"]
                                 for k, v in single.items()}},
         "max_abs_err": max(c["max_abs_err"] for c in
@@ -1513,8 +1754,10 @@ def main() -> int:
         "source": "peanut_tpu_torch/kernels/csrc/nms_greedy.cu",
         "replaces": "peanut_tpu/models/boxes.py:117",
         "replaces_note": "the lax.while_loop of nms_fixed; no pallas_call",
-        "launches": seg_launches["nms_keep"],
+        "launches": serve_launches["serve_16"]["nms_keep"],
         "launches_by_path": {"slice_seg": seg_launches["nms_keep"],
+                             **{k: v["nms_keep"]
+                                for k, v in serve_launches.items()},
                              **{k: v["nms_keep"] for k, v in single.items()}},
         "max_abs_err": max(c["max_abs_err"] for c in
                            [*nms.values(), *nav_checks["nms_keep"].values()]),

@@ -19,14 +19,18 @@ Architecture, as in the JAX package:
   * rare control paths (replan-with-erosion, goal magnification) run
     focused solves with identical semantics.
 
-This slice runs the explore-only configuration with ground-truth
-semantics or with Mask R-CNN (``use_gt_seg=0``): then ``stage_obs`` uploads
-each frame's uint8 RGB as soon as its env has stepped and launches a detect
-chunk once ``seg_batch_chunk`` frames are staged, and the tick takes the
-segmenter's device semantic stack without a host round trip.  The
-prediction hook (``only_explore=0``: ``pred_goal_update``, ``pred_program``,
-``pred_async``; ROADMAP A8b) and mesh sharding (A14) are not ported; the
-models it would run are (``prediction.PredictionModel``).
+With Mask R-CNN (``use_gt_seg=0``) ``stage_obs`` uploads each frame's
+uint8 RGB as soon as its env has stepped and launches a detect chunk once
+``seg_batch_chunk`` frames are staged, and the tick takes the segmenter's
+device semantic stack without a host round trip.
+
+With ``only_explore=0`` trigger ticks run target prediction (PSPNet on the
+prediction crop), the geodesic goal weighting and the goal argmax on the
+device (``_pred_goal_update``) over the gathered subset of triggered envs
+(K = ``predict_chunk`` or all n): inside the tick (the exact profile), or
+with ``pred_async`` as a program enqueued after the tick's collect, whose
+goal download lands at the next dispatch (the serving profile's one-tick
+goal lag).  Mesh sharding (ROADMAP A14) is not ported.
 """
 
 from __future__ import annotations
@@ -39,12 +43,14 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device, upload
 from ..config import NavConfig
 from ..constants import hm3d_names, hm3d_to_coco
 from ..geometry.pose import (get_rel_pose_change, get_l2_distance,
                              integrate_pose_np, threshold_poses)
+from ..kernels import eikonal_distance, masked_fill_unreachable
 from ..kernels.morphology import disk, np_binary_dilation, np_binary_erosion
 from ..mapping import SemanticMapper
 from ..perception import preprocess_depth, build_segmenter
@@ -60,7 +66,7 @@ N_COL_PTS = 8
 # host_pack layout (one f32 upload for all per-tick scalars):
 #   [0:3] pose (pre-rebase, mapper frame) | [3:7] lmb_old
 #   [7:11] lmb_new | [11] goal_cat | [12] no_erode | [13] is_toilet
-#   [14] prediction trigger (0 until A8b) | [15:17] preset_cells
+#   [14] prediction trigger | [15:17] preset_cells
 #   [17] preset_override
 #   [18] erode_first | [19:21] planner start cells | [21:23] agent cell in
 #   the new window | [23:231] line_pts (104 x 2) | [231:335] line_valid
@@ -102,6 +108,9 @@ class TickHandle(NamedTuple):
     no_erode: np.ndarray
     is_toilet: np.ndarray
     stop_now: np.ndarray
+    trig: np.ndarray
+    hp: Optional[torch.Tensor] = None         # the device host_pack
+    trig_idxs: Optional[torch.Tensor] = None  # (B,) padded trigger indices
 
 
 @dataclass
@@ -132,18 +141,22 @@ class EnvSlot:
 class BatchedNavRuntime:
     BLOCK_THRESHOLD = 4
 
-    def __init__(self, cfg: NavConfig, num_envs: int, segmenter=None,
-                 device=None):
+    def __init__(self, cfg: NavConfig, num_envs: int,
+                 prediction_model=None, segmenter=None,
+                 predict_chunk: int = 8, device=None, plain: bool = False):
         """device: where the maps live and the tick runs (``resolve_device``:
-        the card unless ``"cpu"``)."""
-        if cfg.only_explore == 0:
-            raise NotImplementedError(
-                "only_explore=0 needs the batched runtime's prediction hook "
-                "(pred_goal_update, pred_program), not ported yet "
-                "(ROADMAP A8b)")
+        the card unless ``"cpu"``).  prediction_model: the
+        ``PredictionModel`` of ``only_explore=0`` (else one is built from
+        ``cfg.pred_model_wts``, which raises FileNotFoundError without the
+        checkpoint); trigger ticks run it on at most ``predict_chunk`` envs
+        at once unless more trigger.  plain: the prediction branch's
+        goal-weighting solve through the kernels' plain versions, even on
+        the card (the yardstick the kernels are held against; ``_plan``
+        takes its own ``plain``)."""
         self.cfg = cfg
         self.n = num_envs
         self.device = resolve_device(device)
+        self.plain = plain
         if self.device.type == "cuda":
             # f32 convolutions run in TF32 under cuDNN by default; the
             # morphology convs are 0/1-exact either way, but state it
@@ -152,6 +165,12 @@ class BatchedNavRuntime:
         self.mapper = SemanticMapper(cfg)
         self.segmenter = segmenter if segmenter is not None \
             else build_segmenter(cfg, device=self.device)
+        if cfg.only_explore == 0 and prediction_model is None:
+            from ..prediction import PredictionModel
+
+            prediction_model = PredictionModel(cfg, device=self.device)
+        self.pred_model = prediction_model if cfg.only_explore == 0 else None
+        self.predict_chunk = min(predict_chunk, num_envs)
 
         self.nc = cfg.num_map_channels
         self.Hf = self.Wf = cfg.map_size
@@ -177,6 +196,17 @@ class BatchedNavRuntime:
         self._det_buf: list = []
         self._seg_chunk = int(getattr(self.segmenter, "chunk", 0) or 0) \
             if hasattr(self.segmenter, "batch_device") else 0
+        # pred_async serving mode: the prediction/goal program is enqueued
+        # after the tick's collect, so it runs while the envs step; its goal
+        # download (a pinned host copy and an event) lands at the next
+        # dispatch, where rows reset since then keep their fresh goal
+        self._pred_async = bool(getattr(cfg, "pred_async", 0)) \
+            and self.pred_model is not None
+        self._pending_goal = None      # (the download's event,) in flight
+        self._reset_since_pred = np.zeros(num_envs, bool)
+        self._goal_host = torch.empty(
+            (num_envs, 2), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
 
     # ------------------------------------------------------------------
     def _alloc_state(self) -> DeviceState:
@@ -217,12 +247,13 @@ class BatchedNavRuntime:
                              reduce="amax")
         return grid
 
-    def _goal_maps(self, local_maps, cur_goal, goal_cats, no_erode, found):
-        """Found-goal region (update_goal_map) or the single goal cell."""
+    def _goal_region(self, local_maps, goal_cats, no_erode):
+        """The goal category's eroded-then-dilated cells, free of other
+        categories (update_goal_map), and whether any are left."""
         cfg = self.cfg
         n = local_maps.shape[0]
-        bidx = torch.arange(n, device=self.device)
-        cat_maps = local_maps[bidx, goal_cats + 4]
+        cat_maps = local_maps[torch.arange(n, device=self.device),
+                              goal_cats + 4]
         cat_bin = (cat_maps > 0).float()
         eroded = cat_bin
         for _ in range(cfg.goal_erode):
@@ -231,8 +262,15 @@ class BatchedNavRuntime:
         temp = torch.where(no_erode[:, None, None], cat_bin, eroded)
         others = local_maps[:, 4:10].sum(dim=1) - cat_maps
         temp = temp * (others == 0)
+        found = (cat_maps.sum(dim=(1, 2)) != 0) & (temp.sum(dim=(1, 2)) != 0)
+        return temp, found
+
+    def _goal_maps(self, temp, found, cur_goal):
+        """The found-goal region ``temp`` where ``found``, else the single
+        goal cell."""
         single = torch.zeros_like(temp)
-        single[bidx, cur_goal[:, 0].long(), cur_goal[:, 1].long()] = 1.0
+        single[torch.arange(temp.shape[0], device=self.device),
+               cur_goal[:, 0].long(), cur_goal[:, 1].long()] = 1.0
         return torch.where(found[:, None, None], temp, single)
 
     def _plan(self, local_maps, collision, visited, lmb, loc_r, loc_c,
@@ -256,16 +294,127 @@ class BatchedNavRuntime:
             block=int(getattr(cfg, "plan_block", 16)),
             inner=int(getattr(cfg, "plan_inner", 40)), plain=plain)
 
+    def _pred_goal_update(self, full_maps, local_maps, collision, visited,
+                          target_pred, dd_wt, dd_valid, cur_goal, last_goal,
+                          last_goal_valid, trig, lmb_new, goal_cats, loc_new,
+                          trig_idxs, pred_k: int):
+        """Target prediction + geodesic value weighting + goal argmax (the
+        update_prediction / update_global_goal twin), shared by the
+        synchronous tick and the ``pred_async`` program, on the gathered
+        subset of K = pred_k envs ``trig_idxs[:K]`` (padded with repeats,
+        which compute the same rows).  Rows whose trigger is off keep their
+        state.  Nothing here waits for the device: no host copy and no
+        branch on a device value.  Returns the six updated state tensors
+        (new tensors; the inputs are not changed)."""
+        cfg = self.cfg
+        pw = cfg.prediction_window
+        px1 = self.Hf // 2 - pw // 2
+        py1 = self.Wf // 2 - pw // 2
+        dev = self.device
+        sub = trig_idxs[:pred_k]                       # (K,)
+        k_ar = torch.arange(pred_k, device=dev)
+        trig_s = trig[sub]
+        lmb_s = lmb_new[sub]
+        crop = full_maps[sub, :, px1:px1 + pw, py1:py1 + pw]
+        probs = self.pred_model.infer(crop)            # (K, 6, pw, pw)
+        chan = probs[k_ar, goal_cats[sub]]
+        pred_full = torch.zeros((pred_k, self.Hf, self.Wf),
+                                dtype=torch.float32, device=dev)
+        pred_full[:, px1:px1 + pw, py1:py1 + pw] = chan
+        window = B.window_shuttle_in(pred_full[:, None], lmb_s, self.Hl,
+                                     self.Wl)[:, 0]
+        cand_tp = window * (local_maps[sub, 1] < 0.5)
+        tp_s = torch.where(trig_s[:, None, None], cand_tp, target_pred[sub])
+        target_pred = target_pred.clone()
+        target_pred[sub] = tp_s
+
+        # geodesic distance weighting over the subset's full maps
+        trav = ~B.batch_dilate(torch.round(full_maps[sub, 0]),
+                               disk(cfg.col_rad))
+        trav = trav & ~(collision[sub] > 0)
+        trav = trav | (visited[sub] > 0)
+        agent_r = torch.clamp(loc_new[sub, 0] + lmb_s[:, 0], 0, self.Hf - 1)
+        agent_c = torch.clamp(loc_new[sub, 1] + lmb_s[:, 2], 0, self.Wf - 1)
+        src = torch.zeros_like(trav)
+        src[k_ar, agent_r, agent_c] = True
+        ds = int(getattr(cfg, "dd_downscale", 1))
+        dd_order = int(getattr(cfg, "dd_order", 2))
+        dd_blk = int(getattr(cfg, "dd_block", 16))
+        dd_inner = int(getattr(cfg, "dd_inner", 40))
+        if cfg.dist_weight_temperature <= 0:
+            # frontier mode thresholds dd at a 60-cell cliff and T = -1
+            # ignores dd: the half-resolution, first-order field is for the
+            # smooth weighting only (agent/state.py::update_global_goal)
+            ds, dd_order, dd_blk, dd_inner = 1, 2, 16, 40
+        solve = dict(n_iters=cfg.fmm_sweeps, order=dd_order, block=dd_blk,
+                     inner=dd_inner, plain=self.plain)
+        if ds > 1 and self.Hf % ds == 0 and self.Wf % ds == 0:
+            # the serving profile's field on an OR-pooled grid (walls are
+            # col_rad-dilated, so pooling keeps them), upsampled nearest
+            def pool(x):
+                return F.max_pool2d(x[:, None].float(), ds)[:, 0] > 0
+            dd = eikonal_distance(pool(trav), pool(src), **solve) * ds
+            dd = masked_fill_unreachable(dd)
+            dd = dd.repeat_interleave(ds, dim=1).repeat_interleave(ds, dim=2)
+        else:
+            dd = masked_fill_unreachable(eikonal_distance(trav, src, **solve))
+        mx = torch.amax(dd, dim=(1, 2), keepdim=True)
+        dd = torch.where(dd == mx, torch.inf, dd)
+        temperature = cfg.dist_weight_temperature / cfg.map_resolution
+        dd_wt_full = torch.exp(-dd / temperature)
+        cand_dd = B.window_shuttle_in(dd_wt_full[:, None], lmb_s, self.Hl,
+                                      self.Wl)[:, 0]
+        # stuck-inside-obstacle fallback (agent_state.py:398-399)
+        reuse = (cand_dd.sum(dim=(1, 2)) < 10) & dd_valid[sub]
+        cand_dd = torch.where(reuse[:, None, None], dd_wt[sub], cand_dd)
+        dd_s = torch.where(trig_s[:, None, None], cand_dd, dd_wt[sub])
+        dd_wt = dd_wt.clone()
+        dd_wt[sub] = dd_s
+        valid_s = dd_valid[sub] | trig_s
+        dd_valid = dd_valid.clone()
+        dd_valid[sub] = valid_s
+
+        # dist_weight_temperature modes (agent_state.py:402-407): -1 no
+        # distance weighting; 0 frontier exploration (cells closer than 60
+        # ignored, a flat 100-cell temperature, no prediction multiply)
+        if cfg.dist_weight_temperature == -1:
+            value = tp_s
+        elif cfg.dist_weight_temperature == 0:
+            dd_f = torch.where(dd < 60.0, torch.inf, dd)
+            value = B.window_shuttle_in(torch.exp(-dd_f / 100.0)[:, None],
+                                        lmb_s, self.Hl, self.Wl)[:, 0]
+        else:
+            value = tp_s * dd_s
+        idx = torch.argmax(value.reshape(pred_k, -1), dim=1)
+        new_goal = torch.stack([idx // self.Wl, idx % self.Wl],
+                               dim=1).to(torch.int32)
+        cur_s, last_s = cur_goal[sub], last_goal[sub]
+        same = (new_goal == last_s).all(dim=1) & last_goal_valid[sub]
+        take = trig_s & ~same
+        last_goal_valid_s = last_goal_valid[sub] | take
+        last_goal = last_goal.clone()
+        last_goal[sub] = torch.where(take[:, None], cur_s, last_s)
+        last_goal_valid = last_goal_valid.clone()
+        last_goal_valid[sub] = last_goal_valid_s
+        cur_goal = cur_goal.clone()
+        cur_goal[sub] = torch.where(take[:, None], new_goal, cur_s)
+        return (target_pred, dd_wt, dd_valid, cur_goal, last_goal,
+                last_goal_valid)
+
     def _tick(self, state: DeviceState, sem_u8: torch.Tensor,
-              depth_cm: torch.Tensor, hp: torch.Tensor):
-        """The per-tick device program.  hp: (B, PACK) float32 host_pack.
-        Returns (new_state, packed download)."""
+              depth_cm: torch.Tensor, hp: torch.Tensor,
+              trig_idxs: Optional[torch.Tensor] = None, pred_k: int = 0):
+        """The per-tick device program.  hp: (B, PACK) float32 host_pack;
+        pred_k > 0: the synchronous prediction of the exact profile on the
+        K envs ``trig_idxs[:K]``.  Returns (new_state, packed download)."""
         cfg = self.cfg
         res = cfg.map_resolution
         n = hp.shape[0]
         poses_new = hp[:, 0:3]
         lmb_old = hp[:, 3:7].long()
         lmb_new = hp[:, 7:11].long()
+        goal_cats = hp[:, 11].long()
+        no_erode = hp[:, 12] > 0.5
         is_toilet = hp[:, 13] > 0.5
         preset_cells = hp[:, 15:17].int()
         preset_override = hp[:, 17] > 0.5
@@ -308,24 +457,35 @@ class BatchedNavRuntime:
         full_maps = B.window_shuttle_out(state.full_maps, local_maps, lmb_old)
         local_maps = B.window_shuttle_in(full_maps, lmb_new, self.Hl, self.Wl)
 
-        # preset corner goals (explore mode)
+        # preset corner goals (explore mode / before switch_step)
         cur_goal = torch.where(preset_override[:, None], preset_cells,
                                state.cur_goal)
+        pred = (state.target_pred, state.dd_wt, state.dd_valid, cur_goal,
+                state.last_goal, state.last_goal_valid)
 
-        # --- goal map: explore-only has no found goal ---------------------
-        found = torch.zeros((n,), dtype=torch.bool, device=self.device)
-        single = torch.zeros_like(local_maps[:, 0])
-        single[torch.arange(n, device=self.device), cur_goal[:, 0].long(),
-               cur_goal[:, 1].long()] = 1.0
+        # --- prediction + geodesic value weighting (exact profile) -------
+        if pred_k and self.pred_model is not None:
+            pred = self._pred_goal_update(
+                full_maps, local_maps, collision, visited, *pred,
+                hp[:, 14] > 0.5, lmb_new, goal_cats, hp[:, 21:23].long(),
+                trig_idxs, pred_k)
+        cur_goal = pred[3]
+
+        # --- found-goal extraction (update_goal_map) ----------------------
+        if cfg.only_explore == 0:
+            temp, found = self._goal_region(local_maps, goal_cats, no_erode)
+        else:
+            temp = torch.zeros_like(local_maps[:, 0])
+            found = torch.zeros((n,), dtype=torch.bool, device=self.device)
+        goal_maps = self._goal_maps(temp, found, cur_goal)
 
         # --- local planning solve -----------------------------------------
         plan = self._plan(local_maps, collision, visited, lmb_new,
-                          starts[:, 0], starts[:, 1], erode_first, single,
+                          starts[:, 0], starts[:, 1], erode_first, goal_maps,
                           found, is_toilet)
 
-        new_state = state._replace(
-            local_maps=local_maps, full_maps=full_maps, collision=collision,
-            visited=visited, cur_goal=cur_goal)
+        new_state = DeviceState(local_maps, full_maps, collision, visited,
+                                *pred)
         # packed download: windows (121) | found | d2g | goal (2)
         k = plan.window.shape[-1]
         packed = torch.cat([plan.window.reshape(n, k * k),
@@ -333,11 +493,26 @@ class BatchedNavRuntime:
                             cur_goal.float()], dim=1)
         return new_state, packed
 
+    def _pred_program(self, state: DeviceState, hp: torch.Tensor,
+                      trig_idxs: torch.Tensor, pred_k: int):
+        """The ``pred_async`` program: the prediction and goal update of a
+        tick, run after it on its state (which holds what the tick's own
+        prediction block reads), so the goal it computes is the one the
+        synchronous tick would have, applied a tick later.  Returns
+        (new_state, the new goals)."""
+        pred = self._pred_goal_update(
+            state.full_maps, state.local_maps, state.collision,
+            state.visited, state.target_pred, state.dd_wt, state.dd_valid,
+            state.cur_goal, state.last_goal, state.last_goal_valid,
+            hp[:, 14] > 0.5, hp[:, 7:11].long(), hp[:, 11].long(),
+            hp[:, 21:23].long(), trig_idxs, pred_k)
+        return DeviceState(*state[:4], *pred), pred[3]
+
     def _replan_program(self, state: DeviceState, lmb, loc_r, loc_c, flags,
                         goal_cats, no_erode, found, is_toilet):
         """Eroded-obstacle re-solve for replan-flagged envs."""
-        goal_maps = self._goal_maps(state.local_maps, state.cur_goal,
-                                    goal_cats, no_erode, found)
+        temp, _ = self._goal_region(state.local_maps, goal_cats, no_erode)
+        goal_maps = self._goal_maps(temp, found, state.cur_goal)
         return self._plan(state.local_maps, state.collision, state.visited,
                           lmb, loc_r, loc_c, flags, goal_maps, found,
                           is_toilet).window
@@ -368,9 +543,11 @@ class BatchedNavRuntime:
         self.warmup_tick_variants()
 
     def warmup_tick_variants(self):
-        """Run the tick once on zero inputs and restore the episode state
-        (a copy is kept; the tick updates some tensors in place), so warming
-        up mid-episode leaves the episodes bit-identical."""
+        """Run every tick variant (without prediction; with it on the small
+        and the full subset, or the ``pred_async`` programs instead) once on
+        zero inputs, trigger off, and restore the episode state (a copy is
+        kept; the tick updates some tensors in place), so warming up
+        mid-episode leaves the episodes bit-identical."""
         saved = DeviceState(*(x.clone() for x in self.state))
         cfg = self.cfg
         n = self.n
@@ -382,8 +559,17 @@ class BatchedNavRuntime:
         hp = np.zeros((n, PACK), np.float32)
         hp[:, 3:7] = np.stack([s.lmb for s in self.slots])
         hp[:, 7:11] = hp[:, 3:7]
-        self.state, packed = self._tick(self.state, sem, depth, self._t(hp))
-        packed.cpu()
+        hp, idxs = self._t(hp), self._t(np.zeros(n, np.int64))
+        pred_ks = [self.predict_chunk, n] if self.pred_model is not None \
+            else []
+        tick_ks = [0] + ([] if self._pred_async else pred_ks)
+        for k in dict.fromkeys(tick_ks):
+            self.state, packed = self._tick(self.state, sem, depth, hp, idxs,
+                                            k)
+            packed.cpu()
+        for k in dict.fromkeys(pred_ks if self._pred_async else []):
+            self.state, goal = self._pred_program(self.state, hp, idxs, k)
+            goal.cpu()
         self.state = saved
 
     # ==================================================================
@@ -391,6 +577,7 @@ class BatchedNavRuntime:
     # ==================================================================
     def reset_env(self, i: int):
         cfg = self.cfg
+        self._reset_since_pred[i] = True
         s = self.slots[i] = EnvSlot()
         s.forward_after_stop = cfg.move_forward_after_stop
         s.untrap.reset(full=True)
@@ -431,7 +618,9 @@ class BatchedNavRuntime:
     # ------------------------------------------------------------------
     def save_episode_state(self, path: str) -> None:
         """Checkpoint all cross-tick state (device maps + host state
-        machines) to one .npz."""
+        machines) to one .npz.  An in-flight ``pred_async`` goal lands
+        first, so the saved host shadow matches the saved device goal."""
+        self.wait_pending_goal()
         arrays = {f"dev_{k}": v.cpu().numpy()
                   for k, v in self.state._asdict().items()}
         arrays["goal_shadow"] = self.goal_shadow
@@ -497,6 +686,8 @@ class BatchedNavRuntime:
             s.forward_after_stop = d["forward_after_stop"]
             s.untrap.total_id, s.untrap.epi_id = d["untrap"]
         self._clear_pending()
+        self._pending_goal = None
+        self._reset_since_pred[:] = False
 
     def _local_boundaries(self, loc_r, loc_c):
         cfg = self.cfg
@@ -524,6 +715,23 @@ class BatchedNavRuntime:
     def act_batch(self, observations: Sequence[Dict]) -> List[Dict]:
         return self.act_batch_collect(self.act_batch_dispatch(observations))
 
+    def wait_pending_goal(self):
+        """Land the ``pred_async`` program's goal download (idempotent):
+        wait for its event and take the goals into the host shadow, except
+        for rows reset since it was enqueued.  A caller with host work to
+        overlap (the runner's observation staging) may call it early;
+        ``act_batch_dispatch`` calls it regardless."""
+        if self._pending_goal is None:
+            return
+        with self.timer.stage("pred_goal_wait"):
+            event, = self._pending_goal
+            if event is not None:       # a copy to the host from the card
+                event.synchronize()
+            g = self._goal_host.numpy().astype(np.int32)
+        keep = np.logical_not(self._reset_since_pred)
+        self.goal_shadow[keep] = g[keep]
+        self._pending_goal = None
+
     def act_batch_dispatch(self, observations: Sequence[Dict]) -> TickHandle:
         """Phase 1: host bookkeeping + enqueue this tick's device work
         (asynchronous on CUDA).  Collect(t) must run before dispatch(t+1):
@@ -532,6 +740,10 @@ class BatchedNavRuntime:
         cfg = self.cfg
         n = self.n
         T = self.timer
+
+        # ---- pred_async: the goal the prediction program computed while
+        # the envs stepped (rows reset since keep their fresh goal) -------
+        self.wait_pending_goal()
 
         # ---- host: pose integration + bookkeeping ---------------------
         pose_deltas = np.zeros((n, 3), np.float32)
@@ -568,6 +780,7 @@ class BatchedNavRuntime:
         lmb_new = lmb_old.copy()
         preset_cells = np.zeros((n, 2), np.int32)
         preset_override = np.zeros(n, bool)
+        trig = np.zeros(n, bool)
         for i, s in enumerate(self.slots):
             s.dist_to_goal = float(d2g_host[i])
             s.pose_inputs[:3] = poses_new[i] + s.origins
@@ -582,6 +795,13 @@ class BatchedNavRuntime:
                         min(int(preset[0] * self.Hl), self.Hl - 1),
                         min(int(preset[1] * self.Wl), self.Wl - 1)]
                     preset_override[i] = True
+            # the prediction trigger (agent_helper's update cadence)
+            trig[i] = ((s.step % cfg.update_goal_freq
+                        == cfg.update_goal_freq - 1
+                        or s.step == 0
+                        or s.dist_to_goal < cfg.goal_reached_dist)
+                       and s.step >= cfg.switch_step
+                       and self.pred_model is not None)
 
         # re-base poses for envs that re-windowed (keep the pre-rebase copy
         # for the mapper, which updates in the OLD window's frame)
@@ -618,6 +838,7 @@ class BatchedNavRuntime:
         hp[:, 11] = goal_cats
         hp[:, 12] = no_erode
         hp[:, 13] = is_toilet
+        hp[:, 14] = trig
         hp[:, 15:17] = preset_cells
         hp[:, 17] = preset_override
         hp[:, 18] = 0.0  # erode_first (replan pass only)
@@ -629,16 +850,32 @@ class BatchedNavRuntime:
         hp[:, 335:351] = self._col_pts.reshape(n, -1)
         hp[:, 351:359] = self._col_valid
 
+        # trigger ticks: the K triggered envs padded with repeats; in the
+        # exact profile the tick predicts for them (K = predict_chunk, or n
+        # when more trigger), with pred_async the program after collect
+        trig_list = list(np.where(trig)[0])
+        idxs = np.asarray((trig_list + trig_list[-1:] * n)[:n]
+                          if trig_list else np.zeros(n), np.int64)
+        pred_k = 0
+        if trig_list and not self._pred_async:
+            pred_k = self._pred_k(len(trig_list))
         with T.stage("upload"):
             sem = sem_u8 if torch.is_tensor(sem_u8) else self._t(sem_u8)
-            args = (sem, self._t(depth_cm), self._t(hp))
+            args = (sem, upload(depth_cm, self.device),
+                    upload(hp, self.device), upload(idxs, self.device))
         with T.stage("dispatch"):
             # on CUDA the tick's kernels are enqueued; nothing blocks until
             # collect fetches the packed download
-            self.state, packed = self._tick(self.state, *args)
+            self.state, packed = self._tick(self.state, *args, pred_k)
         self._clear_pending()
         return TickHandle(packed, starts, starts_exact, lmb_new, goal_cats,
-                          no_erode, is_toilet, stop_now)
+                          no_erode, is_toilet, stop_now, trig, args[2],
+                          args[3])
+
+    def _pred_k(self, n_trig: int) -> int:
+        """The prediction subset for n_trig triggered envs: the small
+        variant (predict_chunk) when they fit it, else all n."""
+        return self.predict_chunk if n_trig <= self.predict_chunk else self.n
 
     def act_batch_collect(self, h: TickHandle) -> List[Dict]:
         """Phase 2: wait for the tick's packed download, then run the host
@@ -676,6 +913,22 @@ class BatchedNavRuntime:
             with T.stage("magnify"):
                 stg_results = self._magnify_goal_batch(
                     mag_idxs, starts, starts_exact, stg_results)
+
+        # ---- pred_async: enqueue the prediction/goal program last, so it
+        # runs on the card while the caller steps the envs; its goals come
+        # down into pinned memory behind an event
+        if self._pred_async and h.trig.any():
+            with T.stage("pred_dispatch"):
+                self.state, goal = self._pred_program(
+                    self.state, h.hp, h.trig_idxs,
+                    self._pred_k(int(h.trig.sum())))
+                self._goal_host.copy_(goal, non_blocking=True)
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+                self._pending_goal = (event,)
+            self._reset_since_pred[:] = False
 
         self.last_stg = stg_results
         actions = self._action_rules(stg_results, starts, h.stop_now)

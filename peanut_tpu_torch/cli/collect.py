@@ -91,8 +91,10 @@ def main(argv=None, device=None):
 
 def run_batched(cfg: NavConfig, ns, device=None):
     """Parallel-episode evaluation: N envs through the batched runtime
-    (no reference counterpart)."""
+    (no reference counterpart), with the PSPNet at ``cfg.pred_model_wts``
+    (FileNotFoundError naming the path without it)."""
     from ..envs.batch_runner import BatchRunner
+    from ..prediction import PredictionModel
 
     def env_fn(i):
         if ns.fake_env:
@@ -100,8 +102,10 @@ def run_batched(cfg: NavConfig, ns, device=None):
             return lambda: FakeNavEnv(cfg, seed=100 + i)
         return lambda: make_env(cfg, False)
 
+    pm = PredictionModel(cfg, device=device) if cfg.only_explore == 0 \
+        else None
     runner = BatchRunner(cfg, [env_fn(i) for i in range(cfg.num_envs)],
-                         device=device)
+                         device=device, prediction_model=pm)
     try:
         ticks = ns.ticks or (ns.num_episodes * cfg.max_episode_length
                              // max(cfg.num_envs, 1))

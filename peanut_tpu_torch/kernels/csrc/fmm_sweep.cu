@@ -36,10 +36,10 @@
 // phases (scan_phase1, scan_phase2): shifts below 32 in registers through
 // shuffles, a warp over 32 cells of a row; the larger shifts through
 // shuffles again after a transpose in shared memory, K2 lanes over the
-// 32-cell chunks of one column position (rows over 1024 cells: two chunks
-// a lane, scan_phase2_wide); a step's a-value comes from the
-// walls' run-lengths, computed once per row block (step_a), so only b moves
-// between lanes.  The stencil and the scans keep the plain version's
+// 32-cell chunks of one column position (rows over 1024 cells: two or, past
+// 2048, four chunks a lane, scan_phase2_wide); a step's a-value comes from
+// the walls' run-lengths, computed once per row block (step_a), so only b
+// moves between lanes.  The stencil and the scans keep the plain version's
 // arithmetic (fmm_common.cuh: fma1, a correctly rounded sqrtf), so the
 // result equals the plain PyTorch version (fmm.py::_v_sweep) bit for bit.
 // A cluster of one block (narrow rows) holds whole row blocks and uses
@@ -62,12 +62,12 @@ namespace {
 
 constexpr int NT = SWEEP_NT;
 
-// Rows of up to MAX_W cells: 64 chunks of 32, two a lane in the second
-// phase of a scan (scan_phase2_wide).
-constexpr int MAX_W = 2048;
+// Rows of up to MAX_W cells: 128 chunks of 32, up to four a lane in the
+// second phase of a scan (scan_phase2_wide).
+constexpr int MAX_W = 4096;
 
 // The row scans' shared buffers for `nr` rows of W cells.  P is W rounded
-// up to 32 and K2 the power of two >= P / 32 (at most 64): a warp holds 32
+// up to 32 and K2 the power of two >= P / 32 (at most 128): a warp holds 32
 // consecutive cells of a row in the first phase of a scan, or the K2 chunks
 // of one column position in the second.  The [nr][K2][33] arrays hold cell
 // 32 k + l at (q K2 + k) 33 + l, which neither phase reads with bank
@@ -84,12 +84,12 @@ struct ScanBufs {
   int mw;           // words a row of `mask`: max(32, K2)
 };
 
-// Rows over 1024 cells (WIDE) take the second phase two chunks a lane and
-// a wall-bit row of K2 words; narrower ones keep 32 words a row, a
-// constant, and no branch on the width in the scans.
-template <bool WIDE>
+// Rows over 1024 cells take the second phase NCH = K2 / 32 chunks a lane
+// and a wall-bit row of K2 words; narrower ones (NCH = 1) keep 32 words a
+// row, a constant, and no branch on the width in the scans.
+template <int NCH>
 __device__ __forceinline__ int mask_words(const ScanBufs& sb) {
-  return WIDE ? sb.mw : 32;
+  return NCH > 1 ? sb.mw : 32;
 }
 
 __device__ __forceinline__ int tidx(int q, int c, int K2) {
@@ -112,7 +112,7 @@ __device__ __forceinline__ float step_a(float run, float s, float left) {
 // `wall` (pitch W): ballots give each 32-cell chunk's wall bits, then a
 // cell finds the last (next) wall in its chunk or the chunks before
 // (after).  Past W there are no walls, and a cell there has run 0.
-template <bool WIDE>
+template <int NCH>
 __device__ void wall_runs(const uint8_t* wall, int nr, int W, int P,
                           int K2, const ScanBufs& sb) {
   const int lane = threadIdx.x & 31;
@@ -120,14 +120,14 @@ __device__ void wall_runs(const uint8_t* wall, int nr, int W, int P,
     for (int c = threadIdx.x; c < P; c += NT) {
       const unsigned m = __ballot_sync(0xffffffffu,
                                        c < W && wall[(size_t)q * W + c]);
-      if (lane == 0) sb.mask[q * mask_words<WIDE>(sb) + c / 32] = m;
+      if (lane == 0) sb.mask[q * mask_words<NCH>(sb) + c / 32] = m;
     }
   __syncthreads();
   const int K = P / 32;
   for (int q = 0; q < nr; ++q)
     for (int c = threadIdx.x; c < P; c += NT) {
       const int k = c >> 5, l = c & 31;
-      const uint32_t* mk = sb.mask + q * mask_words<WIDE>(sb);
+      const uint32_t* mk = sb.mask + q * mask_words<NCH>(sb);
       int fwd = MAX_W, rev = MAX_W;
       if (c < W) {
         unsigned m = mk[k] & (0xffffffffu >> (31 - l));   // bits <= l
@@ -221,62 +221,84 @@ __device__ void scan_phase2(int nr, int W, int P, int K2, int log_k2,
   __syncthreads();
 }
 
-// Phase 2 of rows over 1024 cells (K2 = 64): a warp holds one column
-// position, lane k its chunks k and k + 32.  A step of m < 32 chunks reads
-// lane k - m (k + m going up): the chunk it needs is in that lane's same
-// register, or, across the middle, in its other one; the step of 32 chunks
-// reads the lane's own other register.  Every cell still reads its
+// Phase 2 of rows over 1024 cells (K2 = 32 NCH, NCH = 2 or 4 chunks a
+// lane): a warp holds one column position, lane k its chunks k + 32 j
+// (j < NCH).  A step of m < 32 chunks reads lane k - m (k + m going up):
+// the chunk it needs is in that lane's same register, or, across the
+// warp's end, in its register before (after); a step of 32 M chunks reads
+// the lane's own register j - M (j + M).  Every cell still reads its
 // neighbour's value from before the step, so the steps are phase 2's, one
 // for one.
-template <int DIR>
+template <int DIR, int NCH>
 __device__ void scan_phase2_wide(int nr, int W, int P, const ScanBufs& sb) {
   const unsigned full = 0xffffffffu;
   const int K = P / 32;
   for (int e = threadIdx.x; e < nr * 32 * 32; e += NT) {
     const int k = e & 31, gl = e >> 5;
     const int l = gl & 31, q = gl >> 5;
-    const int c0 = 32 * k + l, c1 = c0 + 1024;
-    const int t0 = (q * 64 + k) * 33 + l, t1 = t0 + 32 * 33;
-    const bool in1 = k + 32 < K;            // chunk k (< 32 < K) is real
-    float b0 = sb.bt[DIR][t0];
-    float b1 = in1 ? sb.bt[DIR][t1] : BIG;
-    const float run0 = sb.runt[DIR][t0];
-    const float run1 = in1 ? sb.runt[DIR][t1] : 0.0f;
-    const float left0 = DIR ? W - c0 : c0 + 1;
-    const float left1 = DIR ? W - c1 : c1 + 1;
+    float b[NCH], run[NCH], left[NCH];
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int c = 32 * (k + 32 * j) + l;
+      const int t = (q * 32 * NCH + k + 32 * j) * 33 + l;
+      const bool in = k + 32 * j < K;       // chunk k (< 32 < K) is real
+      b[j] = in ? sb.bt[DIR][t] : BIG;
+      run[j] = in ? sb.runt[DIR][t] : 0.0f;
+      left[j] = DIR ? W - c : c + 1;
+    }
     for (int m = 1; 32 * m < W; m <<= 1) {
-      float n0, n1;
+      float n[NCH];
       if (m < 32) {
         const int from = DIR ? (k + m) & 31 : (k - m) & 31;
-        const float s0 = __shfl_sync(full, b0, from);
-        const float s1 = __shfl_sync(full, b1, from);
         const bool same = DIR ? k + m < 32 : k >= m;
-        n0 = DIR ? (same ? s0 : s1) : (same ? s0 : BIG);
-        n1 = DIR ? (same ? s1 : BIG) : (same ? s1 : s0);
+        float s[NCH];
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) s[j] = __shfl_sync(full, b[j], from);
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) {
+          const float across = DIR ? (j + 1 < NCH ? s[j + 1 < NCH ? j + 1 : j]
+                                                  : BIG)
+                                   : (j > 0 ? s[j > 0 ? j - 1 : 0] : BIG);
+          n[j] = same ? s[j] : across;
+        }
       } else {
-        n0 = DIR ? b1 : BIG;
-        n1 = DIR ? BIG : b0;
+        // m = 32 M: register j - M (j + M going up), M = 1 or 2, each
+        // index a constant so that b stays in registers
+        const bool two = m > 32;
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) {
+          const int j1 = DIR ? j + 1 : j - 1, j2 = DIR ? j + 2 : j - 2;
+          const float n1 = j1 >= 0 && j1 < NCH ? b[j1 >= 0 && j1 < NCH ? j1 : 0]
+                                               : BIG;
+          const float n2 = j2 >= 0 && j2 < NCH ? b[j2 >= 0 && j2 < NCH ? j2 : 0]
+                                               : BIG;
+          n[j] = two ? n2 : n1;
+        }
       }
-      b0 = fminf(b0, n0 + step_a(run0, 32.0f * m, left0));
-      b1 = fminf(b1, n1 + step_a(run1, 32.0f * m, left1));
+#pragma unroll
+      for (int j = 0; j < NCH; ++j)
+        b[j] = fminf(b[j], n[j] + step_a(run[j], 32.0f * m, left[j]));
     }
-    sb.bt[DIR][t0] = b0;
-    if (in1) sb.bt[DIR][t1] = b1;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int t = (q * 32 * NCH + k + 32 * j) * 33 + l;
+      if (k + 32 * j < K) sb.bt[DIR][t] = b[j];
+    }
   }
   __syncthreads();
 }
 
-template <bool WIDE, typename Put>
+template <int NCH, typename Put>
 __device__ void scan_rows(int nr, int W, int P, int K2, int log_k2,
                           const ScanBufs& sb, Put put) {
   scan_phase1<0>(nr, W, P, K2, sb);
-  if constexpr (WIDE)
-    scan_phase2_wide<0>(nr, W, P, sb);
+  if constexpr (NCH > 1)
+    scan_phase2_wide<0, NCH>(nr, W, P, sb);
   else
     scan_phase2<0>(nr, W, P, K2, log_k2, sb);
   scan_phase1<1>(nr, W, P, K2, sb);
-  if constexpr (WIDE)
-    scan_phase2_wide<1>(nr, W, P, sb);
+  if constexpr (NCH > 1)
+    scan_phase2_wide<1, NCH>(nr, W, P, sb);
   else
     scan_phase2<1>(nr, W, P, K2, log_k2, sb);
   for (int q = 0; q < nr; ++q)
@@ -306,7 +328,9 @@ struct Layout {
   }
 };
 
-template <bool WIDE>
+// NCH chunks a lane in the scans' second phase: 1 up to 1024 cells, 2 up
+// to 2048, 4 up to MAX_W
+template <int NCH>
 __global__ void __launch_bounds__(NT, 1)
 block_sweep_kernel(const float* __restrict__ d_in,
                    const uint8_t* __restrict__ wall,
@@ -369,7 +393,7 @@ block_sweep_kernel(const float* __restrict__ d_in,
         top[c] = k > 0 ? Din[(size_t)(r0 - 1) * W + c] : BIG;
     // the walls' runs hold for the whole row block
     if (nr > 0 && inner > 0)
-      wall_runs<WIDE>(wl_g + (size_t)(r0 + lo) * W, nr, W, P, K2, sb);
+      wall_runs<NCH>(wl_g + (size_t)(r0 + lo) * W, nr, W, P, K2, sb);
     cluster_barrier(C);  // every block's rows (and the carry) are in place
 
     int p = 0;           // the buffer that holds the current field
@@ -378,7 +402,7 @@ block_sweep_kernel(const float* __restrict__ d_in,
       float* cur = p ? buf1 : buf0;
       if (nr > 0) {
         sb.row = cur;
-        scan_rows<WIDE>(nr, W, P, K2, log_k2, sb,
+        scan_rows<NCH>(nr, W, P, K2, log_k2, sb,
                   [&](int q, int c, float v) { cur[q * W + c] = v; });
       }
       cluster_barrier(C);  // the neighbours' scanned rows are readable
@@ -448,16 +472,22 @@ extern "C" size_t block_sweep_smem_bytes(int W, int rows) {
   return Layout(W, rows).bytes(W);
 }
 
+// f(kernel) for rows of W cells
+template <typename F>
+static int with_kernel(int W, F f) {
+  if (W > 2048) return f(block_sweep_kernel<4>);
+  if (W > 1024) return f(block_sweep_kernel<2>);
+  return f(block_sweep_kernel<1>);
+}
+
 // Resident clusters of `cluster` blocks of `rows` rows each, into *out;
 // returns the cudaError_t of the query.
 extern "C" int block_sweep_max_clusters(int W, int rows, int cluster,
                                         int* out) {
   const size_t smem = block_sweep_smem_bytes(W, rows);
-  return W > 1024
-             ? max_active_clusters(block_sweep_kernel<true>, cluster, smem,
-                                   out)
-             : max_active_clusters(block_sweep_kernel<false>, cluster, smem,
-                                   out);
+  return with_kernel(W, [&](auto kernel) {
+    return max_active_clusters(kernel, cluster, smem, out);
+  });
 }
 
 // (B, H, W) float32 field, uint8 wall mask -> (B, H, W) float32 into d_out
@@ -471,15 +501,15 @@ extern "C" int block_sweep_launch(const float* d_in, const uint8_t* wall,
                                   void* stream) {
   if (W > MAX_W) return (int)cudaErrorInvalidValue;
   const size_t smem = block_sweep_smem_bytes(W, rows);
-  auto kernel =
-      W > 1024 ? block_sweep_kernel<true> : block_sweep_kernel<false>;
-  cudaError_t err = cluster_attributes(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      cluster_config(B, cluster, smem, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, d_in, wall, d_out, H, W, block,
-                           inner, scan_chunk, reverse, rows);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return with_kernel(W, [&](auto kernel) {
+    cudaError_t err = cluster_attributes(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg =
+        cluster_config(B, cluster, smem, (cudaStream_t)stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, d_in, wall, d_out, H, W, block,
+                             inner, scan_chunk, reverse, rows);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  });
 }

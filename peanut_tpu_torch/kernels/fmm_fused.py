@@ -55,7 +55,7 @@ def _lib():
     lib = library("fmm_fused")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_eikonal_launch.argtypes = [p, p, p] + [i] * 10 + [p]
+        lib.fused_eikonal_launch.argtypes = [p, p, p] + [i] * 11 + [p]
         lib.fused_eikonal_launch.restype = i
         lib.fused_eikonal_smem_bytes.argtypes = [i] * 5
         lib.fused_eikonal_smem_bytes.restype = ctypes.c_size_t
@@ -75,9 +75,10 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
 
     CPU tensor: the plain version.  CUDA tensor: one launch of the kernel
     (``fused_eikonal.launches`` counts them) with ``launch_plan``'s cluster
-    size unless ``cluster`` forces one; no fallback.  Grids over 2048 cells
-    wide or tall, or whose rows no plan fits in a block's shared memory
-    (over ~1600 cells at block 8, scan_chunk 4), raise ValueError."""
+    size unless ``cluster`` forces one; no fallback.  Rows too wide for
+    scan_chunk ghost rows a side in a block's shared memory (over ~1600
+    cells at block 8, scan_chunk 4) run with fewer (the plan's ``ghosts``);
+    grids over 4096 cells wide or tall raise ValueError."""
     if not traversible.is_cuda:
         return fused_eikonal_reference(traversible, sources, rounds=rounds,
                                        block=block, inner=inner,
@@ -102,7 +103,7 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
             check(_lib().fused_eikonal_launch(
                 trav.data_ptr(), src.data_ptr(), out.data_ptr(), bsz, h, w,
                 rounds, block, inner, scan_chunk, int(vscan), plan.cluster,
-                plan.seg, stream), "fused_eikonal launch")
+                plan.seg, plan.ghosts, stream), "fused_eikonal launch")
         fused_eikonal.launches += 1
     return out
 

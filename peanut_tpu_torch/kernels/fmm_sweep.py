@@ -51,11 +51,10 @@ def _check_grids(name: str, d: torch.Tensor, *masks: torch.Tensor) -> None:
 CLUSTER_SIZES = (16, 8, 6, 4, 2, 1)
 MIN_SEG = 16          # the plan splits a row no finer than this
 SMEM_LIMIT = 231424   # 227 KB a block, less 1 KB for static shared memory
-MAX_W1 = 2048         # order 1 (and B1) scans lines of at most 64 chunks
+MAX_W1 = 4096         # order 1 (and B1) scans lines of at most 128 chunks
 VSCAN_COLS = 16       # columns the fused solve stages for its column scans
-# past 1024 cells a pair of warps scans a fused solve's column: the 8 pairs'
-# exchanges (1024 floats each) beside the staged columns
-PAIR_EXCHANGE_BYTES = 8 * 1024 * 4
+WARPS = 16            # warps a block (csrc/fmm_common.cuh: SWEEP_NT / 32)
+XCH_BYTES = 1024 * 4  # one slot of a warp group's exchange
 
 
 @dataclass(frozen=True)
@@ -72,6 +71,7 @@ class SweepPlan:
     seg: int
     widths: Tuple[int, ...]
     smem_bytes: int
+    ghosts: int = 0    # a fused block's ghost rows a side (0: a sweep)
 
 
 def _scan_pitches(w: int) -> Tuple[int, int]:
@@ -84,25 +84,40 @@ def _scan_pitches(w: int) -> Tuple[int, int]:
     return p, k2
 
 
+def _line_warps(n: int) -> int:
+    """Warps that scan a fused solve's line of n cells: one up to 1024, a
+    pair up to 2048, four past it."""
+    return 1 if n <= 1024 else 2 if n <= 2048 else 4
+
+
 def smem_bytes(order: int, w: int, block: int, seg: int,
-               fused: Optional[Tuple[int, int]] = None) -> int:
+               fused: Optional[Tuple[int, int]] = None,
+               ghosts: Optional[int] = None) -> int:
     """A block's dynamic shared memory: the ``Layout`` of
     ``csrc/fmm_sweep.cu`` (order 1, ``seg`` rows), the buffers of
     ``csrc/fmm_sweep2.cu`` (order 2, ``seg`` columns), or with ``fused``
     (H, scan_chunk) the ``Layout`` of ``csrc/fmm_fused.cu``: ``seg`` rows,
-    up to scan_chunk ghost rows a side and their receive buffers, or the
-    column scans' staging, whichever is larger.  Order 1's wall bits take
-    a word a 32-cell chunk, at least 32 words a row."""
+    ``ghosts`` ghost rows a side (min(scan_chunk, block) unless given) and
+    their receive buffers, or the column scans' staging, whichever is
+    larger.  Order 1's wall bits take a word a 32-cell chunk, at least 32
+    words a row."""
     if order == 2:
         return 2 * (block + 4) * seg * 4 + 2 * block * seg
     if fused is not None:
         h, chunk = fused
-        ghosts = min(chunk, block)            # a side
+        if ghosts is None:
+            ghosts = min(chunk, block)        # a side
         g = min(block, seg + 2 * ghosts)
-        rows = (2 * g * w + 4 * ghosts * w + 2 * w) * 4 + g * w
-        cols = VSCAN_COLS * (h + 1) * 5
-        if h > 1024:                          # the warp pairs' exchanges
-            cols += PAIR_EXCHANGE_BYTES
+        # each of the two row buffers also holds a warp group's exchange
+        buf = max(g * w, (_line_warps(w) - 1) * XCH_BYTES // 4)
+        rows = (2 * buf + 4 * ghosts * w + 2 * w) * 4 + g * w
+        # VSCAN_COLS columns, or past 2048 cells one a warp group; past
+        # 1024 the groups' exchanges (G - 1 slots a group)
+        gw = _line_warps(h)
+        vc = WARPS // gw if h > 2048 else VSCAN_COLS
+        cols = -(-vc * (h + 1) * 5 // 16) * 16
+        if h > 1024:
+            cols += WARPS // gw * (gw - 1) * XCH_BYTES
         return max(rows, cols)
     p, k2 = _scan_pitches(w)
     return ((2 * seg * w + 2 * w + 4 * seg * k2 * 33) * 4
@@ -114,16 +129,27 @@ def _layout(order: int, w: int, block: int, cluster: int,
     """The plan for ``cluster`` blocks, or None where it cannot run: a
     block left without columns (rows, order 1), a segment narrower than
     order 2's two halo columns, or more shared memory than a block has
-    (``sweep_plan`` turns away order-1 lines over MAX_W1 cells first)."""
+    (``sweep_plan`` turns away order-1 lines over MAX_W1 cells first).  A
+    fused solve holds min(scan_chunk, block) ghost rows a side where they
+    fit; rows over 1024 cells that leave no room for them get the most
+    that fit (at least one), and their blocks refresh them every that many
+    passes, one more cluster barrier each."""
     n = block if order == 1 else w        # what the blocks split
     seg = -(-n // cluster)
     if -(-n // seg) != cluster or (order == 2 and cluster > 1 and seg < 2):
         return None
-    smem = smem_bytes(order, w, block, seg, fused)
-    if smem > SMEM_LIMIT:
-        return None
     widths = tuple(min(seg, n - q * seg) for q in range(cluster))
-    return SweepPlan(order, cluster, seg, widths, smem)
+    if fused is None:
+        smem = smem_bytes(order, w, block, seg)
+        if smem > SMEM_LIMIT:
+            return None
+        return SweepPlan(order, cluster, seg, widths, smem)
+    full = min(fused[1], block)
+    for ghosts in range(full, 0 if w > 1024 else full - 1, -1):
+        smem = smem_bytes(order, w, block, seg, fused, ghosts)
+        if smem <= SMEM_LIMIT:
+            return SweepPlan(order, cluster, seg, widths, smem, ghosts)
+    return None
 
 
 def sweep_plan(order: int, b: int, w: int, block: int,
@@ -189,7 +215,7 @@ def _resident(order: int, w: int, block: int, cluster: int, device: int,
         if fused is not None:
             from .fmm_fused import _lib as lib_fused
             err = lib_fused().fused_eikonal_max_clusters(
-                fused[0], w, block, plan.seg, fused[1], cluster,
+                fused[0], w, block, plan.seg, plan.ghosts, cluster,
                 ctypes.byref(out))
         elif order == 1:
             err = _lib1().block_sweep_max_clusters(

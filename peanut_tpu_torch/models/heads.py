@@ -48,7 +48,9 @@ class PSPHead(nn.Module):
     def forward(self, inputs) -> torch.Tensor:
         x = inputs[self.in_index]
         hw = x.shape[-2:]
-        outs = [x] + [resize_nchw(m(x), hw) for m in self.psp_modules]
+        # the resize computes in float32: its branches go back to x's type
+        outs = [x] + [resize_nchw(m(x), hw).to(x.dtype)
+                      for m in self.psp_modules]
         return self.conv_seg(self.bottleneck(torch.cat(outs, dim=1)))
 
 

@@ -51,8 +51,15 @@ class PredictionModel:
         return self.get_prediction_batch(np.asarray(full_map)[None])[0]
 
     @torch.no_grad()
+    def infer(self, maps: torch.Tensor) -> torch.Tensor:
+        """(K, C, H, W) tensor on the model's device -> (K, 6, H, W) float32
+        probabilities on it, without a host round trip (the batched
+        runtime's trigger ticks): the forward in the serving type, the
+        logits into the sigmoid in float32."""
+        return torch.sigmoid(self.model(maps.to(self.dtype)).float())
+
     def get_prediction_batch(self, full_maps) -> np.ndarray:
-        """(B, C, H, W) -> (B, 6, H, W), one forward for all episodes."""
+        """(B, C, H, W) host maps -> (B, 6, H, W), one forward for all
+        episodes."""
         maps = upload(np.asarray(full_maps, np.float32), self.device)
-        logits = self.model(maps.to(self.dtype)).float()
-        return torch.sigmoid(logits).cpu().numpy()
+        return self.infer(maps).cpu().numpy()

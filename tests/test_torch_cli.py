@@ -4,9 +4,8 @@
 geometry enlarged as tests/test_cli.py enlarges it, full GT semantics and a
 seed whose episode passes the save gate) writes the JAX CLI's npz: the same
 file name and the same uint8 (20, 14, H, W) maps, byte for byte.  The
-single-env ``collect`` needs the prediction weights and the batched one the
-batched prediction hook; both refuse without them rather than run on
-something else.
+single-env and the batched ``collect`` need the prediction weights; both
+refuse without them rather than run on something else.
 """
 
 import glob
@@ -55,8 +54,8 @@ def test_collect_refuses_without_its_models():
     # collect forces only_explore=0: the single-env agent loads the PSPNet
     with pytest.raises(FileNotFoundError, match="no/such/pspnet.pth"):
         collect.main(args, device="cpu")
-    # the batched runtime's prediction hook is not ported
-    with pytest.raises(NotImplementedError, match="A8"):
+    # the batched runtime loads the same PSPNet for its prediction hook
+    with pytest.raises(FileNotFoundError, match="no/such/pspnet.pth"):
         collect.main(args + ["--num_envs", "2"], device="cpu")
     with pytest.raises(NotImplementedError, match="habitat"):
         collect.make_env(NavConfig(), fake=False)

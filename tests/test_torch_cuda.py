@@ -147,16 +147,15 @@ def test_fused_eikonal_carry_isolated_between_grids(cuda):
 
 def test_fused_eikonal_takes_lines_past_1024(cuda):
     """Rows and columns of 1025 cells solve, bit-equal to the plain
-    version; rows past a block's shared memory and lines over 2048 cells
-    raise, saying which."""
-    for shape in ((1, 16, 1025), (1, 1025, 16)):
+    version, and so do rows too wide for scan_chunk ghost rows a side and
+    lines over 2048 cells; lines over 4096 cells raise, saying so."""
+    for shape in ((1, 16, 1025), (1, 1025, 16), (1, 16, 1700),
+                  (1, 2049, 16)):
         trav, src = _grids(24, *shape, cuda)
         got = fused_eikonal(trav, src)
         assert torch.equal(got, fused_eikonal_reference(trav, src))
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_eikonal(*_grids(24, 1, 16, 1700, cuda))
-    with pytest.raises(ValueError, match="2048 cells"):
-        fused_eikonal(*_grids(24, 1, 2049, 16, cuda))
+    with pytest.raises(ValueError, match="4096 cells"):
+        fused_eikonal(*_grids(24, 1, 4097, 16, cuda))
     with pytest.raises(ValueError):      # not a cluster size
         fused_eikonal(*_grids(24, 1, 16, 64, cuda), cluster=3)
 
@@ -182,18 +181,22 @@ def test_fused_eikonal_past_1024_equals_plain(cuda, shape, vscan, cluster):
 @pytest.mark.parametrize("shape,vscan,block,cluster", [
     ((1, 24, 1600), False, 8, None), ((1, 40, 1060), False, 8, None),
     ((1, 40, 1060), False, 16, 1), ((2, 1300, 40), True, 8, None),
-    ((2, 1300, 40), True, 16, 1), ((1, 2048, 24), True, 8, None)])
+    ((2, 1300, 40), True, 16, 1), ((1, 2048, 24), True, 8, None),
+    ((1, 24, 3100), False, 8, None), ((1, 24, 4096), False, 16, None),
+    ((2, 4096, 24), True, 8, None), ((1, 3000, 40), True, 16, 1)])
 def test_fused_eikonal_runs_across_the_pair_boundary(cuda, shape, vscan,
                                                       block, cluster):
-    """Lines whose wall-free runs cross cell 1024, where the pair's two
-    warps meet, and a line without walls; a cluster of one runs its 16
-    rows with all 8 pairs, twice."""
+    """Lines whose wall-free runs cross cells 1024, 2048 and 3072, where
+    the warps of a line's group meet, and a line without walls; a cluster
+    of one runs its 16 rows with all of its groups, in turns."""
     trav, src = _grids(27, *shape, cuda)
     if vscan:
-        trav[:, 1000:1050, :] = True
+        for c in (1024, 2048, 3072):
+            trav[:, c - 24:c + 26, :] = True
         trav[:, :, 3] = True
     else:
-        trav[:, :, 1000:1050] = True
+        for c in (1024, 2048, 3072):
+            trav[:, :, c - 24:c + 26] = True
         trav[:, 3, :] = True
     kw = dict(rounds=2, block=block, inner=8, scan_chunk=4, vscan=vscan)
     got = fused_eikonal(trav, src, cluster=cluster, **kw)
@@ -221,15 +224,17 @@ def test_block_sweep_kernel_equals_plain(cuda, shape, reverse, scan_chunk):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("w", [1025, 1040, 1500, 2000, 2048])
+@pytest.mark.parametrize("w,cluster", [
+    (w, c) for w in (1025, 1040, 1500, 2000, 2048) for c in (None, 6)] + [
+    (w, c) for w in (2049, 3000, 4096) for c in (None, 16)])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("cluster", [None, 6])
 def test_block_sweep_rows_past_1024_equal_plain(cuda, w, reverse, cluster):
-    """Rows of 33-64 chunks (two a lane in the scans' second phase),
-    walls placed so that runs cross the middle chunk, bit-equal to the
-    plain version."""
+    """Rows of 33-128 chunks (two or four a lane in the scans' second
+    phase), walls placed so that runs cross chunks 32, 64 and 96,
+    bit-equal to the plain version."""
     trav, src = _grids(26, 2, 40, w, cuda)
-    trav[:, :, 1020:1030] = True         # a run across chunk 32
+    for c in (1024, 2048, 3072):
+        trav[:, :, c - 4:c + 6] = True   # a run across chunk c / 32
     trav[:, 5, :] = True                 # a row without walls
     wall = ~trav & ~src
     d = block_sweep_reference(torch.where(src, 0.0, fmm.BIG).float(), wall,
@@ -238,9 +243,34 @@ def test_block_sweep_rows_past_1024_equal_plain(cuda, w, reverse, cluster):
     want = block_sweep_reference(d, wall, reverse)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="2048 cells"):
-        block_sweep(torch.zeros(1, 16, 2049, device=cuda),
-                    torch.zeros(1, 16, 2049, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="4096 cells"):
+        block_sweep(torch.zeros(1, 16, 4097, device=cuda),
+                    torch.zeros(1, 16, 4097, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("kernel,shape,kw", [
+    ("B1", (1, 1608, 1608), dict(block=8, vscan=False)),
+    ("B1", (1, 1608, 1608), dict(block=8, vscan=True)),
+    ("B1", (16, 1700, 1700), dict(block=16, inner=40, rounds=2,
+                                  vscan=False)),
+    ("B1", (2, 4096, 48), dict(block=8, vscan=True)),
+    ("B4", (1, 48, 2049), {}), ("B4", (1, 48, 4096), {})])
+def test_order1_kernels_past_the_old_limits(cuda, kernel, shape, kw):
+    """The grids that raised before the order-1 kernels took lines of up
+    to 4096 cells and rows past B1's ghost rows' shared memory: bit-equal
+    to the plain versions."""
+    trav, src = _grids(28, *shape, cuda)
+    if kernel == "B1":
+        got = fused_eikonal(trav, src, **kw)
+        want = fused_eikonal_reference(trav, src, **kw)
+    else:
+        wall = ~trav & ~src
+        d = fmm._axis_relax(torch.where(src, 0.0, fmm.BIG).float(), wall)
+        got = block_sweep(d, wall, False)
+        want = block_sweep_reference(d, wall, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).sum() > got.numel() // 2
 
 
 def test_block_sweep_carry_isolated_between_grids(cuda):
@@ -693,3 +723,55 @@ def test_prediction_model_on_the_card_matches_the_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = tf32
     assert probs[1].shape == (6, 96, 80) and np.isfinite(probs[1]).all()
     np.testing.assert_allclose(probs[1], probs[0], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("profile", [
+    dict(dd_downscale=2, dd_order=1, dd_block=8, dd_inner=24, plan_block=8,
+         plan_inner=24, pred_async=1),
+    dict(dd_downscale=1)])
+def test_serving_tick_with_prediction_on_the_card(cuda, profile):
+    """bench.py's serving and exact profiles at a small geometry: trigger
+    ticks launch B1 (the goal-weighting solve), and the prediction branch
+    through the kernels equals it through the plain versions (actions,
+    goals, target_pred and dd_wt bit for bit)."""
+    from peanut_tpu_torch.agent.batched_runtime import BatchedNavRuntime
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    cfg = NavConfig(
+        env_frame_width=64, env_frame_height=48, frame_width=64,
+        frame_height=48, map_size_cm=1200, vision_range=48,
+        prediction_window=160, use_gt_seg=1, update_goal_freq=3, **profile)
+    tiny = dict(type="EncoderDecoder",
+                backbone=dict(type="ResNetV1c", base_channels=8,
+                              stem_channels=8, in_channels=14),
+                decode_head=dict(type="PSPHead", in_channels=256,
+                                 channels=16, num_classes=6))
+    pm = PredictionModel(cfg, model=build_segmentor(tiny, seed=0),
+                         device=cuda)
+    runs = []
+    for plain in (False, True):
+        rt = BatchedNavRuntime(cfg, 3, prediction_model=pm, device=cuda,
+                               plain=plain)
+        envs = [FakeNavEnv(cfg, seed=s) for s in range(3)]
+        obs = [e.reset() for e in envs]
+        for i in range(3):
+            rt.reset_env(i)
+        f0 = fused_eikonal.launches
+        acts, fields = [], []
+        for _ in range(5):
+            out = rt.act_batch(obs)
+            rt.wait_pending_goal()
+            acts.append([a["action"] for a in out])
+            fields.append([getattr(rt.state, k).cpu() for k in
+                           ("cur_goal", "target_pred", "dd_wt")])
+            obs = [e.step(a) for e, a in zip(envs, out)]
+        runs.append((acts, fields, fused_eikonal.launches - f0))
+        assert bool(rt.state.dd_valid.all())
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the kernel run's goal solves launch B1 beside its planning solves
+    assert runs[0][2] > runs[1][2] > 0

@@ -124,17 +124,22 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert PeanutAgent(cfg, device="cpu").agent_state.device.type == "cpu"
     rt = BatchedNavRuntime(cfg, 1, device="cpu")
     assert rt.state.local_maps.device.type == "cpu"
+    # the prediction runtime (only_explore=0): on the card unless told
+    pcfg = NavConfig(**dataclasses.asdict(small_cfg(pred_async=1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedNavRuntime(pcfg, 1, prediction_model=PredictionModel(
+            pcfg, model=build_segmentor(tiny), device="cpu"))
+    rt = BatchedNavRuntime(pcfg, 2, prediction_model=PredictionModel(
+        pcfg, model=build_segmentor(tiny), device="cpu"), device="cpu")
+    assert rt.pred_model.device.type == "cpu" and rt._pred_async
+    assert rt.predict_chunk == 2 and not rt._goal_host.is_pinned()
     d = eikonal_distance(trav, src, device="cpu")
     assert d.device.type == "cpu" and float(d[0, 0]) == 0.0
 
 
 def test_unported_configurations_raise_naming_their_roadmap_item():
-    from peanut_tpu_torch.agent.batched_runtime import BatchedNavRuntime
     from peanut_tpu_torch.perception import build_segmenter
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        BatchedNavRuntime(NavConfig(**dataclasses.asdict(small_cfg())), 1,
-                          device="cpu")
     # use_gt_seg=0 is ported: without its checkpoint it raises, naming the
     # path, instead of falling back to an empty segmenter
     cfg = NavConfig(use_gt_seg=0, seg_model_wts="no/such/mask_rcnn.pth")

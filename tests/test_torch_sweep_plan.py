@@ -148,19 +148,20 @@ def test_the_plan_keeps_the_batch_resident():
     ((2, 1, 2, 16), {"cluster": 2}),          # halo past the neighbour
     ((2, 1, 1024, 400), {"cluster": 1}),      # shared memory
     ((1, 1, 960, 4000), {}),                  # too tall for any plan
-    ((1, 1, 2049, 16), {}),                   # order 1 past 64 chunks
+    ((1, 1, 4097, 16), {}),                   # order 1 past 128 chunks
 ])
 def test_shapes_the_kernels_do_not_take(args, kw):
     with pytest.raises(ValueError):
         sweep_plan(*args, RESIDENT, **kw)
 
 
-@pytest.mark.parametrize("w", [1025, 1040, 1042, 1500, 2000, 2048])
+@pytest.mark.parametrize("w", [1025, 1040, 1042, 1500, 2000, 2048, 2049,
+                               3000, 4096])
 @pytest.mark.parametrize("b", [1, 16])
 def test_order1_plan_takes_rows_up_to_2048(b, w):
-    """B4 scans rows of up to 64 chunks of 32 cells: the plan takes them
-    at block 16, the row block split over a cluster, within shared
-    memory."""
+    """B4 scans rows of up to 64 chunks of 32 cells, and since the
+    four-chunk second phase up to 128: the plan takes them at block 16,
+    the row block split over a cluster, within shared memory."""
     p = sweep_plan(1, b, w, 16, RESIDENT)
     assert p.cluster > 1 and p.smem_bytes <= SMEM_LIMIT
     assert p.smem_bytes == smem_bytes(1, w, 16, p.seg)
@@ -230,11 +231,16 @@ def test_fused_plan_ghost_rows_and_column_staging():
     # the size where it is the larger
     assert smem_bytes(1, 64, 16, 8, (1024, 4)) == 16 * 1025 * 5
     # a cluster of one holds the whole row block; at scan_chunk 40 its
-    # receive buffers leave no room for rows of 1024 cells
+    # receive buffers leave no room for rows of 1024 cells (fewer ghost
+    # rows are for rows over 1024 cells only)
     assert sweep_plan(1, 1, 64, 16, RESIDENT, cluster=1,
                       fused=(50, 4)).seg == 16
     with pytest.raises(ValueError):
         sweep_plan(1, 1, 1024, 16, RESIDENT, cluster=1, fused=(482, 40))
+    # rows over 1024 cells plan with fewer
+    p = sweep_plan(1, 1, 1040, 16, RESIDENT, cluster=1, fused=(482, 40))
+    assert p.seg == 16 and 1 <= p.ghosts < 16
+    assert p.smem_bytes == smem_bytes(1, 1040, 16, 16, (482, 40), p.ghosts)
 
 
 @pytest.mark.parametrize("h", [1025, 1040, 2000, 2048])
@@ -262,9 +268,9 @@ def test_fused_plan_keeps_the_batch_resident():
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((1, 1, 1608, 8), {"fused": (482, 4)}),    # rows past shared memory
-    ((1, 1, 482, 16), {"fused": (2049, 4)}),   # columns taller than 2048
-    ((1, 1, 2000, 16), {"fused": (2000, 4)}),  # rows past shared memory
+    ((1, 1, 4097, 8), {"fused": (482, 4)}),    # rows over 4096 cells
+    ((1, 1, 482, 16), {"fused": (4097, 4)}),   # columns taller than 4096
+    ((1, 1, 2000, 16), {"fused": (2000, 4), "cluster": 1}),  # shared memory
     ((2, 1, 482, 16), {"fused": (482, 4)}),    # the fused solve is order 1
     ((1, 1, 482, 16), {"fused": (0, 4)}),      # no rows
     ((1, 1, 482, 16), {"fused": (482, 0)}),    # no passes a round
@@ -290,15 +296,50 @@ def test_fused_plan_takes_lines_past_1024(b, h, w, block):
 
 
 def test_fused_plan_past_shared_memory_says_so():
-    """Rows too wide for a block's shared memory at any cluster size
-    raise a ValueError that names shared memory; lines over 2048 cells
-    name the line limit."""
+    """Rows too wide for scan_chunk ghost rows a side in a block's shared
+    memory get fewer (1608^2 at block 8: 3; 16 x 1700^2 at block 16: 2);
+    a plan that fits with none raises a ValueError that names shared
+    memory, and lines over 4096 cells name the line limit."""
+    p = sweep_plan(1, 1, 1608, 8, RESIDENT, fused=(1608, 4))
+    assert (p.cluster, p.seg, p.ghosts) == (8, 1, 3)
+    assert smem_bytes(1, 1608, 8, 1, (1608, 4)) > SMEM_LIMIT
+    assert p.smem_bytes == smem_bytes(1, 1608, 8, 1, (1608, 4), 3)
+    p = sweep_plan(1, 16, 1700, 16, RESIDENT, fused=(1700, 4))
+    assert (p.cluster, p.seg, p.ghosts) == (6, 3, 2)
+    assert p.smem_bytes <= SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        sweep_plan(1, 1, 1608, 8, RESIDENT, fused=(1608, 4))
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep_plan(1, 16, 1700, 16, RESIDENT, fused=(1700, 4))
-    with pytest.raises(ValueError, match="2048 cells"):
-        sweep_plan(1, 1, 482, 8, RESIDENT, fused=(2049, 4))
+        sweep_plan(1, 1, 2000, 16, RESIDENT, cluster=1, fused=(2000, 4))
+    with pytest.raises(ValueError, match="4096 cells"):
+        sweep_plan(1, 1, 482, 8, RESIDENT, fused=(4097, 4))
+    with pytest.raises(ValueError, match="4096 cells"):
+        sweep_plan(1, 1, 4097, 8, RESIDENT, fused=(48, 4))
+
+
+@pytest.mark.parametrize("b,h,w,block,ghosts", [
+    (1, 1608, 1608, 8, 3), (16, 1700, 1700, 16, 2), (1, 48, 4096, 8, 1),
+    (1, 48, 4096, 16, 1), (2, 4096, 48, 8, 4), (1, 2049, 2049, 8, 2),
+    (16, 482, 482, 16, 4), (8, 480, 480, 8, 4), (16, 962, 962, 16, 4)])
+def test_fused_plan_ghost_rows_as_deep_as_fit(b, h, w, block, ghosts):
+    """The plan keeps min(scan_chunk, block) ghost rows a side wherever
+    they fit (the paths' shapes), else the most that fit, and the rows,
+    ghost rows and column staging stay within a block's shared memory."""
+    p = sweep_plan(1, b, w, block, RESIDENT, fused=(h, 4))
+    assert p.ghosts == ghosts and p.smem_bytes <= SMEM_LIMIT
+    assert p.smem_bytes == smem_bytes(1, w, block, p.seg, (h, 4), ghosts)
+    if ghosts < min(4, block):
+        assert smem_bytes(1, w, block, p.seg, (h, 4),
+                          ghosts + 1) > SMEM_LIMIT
+    assert sum(p.widths) == block
+
+
+@pytest.mark.parametrize("h", [2049, 3000, 4096])
+def test_fused_column_staging_past_2048_holds_the_group_exchanges(h):
+    """Columns over 2048 cells are scanned by groups of four warps: four
+    columns staged a step (16-byte aligned), beside the four groups'
+    exchanges (three slots of 1024 floats each)."""
+    staged = -(-4 * (h + 1) * 5 // 16) * 16
+    assert smem_bytes(1, 48, 8, 4, (h, 4)) == staged + 4 * 3 * 1024 * 4
+    assert smem_bytes(1, 48, 8, 4, (h, 4)) <= SMEM_LIMIT
 
 
 def test_plan_is_a_value():
