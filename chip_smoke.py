@@ -1,11 +1,14 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--ticks N] [--only b3|b1|wide]
+    python3 chip_smoke.py [--seed N] [--ticks N]
+                          [--only b3|b1|wide|paths|train]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
 phase 3's lines over 1024 cells (run from a copy of another tree, it times
-that tree's kernels beside these, in one call).
+that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
+and B4 lines at the paths' shapes (to time another tree's beside these),
+"train" phase 11.
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -31,8 +34,13 @@ Phases (each prints one JSON line):
                4096; B1 at 2x48x1040, 2x1040x48, 1x2000x48 and 2x4096x48
                with column scans, 1x1024^2 and 1x1042^2 blankets, and rows
                past full ghost rows: 1x1608^2 at block 8, 16x1700^2 at
-               block 16), all bit-equal; then fused_eikonal's time split
-               into its scan rounds and local stencil passes;
+               block 16), and past the shared-memory kernels, through the
+               long-line kernels (csrc/fmm_long.cu): B4 at 1x48x8192 and
+               1x16x40000, B1 with column scans at 2x8192x48 and rows at
+               1x16x6000 (block 8), B2 at 1x16x20000 (block 16), with
+               their plain versions' times, bounds and launches; all
+               bit-equal; then fused_eikonal's time split into its scan
+               rounds and local stencil passes;
   4. slice   — BatchRunner with 16 FakeNavEnvs under NavConfig(use_gt_seg=1,
                only_explore=1, switch_step=999) at the default geometry:
                steps/s, tick times, StageTimer stages, peak memory and the
@@ -100,7 +108,21 @@ Phases (each prints one JSON line):
                solves, PSPNet on the 720^2 crop): the same readings, and
                B2, B3, B4 and nms_keep all launched; then its first
                detect's B3 (float32, timed) and nms_keep calls against
-               their plain versions.
+               their plain versions;
+ 11. train  — PSPNet-R50-v1c training at the recipe's full width (batch 8,
+               crop 960, 14 channels, remat=1) on synthetic 960^2 maps
+               written from --seed: cli.train_prediction_model for 4
+               iterations (checkpoints every 2), then again to 6, which
+               must resume from iter 4; iter_6 loaded into PredictionModel
+               serves what the trained model computes (1e-5) and
+               cli.test evaluates it; ten steps on one fixed batch lower
+               the loss, timed (median step ms, forward + backward and
+               Adam, maps/s, peak memory at remat=1; one step's peak at
+               remat=0; then three steps with TF32 on, PyTorch's default
+               for cuDNN); the tiny PSPNet's step on the card against the
+               CPU's (float64: loss 1e-5 relative, gradients 1e-4 of the
+               largest; float32 with TF32 off: the loss within 1e-5, the
+               gradients reported).
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -152,6 +174,15 @@ B1_CASES = {
     "blanket_8x960": dict(shape=(8, 960), rounds=2, block=16, inner=40,
                           scan_chunk=4, vscan=False),
 }
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
 
 
 def emit(obj) -> None:
@@ -790,13 +821,15 @@ SERVE_STAGES = ("env_phase", "dispatch", "tick_wait", "pred_dispatch",
 
 def kernel_counts(reset: bool = False) -> dict:
     """The launch counts of every kernel (set to 0 with ``reset``)."""
+    from peanut_tpu_torch.kernels import fmm_long
     from peanut_tpu_torch.kernels.fmm_fused import fused_eikonal
     from peanut_tpu_torch.kernels.fmm_sweep import block_sweep, block_sweep2
     from peanut_tpu_torch.kernels.nms import nms_keep
     from peanut_tpu_torch.kernels.roi_window import roi_window_pool
     fns = {"fused_eikonal": fused_eikonal, "block_sweep2": block_sweep2,
            "roi_window_pool": roi_window_pool, "nms_keep": nms_keep,
-           "block_sweep": block_sweep}
+           "block_sweep": block_sweep,
+           **{name: getattr(fmm_long, name) for name in LONG_CASES}}
     if reset:
         for f in fns.values():
             f.launches = 0
@@ -1238,18 +1271,31 @@ def b1_cases(rng, dev, barrier_us) -> dict:
     return results
 
 
-def wide_lines(args, dev):
+# the long-line kernels (csrc/fmm_long.cu) past the shared-memory
+# kernels' lines: wide_lines's cases of each, the first the kernels line's
+LONG_CASES = {"fused_eikonal_long": ("B1_rows_1x16x6000_b8",
+                                     "B1_vscan_2x8192x48"),
+              "block_sweep_long": ("B4_1x16x40000", "B4_1x48x8192"),
+              "block_sweep2_long": ("B2_1x16x20000",)}
+
+
+def wide_lines(args, dev) -> dict:
     """Lines over 1024 cells: B4's rows, B1's rows and, with column scans,
     columns (lines of 48 cells the other way); B1 at the exact profile's
     1042^2 blanket beside 1024^2; past 2048 cells (a group of up to four
     warps a line) and rows too wide for B1's full ghost rows (1608^2 at
-    block 8, 16 x 1700^2 at block 16); bit-equal to the plain versions,
-    with times."""
-    from peanut_tpu_torch.kernels import fmm_sweep
+    block 8, 16 x 1700^2 at block 16); then the long-line kernels'
+    shapes (LONG_CASES: order-1 lines over 4096 cells, B1 rows past its
+    shared memory with one ghost row, B2 rows past its shared memory at
+    C = 16); bit-equal to the plain versions, with times (the long
+    cases' plain versions, bounds and launches too).  Returns the cases."""
+    from peanut_tpu_torch.kernels import fmm_long, fmm_sweep
     from peanut_tpu_torch.kernels.fmm import BIG, _axis_relax
     from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                     fused_eikonal_reference)
     from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
+                                                    block_sweep2,
+                                                    block_sweep2_reference,
                                                     block_sweep_reference)
     rng = np.random.RandomState(args.seed + 3)
     wide = {}
@@ -1257,6 +1303,15 @@ def wide_lines(args, dev):
                if k != "shape"}
     vscan_kw = {k: v for k, v in B1_CASES["vscan_8x480"].items()
                 if k != "shape"}
+    rows_b8 = {k: v for k, v in B1_CASES["blanket_16x482_b8"].items()
+               if k != "shape"}
+    # one round: the plain version steps 1024 row blocks a sweep from
+    # Python (~18 s a round at 2 x 8192 x 48)
+    long_vscan = dict(vscan_kw, rounds=1)
+    long_keys = {k for ks in LONG_CASES.values() for k in ks}
+    for f in (fmm_long.fused_eikonal_long, fmm_long.block_sweep_long,
+              fmm_long.block_sweep2_long):
+        f.launches = 0
     for key, shape, kw in (("B4_1x48x1040", (1, 48, 1040), None),
                            ("B4_1x48x2000", (1, 48, 2000), None),
                            ("B4_1x48x2049", (1, 48, 2049), None),
@@ -1269,7 +1324,12 @@ def wide_lines(args, dev):
                            ("B1_blanket_1x1042", (1, 1042, 1042), blanket),
                            ("B1_vscan_1x1608_b8", (1, 1608, 1608), vscan_kw),
                            ("B1_blanket_16x1700", (16, 1700, 1700),
-                            blanket)):
+                            blanket),
+                           ("B4_1x48x8192", (1, 48, 8192), None),
+                           ("B4_1x16x40000", (1, 16, 40000), None),
+                           ("B1_vscan_2x8192x48", (2, 8192, 48), long_vscan),
+                           ("B1_rows_1x16x6000_b8", (1, 16, 6000), rows_b8),
+                           ("B2_1x16x20000", (1, 16, 20000), "B2")):
         if shape[1] == shape[2]:
             trav_np, src_np = plans(rng, shape[0], shape[1])
         else:
@@ -1279,180 +1339,344 @@ def wide_lines(args, dev):
                 src_np[i, rng.randint(shape[1]), rng.randint(shape[2])] = True
         trav = torch.as_tensor(trav_np, device=dev)
         src = torch.as_tensor(src_np, device=dev)
+        cells = int(np.prod(shape))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
         if kw is None:
             wall = ~trav & ~src
             d_in = _axis_relax(torch.where(src, 0.0, BIG).float(), wall)
             run = lambda: block_sweep(d_in, wall, False)      # noqa: E731
+            t0.record()
             want = block_sweep_reference(d_in, wall, False)
+            t1.record()
             plan = fmm_sweep.launch_plan(1, d_in, 16)
+            # as phase 3's B4: inner 40 passes, 2 x 40 row scans
+            bnd = bound(cells, 4 + 1 + 4,
+                        cells * 40 * (GODUNOV1_OPS + 2 * SCAN_OPS))
+        elif kw == "B2":
+            wall = ~trav & ~src
+            d_in = torch.where(src, 0.0, BIG).float()
+            run = lambda: block_sweep2(d_in, wall, src, False)  # noqa: E731
+            t0.record()
+            want = block_sweep2_reference(d_in, wall, src, False)
+            t1.record()
+            plan = fmm_sweep.launch_plan(2, d_in, 16)
+            bnd = bound(cells, 4 + 1 + 1 + 4, cells * 40 * GODUNOV2_OPS)
         else:
             run = lambda: fused_eikonal(trav, src, **kw)      # noqa: E731
+            t0.record()
             want = fused_eikonal_reference(trav, src, **kw)
+            t1.record()
             plan = fmm_sweep.launch_plan(1, trav, kw["block"],
                                          fused_chunk=kw["scan_chunk"])
+            ops = cells * kw["rounds"] * 2 * (
+                GODUNOV1_OPS * kw["inner"]
+                + 2 * SCAN_OPS * (kw["inner"] // kw["scan_chunk"]))
+            if kw["vscan"]:
+                ops += cells * kw["rounds"] * 2 * SCAN_OPS
+            bnd = bound(cells, 2 + 4, ops)
         got = run()
         torch.cuda.synchronize()
         wide[key] = dict(compare(got, want, WIDE_TOL),
                          bit_equal=bool(torch.equal(got, want)),
                          ms=cuda_ms(run, reps=3), cluster=plan.cluster,
                          seg=plan.seg, ghosts=plan.ghosts,
-                         smem_bytes=plan.smem_bytes)
+                         smem_bytes=plan.smem_bytes, long=plan.long)
+        if key in long_keys:
+            wide[key].update(plain_ms=t0.elapsed_time(t1), bound_ms=bnd[0],
+                             bound_by=bnd[1])
+            if not plan.long:
+                fail(f"{key}: the plan is not the long-line kernel's")
+    wide["long_launches"] = {
+        f.__name__: f.launches for f in (fmm_long.fused_eikonal_long,
+                                         fmm_long.block_sweep_long,
+                                         fmm_long.block_sweep2_long)}
     emit({"phase": "wide_lines", "cases": wide})
-    if not all(c["ok"] and c["bit_equal"] for c in wide.values()):
+    if not all(c["ok"] and c["bit_equal"] for k, c in wide.items()
+               if k != "long_launches"):
         fail("a kernel disagrees with its plain version on lines over "
              "1024 cells")
+    if not all(wide["long_launches"].values()):
+        fail(f"a long-line kernel never launched: {wide['long_launches']}")
+    return wide
 
 
-def only_phase(args, dev) -> int:
-    """``--only``: one phase alone, to compare trees (the parent's, a
-    variant's) in one call: "b3" B3's kernel lines in both types, "wide"
-    the lines over 1024 cells.  Prints no result line."""
-    from peanut_tpu_torch.kernels import _build
-    for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
-                 "wide": ("fmm_fused", "fmm_sweep")}[args.only]:
-        _build.library(stem)
-    if args.only == "b3":
-        mask_rcnn_phases(args, dev)
-    elif args.only == "b1":
-        b1_cases(np.random.RandomState(args.seed), dev, {})
-    else:
-        wide_lines(args, dev)
-    return 0
+# ---- the train phase: PSPNet-R50-v1c training and evaluation ----------
+TRAIN_MAP = 960          # the recipe's crop and the synthetic maps' size
+TRAIN_BATCH = 8
+TRAIN_ITERS = (4, 6)     # the first run, then the resumed one
+OVERFIT_STEPS = 10
+TIMED_FROM = 2           # overfit steps before this one warm up
+PARITY_BASE = 8          # the CPU tests' tiny PSPNet (base width 8)
+PARITY_LOSS_TOL = 1e-5   # relative
+PARITY_GRAD_TOL = 1e-4   # of the largest |gradient|
+SERVE_TOL = 1e-5         # checkpoint -> PredictionModel, probabilities
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ticks", type=int, default=20)
-    ap.add_argument("--only", choices=("b3", "b1", "wide"),
-                    help="run this phase alone (after the device line)")
-    args = ap.parse_args()
+def write_train_maps(dirpath: str, seed: int, size: int = TRAIN_MAP,
+                     n_files: int = 2) -> None:
+    """The verify recipe's synthetic episodes at ``size``: 20 timesteps of
+    a growing explored square with obstacle rows, sparse goal channels
+    (uncompressed npz: 258 MB a file at 960^2 writes and reads in a
+    fraction of the compressed file's time)."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(dirpath, exist_ok=True)
+    for i in range(n_files):
+        seq = np.zeros((20, 14, size, size), np.uint8)
+        for t in range(20):
+            r = size // 20 + t * size // 25
+            seq[t, 1, :r, :r] = 255
+            seq[t, 0, :r:4, :r] = 255
+        seq[:, 4:10] = (rng.rand(1, 6, size, size) > 0.97) * 255
+        np.savez(os.path.join(dirpath, f"f{i:05d}.npz"), maps=seq)
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this check needs a card")
-    try:
-        import peanut_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"peanut_tpu_torch not importable beside this script: {e}")
+
+def tiny_pspnet_config() -> dict:
+    """tests/test_torch_training.py's tiny PSPNet (dropout 0)."""
+    from peanut_tpu_torch.models.pspnet import peanut_prediction_config
+    cfg = peanut_prediction_config()
+    cfg["backbone"].update(base_channels=PARITY_BASE,
+                           stem_channels=PARITY_BASE)
+    cfg["decode_head"].update(in_channels=PARITY_BASE * 32,
+                              channels=PARITY_BASE * 8, dropout_ratio=0.0)
+    cfg["auxiliary_head"].update(in_channels=PARITY_BASE * 16,
+                                 channels=PARITY_BASE * 4, dropout_ratio=0.0)
+    return cfg
+
+
+def card_against_cpu(dev, seed: int) -> dict:
+    """One train step of the tiny PSPNet (batch 2, crop 64) from the same
+    state on the card and on the CPU: in float64 the gate (loss within
+    1e-5 relative, gradients within 1e-4 of the largest |gradient|); in
+    float32 with TF32 off the same numbers, reported (float32 gradients of
+    this net are rounding-bound: tests/test_torch_training.py)."""
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads)
+    rng = np.random.RandomState(seed)
+    img = rng.rand(2, 14, 64, 64) * np.float64([1, 3])[:, None, None, None]
+    gt = (rng.rand(2, 6, 64, 64) > 0.9) * 255.0
+    tcfg = TrainConfig(lr=1e-3, max_iters=50, seed=seed)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        res = {}
+        for where in ("cpu", dev):
+            model = build_segmentor(tiny_pspnet_config(), seed=seed)
+            state = create_train_state(model.to(dtype), tcfg, device=where)
+            batch = {"img": torch.as_tensor(img, dtype=dtype, device=where),
+                     "gt": torch.as_tensor(gt, dtype=dtype, device=where)}
+            loss = loss_and_grads(state, batch, tcfg)["loss"]
+            res[str(where)] = (float(loss), {
+                n: p.grad.detach().double().cpu()
+                for n, p in state.model.named_parameters()})
+        (lc, gc), (lg, gg) = res["cpu"], res[str(dev)]
+        top = max(float(g.abs().max()) for g in gc.values())
+        err = max(float((gg[n] - gc[n]).abs().max()) for n in gc)
+        out[str(dtype).replace("torch.", "")] = {
+            "loss_cpu": lc, "loss_card": lg,
+            "loss_rel_err": abs(lg - lc) / abs(lc),
+            "grad_err_of_largest": err / top}
+    return out
+
+
+def training_phase(args, dev, smi_line: str) -> dict:
+    """Gates 1-5 of the train phase (module docstring); returns its
+    reading."""
+    import tempfile
+
+    from peanut_tpu_torch.cli import test as test_cli
+    from peanut_tpu_torch.cli import train_prediction_model
     from peanut_tpu_torch.config import NavConfig
-    from peanut_tpu_torch.envs import FakeNavEnv
-    from peanut_tpu_torch.envs.batch_runner import BatchRunner
-    from peanut_tpu_torch.kernels import _build
-    from peanut_tpu_torch.kernels.fmm import (BIG, _axis_relax,
-                                              eikonal_distance)
-    from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
-                                                    fused_eikonal_reference)
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                 peanut_prediction_config)
+    from peanut_tpu_torch.prediction import PredictionModel
+    from peanut_tpu_torch.prediction.dataset import (PrefetchLoader,
+                                                     SemMapDataset,
+                                                     training_pipeline)
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads,
+                                                   upload_batch)
+    from peanut_tpu_torch.utils.loggers import read_train_log
+
+    reading = {"phase": "train", "nvidia_smi": smi_line,
+               "model": "PSPNet-R50-v1c", "batch": TRAIN_BATCH,
+               "crop": TRAIN_MAP, "channels": 14, "classes": 6}
+    try:
+        import cv2
+        reading["cv2"] = cv2.__version__
+    except ImportError:
+        reading["cv2"] = None
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_train_maps(os.path.join(tmp, "train_80"), args.seed)
+        reading["maps_write_s"] = time.perf_counter() - t0
+        work = os.path.join(tmp, "work")
+        argv = ["--data_root", tmp, "--img_dir", "train_80", "--work_dir",
+                work, "--batch_size", str(TRAIN_BATCH), "--crop_size",
+                str(TRAIN_MAP), "--checkpoint_interval", "2",
+                "--log_interval", "1", "--num_workers", "4", "--seed",
+                str(args.seed)]
+        # 1. full width through the CLI, then resumed to 6
+        runs = []
+        for iters in TRAIN_ITERS:
+            t0 = time.perf_counter()
+            state = train_prediction_model.main(
+                argv + ["--max_iters", str(iters)])
+            torch.cuda.synchronize()
+            runs.append({"max_iters": iters, "step": state.step,
+                         "wall_s": time.perf_counter() - t0})
+        log = read_train_log(os.path.join(work, "train_log.jsonl"))
+        reading["cli_runs"] = runs
+        reading["log_iters"] = [r["iter"] for r in log]
+        reading["log_loss"] = [r["loss"] for r in log]
+        reading["checkpoints"] = sorted(os.listdir(work))
+        if (state.step != TRAIN_ITERS[1]
+                or reading["log_iters"] != list(range(1, 7))
+                or not all(np.isfinite(reading["log_loss"]))
+                or "iter_6" not in reading["checkpoints"]):
+            emit(reading)
+            fail("train: the CLI did not resume from iter 4 to step 6")
+
+        # 4. the checkpoint into serving, and the evaluation CLI
+        maps_t = upload_batch(
+            {"img": np.stack([SemMapDataset(tmp, "train_80")[i]["img"]
+                              for i in (3, 17)]),
+             "gt": np.zeros((2, TRAIN_MAP, TRAIN_MAP, 6), np.float32)},
+            dev)["img"]
+        with torch.no_grad():
+            want = torch.sigmoid(state.model(maps_t, train=False).float())
+        pm = PredictionModel(NavConfig(pred_model_wts=os.path.join(
+            work, "iter_6", "model.pth")))
+        got = pm.infer(maps_t)
+        reading["serve_max_abs_err"] = float((got - want).abs().max())
+        reading["serve_bit_equal"] = bool(torch.equal(got, want))
+        report = test_cli.main(["--data_root", tmp, "--img_dir",
+                                "train_80", "--checkpoint",
+                                os.path.join(work, "iter_6"),
+                                "--max_samples", "2", "--argmax"])
+        reading["test_cli"] = report
+        del state, pm, want, got
+        if (reading["serve_max_abs_err"] > SERVE_TOL
+                or not np.isfinite(report["bce"])):
+            emit(reading)
+            fail("train: iter_6 does not serve what was trained, or its "
+                 "evaluation is not finite")
+
+        # 2 and 5. ten steps on one fixed full-width batch: the loss falls;
+        # the time a step (split into forward + backward and Adam) and
+        # the peak memory at remat=1, then one step's peak at remat=0
+        t0 = time.perf_counter()
+        ds = SemMapDataset(tmp, "train_80", pipeline=training_pipeline(
+            TRAIN_MAP, rng=np.random.RandomState(args.seed)))
+        loader = iter(PrefetchLoader(ds, TRAIN_BATCH, seed=args.seed,
+                                     num_workers=1))
+        host = next(loader)
+        reading["data_s_per_batch_one_worker"] = time.perf_counter() - t0
+        loader.close()
+        batch = upload_batch(host, dev)
+        tcfg = TrainConfig(seed=args.seed)
+        # one model for every reading: remat is the backbone's flag
+        state = create_train_state(build_segmentor(
+            peanut_prediction_config(remat=True), seed=args.seed), tcfg,
+            device=dev)
+        for remat in (1, 0):
+            state.model.backbone.remat = bool(remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, fb_ms, opt_ms = [], [], []
+            steps = OVERFIT_STEPS if remat else 1
+            try:
+                for i in range(steps):
+                    e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(3))
+                    e0.record()
+                    loss = loss_and_grads(state, batch, tcfg)["loss"]
+                    e1.record()
+                    for group in state.optimizer.param_groups:
+                        group["lr"] = tcfg.lr
+                    state.optimizer.step()
+                    state.step += 1
+                    e2.record()
+                    torch.cuda.synchronize()
+                    losses.append(float(loss))
+                    fb_ms.append(e0.elapsed_time(e1))
+                    opt_ms.append(e1.elapsed_time(e2))
+                peak = torch.cuda.max_memory_allocated()
+            except torch.cuda.OutOfMemoryError as e:
+                # a reading, not a failure: remat=0 may not fit the card
+                reading["remat0"] = {"out_of_memory": str(e)[:200]}
+                state.optimizer.zero_grad(set_to_none=True)
+                torch.cuda.empty_cache()
+                continue
+            timed = slice(TIMED_FROM, None) if remat else slice(None)
+            step_ms = [a + b for a, b in zip(fb_ms, opt_ms)][timed]
+            reading[f"remat{remat}"] = {
+                "losses": losses,
+                "step_ms_median": float(np.median(step_ms)),
+                "fwd_bwd_ms_median": float(np.median(fb_ms[timed])),
+                "adam_ms_median": float(np.median(opt_ms[timed])),
+                "maps_per_s": TRAIN_BATCH / (np.median(step_ms) / 1e3),
+                "timed_steps": len(step_ms),
+                "peak_memory_gib": peak / 2 ** 30}
+            torch.cuda.empty_cache()
+        state.model.backbone.remat = True
+        # what PyTorch's defaults give a user of the CLI: TF32 convolutions
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ms = []
+            for i in range(TIMED_FROM + 3):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                loss_and_grads(state, batch, tcfg)
+                state.optimizer.step()
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            reading["remat1_tf32"] = {
+                "step_ms_median": float(np.median(ms[TIMED_FROM:])),
+                "maps_per_s": TRAIN_BATCH / (np.median(ms[TIMED_FROM:])
+                                             / 1e3),
+                "timed_steps": len(ms) - TIMED_FROM}
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+        del state
+        torch.cuda.empty_cache()
+        r1 = reading["remat1"]
+        if not (all(np.isfinite(r1["losses"]))
+                and r1["losses"][-1] < r1["losses"][0]):
+            emit(reading)
+            fail("train: ten steps on one batch did not lower the loss")
+
+    # 3. the card against the CPU
+    reading["card_vs_cpu"] = card_against_cpu(dev, args.seed)
+    f64 = reading["card_vs_cpu"]["float64"]
+    f32 = reading["card_vs_cpu"]["float32"]
+    emit(reading)
+    if (f64["loss_rel_err"] > PARITY_LOSS_TOL
+            or f64["grad_err_of_largest"] > PARITY_GRAD_TOL
+            or f32["loss_rel_err"] > PARITY_LOSS_TOL):
+        fail("train: the step on the card disagrees with the CPU's")
+    return reading
+
+
+
+def path_kernels(rng, dev, barrier_us) -> dict:
+    """Phase 3's kernel lines at the paths' shapes: B1 (B1_CASES), B2 and
+    B4, each against its plain version (bit-equal required), with times,
+    bounds and chains.  Returns the results by case."""
+    from peanut_tpu_torch.kernels import fmm_sweep
+    from peanut_tpu_torch.kernels.fmm import BIG, _axis_relax
     from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
                                                     block_sweep2,
                                                     block_sweep2_reference,
                                                     block_sweep_reference)
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    # ---- 1. device ---------------------------------------------------
-    name = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
-    emit({"phase": "device", "kind": name, "count": count,
-          "nvidia_smi": smi_line, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-    if args.only:
-        return only_phase(args, dev)
-
-    # ---- 2. build ----------------------------------------------------
-    t0 = time.perf_counter()
-    try:
-        for stem in ("fmm_fused", "fmm_sweep", "fmm_sweep2", "roi_window",
-                     "nms_greedy"):
-            _build.library(stem)
-    except RuntimeError as e:
-        fail(f"kernel build failed: {e}")
-    from peanut_tpu_torch.kernels import fmm_fused, fmm_sweep, roi_window
-    smem = {  # dynamic shared memory per block at the main path's shapes
-        "roi_window_bf16_p7_26x274": roi_window._lib().roi_window_smem_bytes(
-            1, 7, 26, 274, roi_window.ring_rows()),
-        "roi_window_f32_p14_26x274": roi_window._lib().roi_window_smem_bytes(
-            0, 14, 26, 274, 0)}
-    # the sweeps' launch plans at the paths' shapes (block 16): cluster
-    # size, segment, shared memory (the kernel's own count) and the
-    # clusters the card holds at once at each size
-    sweep_plans = {}
-    for order, name_ in ((1, "block_sweep"), (2, "block_sweep2")):
-        for b, n in ((1, 242), (1, 482), (1, 960), (16, 482)):
-            plan = fmm_sweep.launch_plan(
-                order, torch.empty(b, n, n, device=dev), 16)
-            smem_c = (fmm_sweep._lib1().block_sweep_smem_bytes(n, plan.seg)
-                      if order == 1 else
-                      fmm_sweep._lib2().block_sweep2_smem_bytes(plan.seg, 16))
-            if smem_c != plan.smem_bytes:
-                fail(f"{name_} plan at {b}x{n}: {plan.smem_bytes} bytes of "
-                     f"shared memory, the kernel counts {smem_c}")
-            sweep_plans[f"{name_}_{b}x{n}"] = {
-                "cluster": plan.cluster, "seg": plan.seg,
-                "split": "rows" if order == 1 else "columns",
-                "smem_bytes": plan.smem_bytes,
-                "max_active_clusters": fmm_sweep.resident_clusters(
-                    order, n, 16, dev)}
-    # B1's plans: its blocks split the rows as B4's do, with ghost rows and
-    # the column scans' staging in their shared memory
-    for p in B1_CASES.values():
-        (b, n), block, chunk = p["shape"], p["block"], p["scan_chunk"]
-        plan = fmm_sweep.launch_plan(1, torch.empty(b, n, n, device=dev),
-                                     block, fused_chunk=chunk)
-        smem_c = fmm_fused._lib().fused_eikonal_smem_bytes(
-            n, n, block, plan.seg, plan.ghosts)
-        if smem_c != plan.smem_bytes:
-            fail(f"fused_eikonal plan at {b}x{n}: {plan.smem_bytes} bytes "
-                 f"of shared memory, the kernel counts {smem_c}")
-        sweep_plans[f"fused_eikonal_{b}x{n}"] = {
-            "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
-            "block": block, "ghosts": plan.ghosts,
-            "smem_bytes": plan.smem_bytes,
-            "max_active_clusters": fmm_sweep.resident_clusters(
-                1, n, block, dev, (n, chunk))}
-    # B1 at the exact profile's full map (map_size_cm=5200: 1042^2): one
-    # grid and the 16-env batch
-    for b in (1, 16):
-        plan = fmm_sweep.launch_plan(1, torch.empty(b, 1042, 1042,
-                                                    device=dev), 16,
-                                     fused_chunk=4)
-        sweep_plans[f"fused_eikonal_{b}x1042"] = {
-            "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
-            "block": 16, "smem_bytes": plan.smem_bytes}
-    # B3's bf16 y-contraction must run on the tensor cores: HMMA in the
-    # library's SASS
-    sass = subprocess.run(
-        [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                      "cuobjdump"), "-sass",
-         str(_build.build_dir() / "libroi_window.so")],
-        capture_output=True, text=True, timeout=120).stdout
-    hmma = {}
-    func = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            func = line.split("Function :")[1].strip()
-        elif "HMMA" in line and func:
-            hmma[func] = hmma.get(func, 0) + 1
-    if not any("nv_bfloat16" in f for f in hmma):
-        fail(f"no HMMA in roi_window's bf16 kernels: {hmma}")
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
-          "roi_window_hmma_by_function": hmma,
-          "nvcc_seconds": round(_build.build_seconds, 2),
-          "dir": str(_build.build_dir()), "dynamic_smem_bytes": smem,
-          "sweep_plans": sweep_plans, "ptxas": _build.ptxas_report()})
-    # one cluster barrier at each size the plans use: the floor under a
-    # sweep's chain of dependent passes
-    barrier_us = {c: fmm_sweep.cluster_barrier_us(c) for c in
-                  sorted({p["cluster"] for p in sweep_plans.values()})
-                  if c > 1}
-    emit({"phase": "cluster_barrier", "us_by_cluster": barrier_us})
 
     def chain(kernel_order, d, block=16, inner=40):
         """The plan's cluster size, the chain's length (row blocks x
@@ -1464,8 +1688,6 @@ def main() -> int:
         return {"cluster": plan.cluster, "blocks_x_passes": links,
                 "chain_floor_ms": floor}
 
-    # ---- 3. kernels vs plain versions ----------------------------------
-    rng = np.random.RandomState(args.seed)
     results = {}
     ok = True
 
@@ -1561,8 +1783,165 @@ def main() -> int:
               **results[key]})
     if not ok:
         fail("a kernel disagrees with its plain version")
+    return results
 
-    wide_lines(args, dev)
+
+def only_phase(args, dev) -> int:
+    """``--only``: one phase alone, to compare trees (the parent's, a
+    variant's) in one call: "b3" B3's kernel lines in both types, "wide"
+    the lines over 1024 cells, "paths" phase 3's B1, B2 and B4 lines at
+    the paths' shapes, "train" the train phase.  Prints no result line."""
+    from peanut_tpu_torch.kernels import _build
+    for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
+                 "wide": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
+                          "fmm_long"),
+                 "paths": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
+                 "train": ()}[args.only]:
+        _build.library(stem)
+    if args.only == "paths":
+        path_kernels(np.random.RandomState(args.seed), dev, {})
+    elif args.only == "train":
+        training_phase(args, dev, nvidia_smi_line())
+    elif args.only == "b3":
+        mask_rcnn_phases(args, dev)
+    elif args.only == "b1":
+        b1_cases(np.random.RandomState(args.seed), dev, {})
+    else:
+        wide_lines(args, dev)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
+                                       "train"),
+                    help="run this phase alone (after the device line)")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a card")
+    try:
+        import peanut_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"peanut_tpu_torch not importable beside this script: {e}")
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.envs.batch_runner import BatchRunner
+    from peanut_tpu_torch.kernels import _build
+    from peanut_tpu_torch.kernels.fmm import eikonal_distance
+    from peanut_tpu_torch.kernels.fmm_fused import fused_eikonal
+    from peanut_tpu_torch.kernels.fmm_sweep import block_sweep2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # ---- 1. device ---------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi_line = nvidia_smi_line()
+    emit({"phase": "device", "kind": name, "count": count,
+          "nvidia_smi": smi_line, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    if args.only:
+        return only_phase(args, dev)
+
+    # ---- 2. build ----------------------------------------------------
+    t0 = time.perf_counter()
+    try:
+        for stem in ("fmm_fused", "fmm_sweep", "fmm_sweep2", "fmm_long",
+                     "roi_window", "nms_greedy"):
+            _build.library(stem)
+    except RuntimeError as e:
+        fail(f"kernel build failed: {e}")
+    from peanut_tpu_torch.kernels import fmm_fused, fmm_sweep, roi_window
+    smem = {  # dynamic shared memory per block at the main path's shapes
+        "roi_window_bf16_p7_26x274": roi_window._lib().roi_window_smem_bytes(
+            1, 7, 26, 274, roi_window.ring_rows()),
+        "roi_window_f32_p14_26x274": roi_window._lib().roi_window_smem_bytes(
+            0, 14, 26, 274, 0)}
+    # the sweeps' launch plans at the paths' shapes (block 16): cluster
+    # size, segment, shared memory (the kernel's own count) and the
+    # clusters the card holds at once at each size
+    sweep_plans = {}
+    for order, name_ in ((1, "block_sweep"), (2, "block_sweep2")):
+        for b, n in ((1, 242), (1, 482), (1, 960), (16, 482)):
+            plan = fmm_sweep.launch_plan(
+                order, torch.empty(b, n, n, device=dev), 16)
+            smem_c = (fmm_sweep._lib1().block_sweep_smem_bytes(n, plan.seg)
+                      if order == 1 else
+                      fmm_sweep._lib2().block_sweep2_smem_bytes(plan.seg, 16))
+            if smem_c != plan.smem_bytes:
+                fail(f"{name_} plan at {b}x{n}: {plan.smem_bytes} bytes of "
+                     f"shared memory, the kernel counts {smem_c}")
+            sweep_plans[f"{name_}_{b}x{n}"] = {
+                "cluster": plan.cluster, "seg": plan.seg,
+                "split": "rows" if order == 1 else "columns",
+                "smem_bytes": plan.smem_bytes,
+                "max_active_clusters": fmm_sweep.resident_clusters(
+                    order, n, 16, dev)}
+    # B1's plans: its blocks split the rows as B4's do, with ghost rows and
+    # the column scans' staging in their shared memory
+    for p in B1_CASES.values():
+        (b, n), block, chunk = p["shape"], p["block"], p["scan_chunk"]
+        plan = fmm_sweep.launch_plan(1, torch.empty(b, n, n, device=dev),
+                                     block, fused_chunk=chunk)
+        smem_c = fmm_fused._lib().fused_eikonal_smem_bytes(
+            n, n, block, plan.seg, plan.ghosts)
+        if smem_c != plan.smem_bytes:
+            fail(f"fused_eikonal plan at {b}x{n}: {plan.smem_bytes} bytes "
+                 f"of shared memory, the kernel counts {smem_c}")
+        sweep_plans[f"fused_eikonal_{b}x{n}"] = {
+            "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
+            "block": block, "ghosts": plan.ghosts,
+            "smem_bytes": plan.smem_bytes,
+            "max_active_clusters": fmm_sweep.resident_clusters(
+                1, n, block, dev, (n, chunk))}
+    # B1 at the exact profile's full map (map_size_cm=5200: 1042^2): one
+    # grid and the 16-env batch
+    for b in (1, 16):
+        plan = fmm_sweep.launch_plan(1, torch.empty(b, 1042, 1042,
+                                                    device=dev), 16,
+                                     fused_chunk=4)
+        sweep_plans[f"fused_eikonal_{b}x1042"] = {
+            "cluster": plan.cluster, "seg": plan.seg, "split": "rows",
+            "block": 16, "smem_bytes": plan.smem_bytes}
+    # B3's bf16 y-contraction must run on the tensor cores: HMMA in the
+    # library's SASS
+    sass = subprocess.run(
+        [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                      "cuobjdump"), "-sass",
+         str(_build.build_dir() / "libroi_window.so")],
+        capture_output=True, text=True, timeout=120).stdout
+    hmma = {}
+    func = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+        elif "HMMA" in line and func:
+            hmma[func] = hmma.get(func, 0) + 1
+    if not any("nv_bfloat16" in f for f in hmma):
+        fail(f"no HMMA in roi_window's bf16 kernels: {hmma}")
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
+          "roi_window_hmma_by_function": hmma,
+          "nvcc_seconds": round(_build.build_seconds, 2),
+          "dir": str(_build.build_dir()), "dynamic_smem_bytes": smem,
+          "sweep_plans": sweep_plans, "ptxas": _build.ptxas_report()})
+    # one cluster barrier at each size the plans use: the floor under a
+    # sweep's chain of dependent passes
+    barrier_us = {c: fmm_sweep.cluster_barrier_us(c) for c in
+                  sorted({p["cluster"] for p in sweep_plans.values()})
+                  if c > 1}
+    emit({"phase": "cluster_barrier", "us_by_cluster": barrier_us})
+
+    # ---- 3. kernels vs plain versions ----------------------------------
+    rng = np.random.RandomState(args.seed)
+    results = path_kernels(rng, dev, barrier_us)
+
+    wide = wide_lines(args, dev)
 
     # where a fused_eikonal launch spends its time, at the blanket's shape
     p = B1_CASES["blanket_16x482"]
@@ -1677,6 +2056,9 @@ def main() -> int:
     explore, nav, nav_checks = single_env_phases(args, dev)
     single = {"single_explore": explore, "single_nav": nav}
 
+    # ---- 11. training: PSPNet-R50-v1c at full width ---------------------
+    training_phase(args, dev, smi_line)
+
     kernels = []
     for name_, src_file, replaces, keys, count_key in (
             ("fused_eikonal", "peanut_tpu_torch/kernels/csrc/fmm_fused.cu",
@@ -1766,6 +2148,30 @@ def main() -> int:
         "library_ms": None, "chain_floor_ms": main_case["chain_floor_ms"],
         "pack_ms": main_case["pack_ms"],
         "cases": {**nms, **nav_checks["nms_keep"]}})
+    # the long-line instantiations: on no path's shapes, so no launches on
+    # the main path; their wide_lines launches beside
+    for name_, keys in LONG_CASES.items():
+        main_case = wide[keys[0]]
+        kernels.append({
+            "name": name_, "route": "cuda",
+            "source": "peanut_tpu_torch/kernels/csrc/fmm_long.cu",
+            "replaces": {"fused_eikonal_long":
+                         "peanut_tpu/kernels/fmm_fused.py:256",
+                         "block_sweep_long":
+                         "peanut_tpu/kernels/fmm_pallas.py:159",
+                         "block_sweep2_long":
+                         "peanut_tpu/kernels/fmm_pallas.py:298"}[name_],
+            "launches": serve_launches["serve_16"][name_],
+            "launches_note": "lines past the shared-memory kernels only; "
+                             "wide_lines's count beside",
+            "launches_wide_lines": wide["long_launches"][name_],
+            "max_abs_err": max(wide[k]["max_abs_err"] for k in keys),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": None,
+            "cases": {k: {kk: wide[k][kk] for kk in
+                          ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                           "bit_equal", "cluster")} for k in keys}})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",

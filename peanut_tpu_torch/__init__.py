@@ -10,15 +10,20 @@ Layering (bottom-up), as in the JAX package:
   kernels/    splat, grid-sample warp, morphology (torch built-ins), the
               eikonal solver, whose three TPU kernels are CUDA kernels
               here, ROIAlign window pooling and NMS (CUDA kernels)
-  models/     Mask R-CNN R101-FPN and PSPNet-R50-v1c
+  models/     Mask R-CNN R101-FPN and PSPNet-R50-v1c (train mode too),
+              the segmentation losses
   mapping/    per-step semantic map update
   perception/ depth preprocessing, ground-truth and Mask R-CNN segmenters
-  prediction/ the target-prediction model
+  prediction/ the target-prediction model; its training: map dataset and
+              augmentations (native/map_pipeline.cc through ctypes), the
+              train step, the iteration runner, evaluation metrics
   planning/   FMM planner host code, untrap state machine
   agent/      the single-env agent; batched ops + the batched
               parallel-episode runtime
-  envs/       synthetic environments + the batch runner
-  cli/        collect, collect_maps, eval
+  envs/       synthetic environments, the habitat adapter, the batch runner
+  core/       training checkpoints
+  utils/      stage timer, drawing, the episode dashboard, logger hooks
+  cli/        collect, collect_maps, eval, train_prediction_model, test
 
 Device rule: entry points take ``device=``; left unset they run on ``cuda``
 and raise when there is no card.  Nothing moves to the CPU by itself.

@@ -87,6 +87,9 @@ class PeanutAgent:
         obs = self._preprocess_obs(observations["rgb"], observations["depth"],
                                    goal_cat=goal)
         info["goal_cat_id"] = goal
+        if self.cfg.visualize:
+            self.planner.rgb_vis = np.asarray(
+                observations["rgb"], np.uint8)[:, :, ::-1]
 
         if self.first_obs:
             self.agent_state.init_with_obs(obs, info)

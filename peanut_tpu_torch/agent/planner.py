@@ -36,10 +36,6 @@ class MotionPlanner:
         """device: where the FMM solves run (``resolve_device``: the card
         unless ``"cpu"``); ``timer`` records each solve as ``plan_solve``
         (a fresh one if unset)."""
-        if cfg.visualize:
-            raise NotImplementedError(
-                "visualize != 0 needs the episode visualizer "
-                "(utils/visualization.py, cv2), not ported yet (ROADMAP A11)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.timer = timer if timer is not None else StageTimer()
@@ -70,6 +66,13 @@ class MotionPlanner:
         # stay away from the map edge (agent_helper.py:99)
         self.edge_buffer = 10 if cfg.num_sem_categories <= 16 else 40
 
+        if cfg.visualize:
+            from ..utils.visualization import EpisodeVisualizer
+            self.vis = EpisodeVisualizer(cfg)
+        else:
+            self.vis = None
+        self.rgb_vis = None
+
     def reset(self):
         cfg = self.cfg
         map_shape = (self.map_size, self.map_size)
@@ -88,6 +91,8 @@ class MotionPlanner:
         self.forward_after_stop = self.forward_after_stop_preset
         self.goal_name = None
         self.info: Dict = {}
+        if self.vis is not None:
+            self.vis.reset()
 
     # ------------------------------------------------------------------
     def plan_act(self, planner_inputs: Dict) -> Dict:
@@ -96,6 +101,16 @@ class MotionPlanner:
         self.timestep += 1
         self.goal_name = planner_inputs.get("goal_name")
         action = self._plan(planner_inputs)
+        if self.vis is not None and self.rgb_vis is not None:
+            st = self.agent_state
+            frame = self.vis.render(
+                planner_inputs, self.rgb_vis, self.collision_map,
+                self.visited_vis, self.stg,
+                target_pred=getattr(st, "target_pred", None),
+                value=getattr(st, "value", None),
+                dd_wt=getattr(st, "dd_wt", None),
+                goal_name=self.goal_name or "")
+            self.vis.show_or_dump(frame)
         self.last_action = action
         return {"action": action}
 

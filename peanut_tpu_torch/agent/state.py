@@ -184,6 +184,15 @@ class NavAgentState:
             "new_goal": 1,
             "found_goal": 0,
         }
+        if self.cfg.visualize:
+            self.planner_inputs["sem_map_pred"] = self._sem_map_vis()
+
+    def _sem_map_vis(self):
+        """The local map's semantic argmax for the dashboard (the last
+        channel nearly 0, so empty cells take it)."""
+        vlm = self.local_map[4:].copy()
+        vlm[-1] = 1e-5
+        return vlm.argmax(0)
 
     # ------------------------------------------------------------------
     def update_state(self, obs, info: Dict) -> Dict:
@@ -221,6 +230,8 @@ class NavAgentState:
             "found_goal": self.found_goal,
             "goal_name": info["goal_name"],
         }
+        if cfg.visualize:
+            p_input["sem_map_pred"] = self._sem_map_vis()
 
         self.inc_step()
         return p_input

@@ -2,9 +2,10 @@
 PEANUT's nav/collect.py).
 
 Same CLI flags and stdout format (per-episode metrics + running Success/SPL
-averages).  ``--fake_env 1`` runs the synthetic environment; the habitat
-adapter is not ported (ROADMAP A11).  ``main`` and ``run_batched`` run on
-the card unless given ``device="cpu"``.
+averages).  ``--fake_env 1`` runs the synthetic environment, ``--fake_env
+0`` habitat through ``envs/habitat_adapter.py`` (inside the habitat image;
+elsewhere building it raises ImportError).  ``main`` and ``run_batched``
+run on the card unless given ``device="cpu"``.
 
     python -m peanut_tpu_torch.cli.collect --fake_env 1 --num_episodes 1 \\
         --seg_model_wts <mask_rcnn.pth> --pred_model_wts <pspnet.pth>
@@ -28,9 +29,8 @@ def make_env(cfg: NavConfig, fake: bool, seed: int = None):
     if fake:
         from ..envs import FakeNavEnv
         return FakeNavEnv(cfg, seed=seed)
-    raise NotImplementedError(
-        "--fake_env 0 needs the habitat adapter (envs/habitat_adapter.py), "
-        "not ported yet (ROADMAP A11)")
+    from ..envs.habitat_adapter import HabitatEnvAdapter
+    return HabitatEnvAdapter(cfg, split="val", seed=seed)
 
 
 def main(argv=None, device=None):
@@ -100,7 +100,7 @@ def run_batched(cfg: NavConfig, ns, device=None):
         if ns.fake_env:
             from ..envs import FakeNavEnv
             return lambda: FakeNavEnv(cfg, seed=100 + i)
-        return lambda: make_env(cfg, False)
+        return lambda: make_env(cfg, False, seed=100 + i)
 
     pm = PredictionModel(cfg, device=device) if cfg.only_explore == 0 \
         else None

@@ -46,6 +46,57 @@ __device__ __forceinline__ float godunov(float a, float b) {
   return one_axis ? direct : both;
 }
 
+// ---- second-order update (fmm.py::_axis_ab, _godunov2, _pick_dir): the
+// three multiply-adds of _godunov2 round once (fma1), the other products
+// are __fmul_rn so nvcc cannot contract them ------------------------------
+
+constexpr float INV_15 = 0x1.555556p-1f;       // float32(2/3)
+constexpr float INV_A_BOTH15 = 0x1.c71c72p-3f; // float32(1/4.5)
+constexpr float INV_A_ONE15 = 0x1.3b13b2p-2f;  // float32(1/3.25)
+
+struct AxisAB {
+  float alpha, beta, inv;
+  bool known;
+};
+
+__device__ __forceinline__ AxisAB axis_ab(float u1, float u2) {
+  AxisAB r;
+  r.known = u1 < HALF_BIG;
+  bool use2 = r.known && (u2 < HALF_BIG) && (u2 <= u1);
+  r.alpha = r.known ? (use2 ? 1.5f : 1.0f) : 0.0f;
+  r.beta = r.known ? (use2 ? (__fmul_rn(4.0f, u1) - u2) * 0.5f : u1) : 0.0f;
+  r.inv = use2 ? INV_15 : 1.0f;
+  return r;
+}
+
+__device__ __forceinline__ float godunov2(float u1x, float u2x, float u1y,
+                                          float u2y) {
+  AxisAB x = axis_ab(u1x, u2x), y = axis_ab(u1y, u2y);
+  float c1x = x.known ? (1.0f + x.beta) * x.inv : BIG;
+  float c1y = y.known ? (1.0f + y.beta) * y.inv : BIG;
+  float one_d = fminf(c1x, c1y);
+  float A = __fmul_rn(x.alpha, x.alpha) + __fmul_rn(y.alpha, y.alpha);
+  float B = fma1(x.alpha, x.beta, __fmul_rn(y.alpha, y.beta));
+  float C = fma1(x.beta, x.beta, __fmul_rn(y.beta, y.beta)) - 1.0f;
+  float disc = fma1(B, B, -__fmul_rn(A, C));
+  bool xi = x.inv != 1.0f, yi = y.inv != 1.0f;
+  float invA = (xi && yi) ? INV_A_BOTH15 : ((xi != yi) ? INV_A_ONE15 : 0.5f);
+  float u2d = (B + sqrtf(fmaxf(disc, 0.0f))) * invA;
+  bool ok = (disc >= 0.0f) && x.known && y.known &&
+            (x.alpha * u2d >= x.beta) && (y.alpha * u2d >= y.beta);
+  return fminf(ok ? u2d : one_d, BIG);
+}
+
+// Mirror-invariant upwind choice; writes the chosen (u1, u2).
+__device__ __forceinline__ void pick_dir(float n1, float n2, float p1,
+                                         float p2, float* u1, float* u2) {
+  float eff_n = n2 <= n1 ? n2 : -BIG;
+  float eff_p = p2 <= p1 ? p2 : -BIG;
+  bool use_n = (n1 < p1) || ((n1 == p1) && (eff_n >= eff_p));
+  *u1 = use_n ? n1 : p1;
+  *u2 = use_n ? n2 : p2;
+}
+
 // ---- cluster sweeps ------------------------------------------------------
 //
 // A cluster of C blocks solves one grid; block `rank` owns the segment

@@ -78,7 +78,8 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
     size unless ``cluster`` forces one; no fallback.  Rows too wide for
     scan_chunk ghost rows a side in a block's shared memory (over ~1600
     cells at block 8, scan_chunk 4) run with fewer (the plan's ``ghosts``);
-    grids over 4096 cells wide or tall raise ValueError."""
+    grids over 4096 cells wide or tall (a long plan) launch
+    ``fmm_long.fused_eikonal_long`` instead."""
     if not traversible.is_cuda:
         return fused_eikonal_reference(traversible, sources, rounds=rounds,
                                        block=block, inner=inner,
@@ -95,6 +96,10 @@ def fused_eikonal(traversible: torch.Tensor, sources: torch.Tensor,
     plan = launch_plan(1, traversible, block, cluster, fused_chunk=scan_chunk)
     trav = (traversible > 0).to(torch.uint8).contiguous()
     src = (sources > 0).to(torch.uint8).contiguous()
+    if plan.long:
+        from .fmm_long import fused_eikonal_long
+        return fused_eikonal_long(trav, src, rounds, block, inner,
+                                  scan_chunk, vscan, plan.cluster)
     out = torch.empty((bsz, h, w), dtype=torch.float32,
                       device=traversible.device)
     if bsz:

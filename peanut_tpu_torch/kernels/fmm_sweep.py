@@ -17,7 +17,11 @@ scans need whole rows) a segment of each row block's rows.  ``sweep_plan``
 picks C and the segments from the shape and how many clusters the card
 holds at once; the wrappers query that count (``resident_clusters``) and
 hand the plan to the kernel.  A block holds its SM alone
-(``csrc/fmm_common.cuh::reserved_smem``).
+(``csrc/fmm_common.cuh::reserved_smem``).  Where no cluster size holds
+the grids' lines (order-1 lines over MAX_W1 cells, rows past the shared
+memory of every cluster size), the plan is ``long``: the wrappers launch
+the long-line instantiation of the same kernel (``fmm_long``), whose row
+block's buffers live in global memory.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ CLUSTER_SIZES = (16, 8, 6, 4, 2, 1)
 MIN_SEG = 16          # the plan splits a row no finer than this
 SMEM_LIMIT = 231424   # 227 KB a block, less 1 KB for static shared memory
 MAX_W1 = 4096         # order 1 (and B1) scans lines of at most 128 chunks
+MAX_LONG_BLOCK = 64   # the long-line kernels' tallest row block
+LONG_CELLS = 2048     # cells of a step a block of the long-line kernels takes
 VSCAN_COLS = 16       # columns the fused solve stages for its column scans
 WARPS = 16            # warps a block (csrc/fmm_common.cuh: SWEEP_NT / 32)
 XCH_BYTES = 1024 * 4  # one slot of a warp group's exchange
@@ -65,13 +71,16 @@ class SweepPlan:
     block q owns its rows [q * seg, q * seg + widths[q]) (of a full row
     block; a ragged last one leaves the later blocks fewer or none).
     ``smem_bytes`` of dynamic shared memory a block (a fused solve's plan
-    is order 1's split with the layout of ``csrc/fmm_fused.cu``)."""
+    is order 1's split with the layout of ``csrc/fmm_fused.cu``).  A
+    ``long`` plan launches ``csrc/fmm_long.cu``: its ``cluster`` blocks
+    share every step's cells, with no segments and no shared memory."""
     order: int
     cluster: int
     seg: int
     widths: Tuple[int, ...]
     smem_bytes: int
     ghosts: int = 0    # a fused block's ghost rows a side (0: a sweep)
+    long: bool = False
 
 
 def _scan_pitches(w: int) -> Tuple[int, int]:
@@ -128,12 +137,14 @@ def _layout(order: int, w: int, block: int, cluster: int,
             fused: Optional[Tuple[int, int]] = None) -> Optional[SweepPlan]:
     """The plan for ``cluster`` blocks, or None where it cannot run: a
     block left without columns (rows, order 1), a segment narrower than
-    order 2's two halo columns, or more shared memory than a block has
-    (``sweep_plan`` turns away order-1 lines over MAX_W1 cells first).  A
-    fused solve holds min(scan_chunk, block) ghost rows a side where they
-    fit; rows over 1024 cells that leave no room for them get the most
-    that fit (at least one), and their blocks refresh them every that many
-    passes, one more cluster barrier each."""
+    order 2's two halo columns, more shared memory than a block has, or
+    an order-1 line (a fused solve's rows or columns) over MAX_W1 cells.
+    A fused solve holds min(scan_chunk, block) ghost rows a side where
+    they fit; rows over 1024 cells that leave no room for them get the
+    most that fit (at least one), and their blocks refresh them every that
+    many passes, one more cluster barrier each."""
+    if order == 1 and max(w, fused[0] if fused else 0) > MAX_W1:
+        return None
     n = block if order == 1 else w        # what the blocks split
     seg = -(-n // cluster)
     if -(-n // seg) != cluster or (order == 2 and cluster > 1 and seg < 2):
@@ -166,7 +177,8 @@ def sweep_plan(order: int, b: int, w: int, block: int,
     ceil(w / C) >= MIN_SEG (so C = 1 for rows under 2 x MIN_SEG cells, too
     little work to spread) whose layout fits and whose ``b`` clusters are
     all resident; if none is, the smallest C that fits, since the grids
-    then queue anyway.  ``cluster`` forces C.
+    then queue anyway.  ``cluster`` forces C.  Where no C fits, the long
+    plan (``_long_plan``) for blocks of up to MAX_LONG_BLOCK rows.
     """
     if order not in (1, 2) or (fused is not None and order != 1):
         raise ValueError(f"order 1 or 2 (1 for a fused solve), got {order}")
@@ -176,11 +188,6 @@ def sweep_plan(order: int, b: int, w: int, block: int,
     if fused is not None and (fused[0] < 1 or fused[1] < 1):
         raise ValueError(f"a fused solve of >= 1 rows and a scan_chunk "
                          f">= 1, got (H, scan_chunk) = {fused}")
-    line = max(w, fused[0] if fused else 0)
-    if order == 1 and line > MAX_W1:
-        raise ValueError(f"order-1 kernels scan lines (rows, and a fused "
-                         f"solve's columns) of at most {MAX_W1} cells, "
-                         f"got {line}")
     if cluster is not None:
         plan = (_layout(order, w, block, cluster, fused)
                 if cluster in CLUSTER_SIZES else None)
@@ -190,27 +197,63 @@ def sweep_plan(order: int, b: int, w: int, block: int,
                              f"blocks (a block without rows or columns, or "
                              f"past its shared memory)")
         return plan
-    plans = [p for p in (_layout(order, w, block, c, fused)
-                         for c in CLUSTER_SIZES
-                         if c == 1 or -(-w // c) >= MIN_SEG) if p]
+    plans = _plans(order, w, block, fused)
     if not plans:
-        raise ValueError(f"rows of {w} cells in {block}-row blocks exceed "
-                         f"the order-{order} kernel's shared memory "
-                         f"({SMEM_LIMIT} bytes a block) at every cluster "
-                         f"size")
+        if block > MAX_LONG_BLOCK:
+            raise ValueError(f"rows of {w} cells in {block}-row blocks "
+                             f"exceed the order-{order} kernel's shared "
+                             f"memory ({SMEM_LIMIT} bytes a block) at every "
+                             f"cluster size, and the long-line kernels take "
+                             f"blocks of at most {MAX_LONG_BLOCK} rows")
+        return _long_plan(order, b, w, block, resident, fused)
     for p in plans:
         if b <= resident.get(p.cluster, 0):
             return p
     return plans[-1]
 
 
+def _long_plan(order: int, b: int, w: int, block: int,
+               resident: Mapping[int, int],
+               fused: Optional[Tuple[int, int]] = None) -> SweepPlan:
+    """The long-line kernels' plan: a block for every LONG_CELLS cells of
+    the largest step (a row block, or a fused solve's whole grid, which
+    its column scans step over), up to 16; of those sizes the largest
+    whose ``b`` clusters are all resident (``resident`` read for the
+    long-line kernels), else the smallest."""
+    cells = max(block * w, fused[0] * w if fused else 0)
+    sizes = [c for c in CLUSTER_SIZES if c * LONG_CELLS <= cells] or [1]
+    pick = next((c for c in sizes if b <= resident.get(c, 0)), sizes[-1])
+    return SweepPlan(order, pick, 0, (), 0, long=True)
+
+
+def _plans(order: int, w: int, block: int,
+           fused: Optional[Tuple[int, int]] = None) -> list:
+    """The shared-memory kernel's plans at each C that leaves segments of
+    at least MIN_SEG cells (or C = 1), largest C first."""
+    return [p for p in (_layout(order, w, block, c, fused)
+                        for c in CLUSTER_SIZES
+                        if c == 1 or -(-w // c) >= MIN_SEG) if p]
+
+
+def needs_long(order: int, w: int, block: int,
+               fused: Optional[Tuple[int, int]] = None) -> bool:
+    """No cluster size of the shared-memory kernel holds these lines."""
+    return not _plans(order, w, block, fused)
+
+
 @functools.lru_cache(maxsize=None)
 def _resident(order: int, w: int, block: int, cluster: int, device: int,
-              fused: Optional[Tuple[int, int]] = None) -> int:
+              fused: Optional[Tuple[int, int]] = None,
+              long: bool = False) -> int:
+    out = ctypes.c_int(0)
+    if long:
+        from .fmm_long import _lib as lib_long
+        with torch.cuda.device(device):
+            err = lib_long().long_max_clusters(cluster, ctypes.byref(out))
+        return out.value if err == 0 else 0
     plan = _layout(order, w, block, cluster, fused)
     if plan is None:
         return 0
-    out = ctypes.c_int(0)
     with torch.cuda.device(device):
         if fused is not None:
             from .fmm_fused import _lib as lib_fused
@@ -228,12 +271,14 @@ def _resident(order: int, w: int, block: int, cluster: int, device: int,
 
 
 def resident_clusters(order: int, w: int, block: int, device=None,
-                      fused: Optional[Tuple[int, int]] = None) -> dict:
+                      fused: Optional[Tuple[int, int]] = None,
+                      long: bool = False) -> dict:
     """{C: clusters of C blocks the card holds at once}, queried with
-    cudaOccupancyMaxActiveClusters on the kernel at each C's layout."""
+    cudaOccupancyMaxActiveClusters on the kernel at each C's layout (with
+    ``long``, on the long-line kernels)."""
     dev = torch.device(device if device is not None else "cuda")
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    return {c: _resident(order, w, block, c, idx, fused)
+    return {c: _resident(order, w, block, c, idx, fused, long)
             for c in CLUSTER_SIZES}
 
 
@@ -244,9 +289,10 @@ def launch_plan(order: int, d: torch.Tensor, block: int,
     ``fused_chunk`` (its scan_chunk), for a fused solve of them."""
     bsz, h, w = d.shape
     fused = None if fused_chunk is None else (h, fused_chunk)
+    long = cluster is None and needs_long(order, w, block, fused)
     return sweep_plan(order, bsz, w, block,
-                      resident_clusters(order, w, block, d.device, fused),
-                      cluster, fused)
+                      resident_clusters(order, w, block, d.device, fused,
+                                        long), cluster, fused)
 
 
 def cluster_barrier_us(cluster: int, grids: int = 1, n: int = 20000,
@@ -304,7 +350,8 @@ def block_sweep(d: torch.Tensor, wall: torch.Tensor, reverse: bool = False,
                 cluster: Optional[int] = None) -> torch.Tensor:
     """One directed first-order sweep of CUDA (B, H, W) grids, one kernel
     launch (``block_sweep.launches`` counts them) with ``launch_plan``'s
-    cluster size unless ``cluster`` forces one.  d: float32; wall: bool or
+    cluster size unless ``cluster`` forces one; a long plan launches
+    ``fmm_long.block_sweep_long`` instead.  d: float32; wall: bool or
     uint8.  Returns a new field."""
     _check_grids("block_sweep", d, wall)
     if block < 1 or inner < 0 or scan_chunk < 1 or inner % scan_chunk:
@@ -313,6 +360,10 @@ def block_sweep(d: torch.Tensor, wall: torch.Tensor, reverse: bool = False,
                          f"inner={inner}, scan_chunk={scan_chunk}")
     bsz, h, w = d.shape
     plan = launch_plan(1, d, block, cluster)
+    if plan.long:
+        from .fmm_long import block_sweep_long
+        return block_sweep_long(d, wall, reverse, block, inner, scan_chunk,
+                                plan.cluster)
     d_in = d.contiguous()
     wl = wall.to(torch.uint8).contiguous()
     out = torch.empty_like(d_in)
@@ -372,13 +423,18 @@ def block_sweep2(d: torch.Tensor, wall: torch.Tensor, src: torch.Tensor,
                  cluster: Optional[int] = None) -> torch.Tensor:
     """One directed second-order sweep of CUDA (B, H, W) grids, one kernel
     launch (``block_sweep2.launches`` counts them) with ``launch_plan``'s
-    cluster size unless ``cluster`` forces one.  d: float32; wall, src:
-    bool or uint8.  Returns a new field."""
+    cluster size unless ``cluster`` forces one; a long plan launches
+    ``fmm_long.block_sweep2_long`` instead.  d: float32; wall, src: bool
+    or uint8.  Returns a new field."""
     _check_grids("block_sweep2", d, wall, src)
     if block < 2 or inner < 0:
         raise ValueError("block >= 2 and inner >= 0")
     bsz, h, w = d.shape
     plan = launch_plan(2, d, block, cluster)
+    if plan.long:
+        from .fmm_long import block_sweep2_long
+        return block_sweep2_long(d, wall, src, reverse, block, inner,
+                                 plan.cluster)
     d_in = d.contiguous()
     wl = wall.to(torch.uint8).contiguous()
     sr = src.to(torch.uint8).contiguous()

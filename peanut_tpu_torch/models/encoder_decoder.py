@@ -4,8 +4,10 @@
 PEANUT's in-tree change to mmseg's EncoderDecoder (encoder_decoder.py:248,
 262-271) returns **raw logits** resized to the input instead of an argmax;
 the agent applies the sigmoid itself for multi-label probability maps.
-``forward`` runs NCHW; ``inference`` keeps the JAX package's NHWC layout at
-its boundary.  Slide inference and the zoo's other parts are ROADMAP A13.
+``forward`` runs NCHW, in eval or (``train=True``, the train step) train
+mode, with the auxiliary head's logits on request; ``inference`` keeps the
+JAX package's NHWC layout at its boundary.  Slide inference and the zoo's
+other parts are ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from .resnet import ResNetV1c
 BACKBONES = {"ResNetV1c": ResNetV1c}
 HEADS = {"PSPHead": PSPHead, "FCNHead": FCNHead}
 # config keys of the JAX package's modules that inference does not read
-_IGNORED = ("type", "norm_cfg", "pretrained", "loss_decode", "remat",
-            "norm_eval", "style", "dropout_ratio", "align_corners")
+_IGNORED = ("type", "norm_cfg", "pretrained", "loss_decode", "norm_eval",
+            "style", "align_corners")
 
 
 def _build(registry: Dict[str, type], cfg: Dict[str, Any]) -> nn.Module:
@@ -59,11 +61,27 @@ class EncoderDecoder(nn.Module):
                                if auxiliary_head else None)
         if seed is not None:
             init_flax_random(self, torch.Generator().manual_seed(seed))
+        self.eval()      # built for serving; forward(train=True) trains
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        """(B, C, H, W) -> (B, num_classes, H, W) raw logits."""
-        logits = self.decode_head(self.backbone(img))
-        return resize_nchw(logits, img.shape[-2:])
+    def forward(self, img: torch.Tensor, train: Optional[bool] = None,
+                with_aux: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """(B, C, H, W) -> (B, num_classes, H, W) raw logits resized to the
+        input, and the auxiliary head's alike with ``with_aux`` (a pair).
+        ``train``: first switch the module to train mode (batch-statistics
+        BN that updates its running averages, dropout from ``generator``)
+        or eval mode, as ``.train(train)`` does; the mode holds after the
+        call, since a ``remat`` backward recomputes in it.  Unset, the
+        module's mode."""
+        if train is not None:
+            self.train(train)
+        feats = self.backbone(img)
+        hw = img.shape[-2:]
+        logits = resize_nchw(self.decode_head(feats, generator), hw)
+        if with_aux and self.auxiliary_head is not None:
+            return logits, resize_nchw(self.auxiliary_head(feats, generator),
+                                       hw)
+        return logits
 
     def inference(self, img: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) -> (B, H, W, num_classes) raw logits, the JAX

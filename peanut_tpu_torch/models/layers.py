@@ -5,37 +5,99 @@
 wrapper does, so a d2 state dict (``...conv1.weight``, ``...conv1.norm.*``)
 loads through ``load_state_dict``; ``ConvModule`` is mmcv's conv + BN + ReLU
 unit (``...conv.weight``, ``...bn.*``) for the mmseg models.  ``BatchNorm``
-is the frozen batch norm of inference: eps 1e-5, weight, bias and running
-statistics as buffers.
+is flax's ``nn.BatchNorm`` (eps 1e-5, momentum 0.9): in eval mode the
+frozen batch norm of inference, in train mode batch statistics and a
+running-average update.  ``remat`` runs a block under
+``torch.utils.checkpoint`` as ``nn.remat`` does in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9     # flax's: running = 0.9 * running + 0.1 * batch
+
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_remat, "active", False)
+    _remat.active = True
+    try:
+        yield
+    finally:
+        _remat.active = prev
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` wraps a
+    residual block in the JAX package.  The recomputation runs with a
+    flag set that keeps train-mode batch norms from updating their
+    running statistics a second time (``nn.remat`` updates them once)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
 
 
 class BatchNorm(nn.Module):
-    """Frozen BatchNorm2d: (x - mean) * (rsqrt(var + eps) * weight) + bias,
-    the order of flax's BatchNorm with running averages."""
+    """BatchNorm2d as flax's ``nn.BatchNorm``: (x - mean) * (rsqrt(var +
+    eps) * weight) + bias.  Eval mode: the running statistics (frozen, the
+    serving path).  Train mode: the batch's mean over (N, H, W) and its
+    biased variance E[x^2] - E[x]^2 clipped at 0 (flax's
+    ``use_fast_variance``), and running = 0.9 * running + 0.1 * batch for
+    both, the biased variance included (``nn.BatchNorm2d`` would average
+    the unbiased one); not again while ``remat`` recomputes.  ``weight``
+    and ``bias`` are parameters that need no gradient until a trainer asks
+    for one (``requires_grad_``); the running statistics are buffers.  A
+    new one is in eval mode, as every model of the port starts (serving
+    builds them): only an explicit ``.train()`` switches it."""
 
     def __init__(self, num_features: int):
         super().__init__()
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(num_features),
+                                 requires_grad=False)
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.train(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train(x)
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            return ((x - self.running_mean[:, None, None])
+                    * mul[:, None, None] + self.bias[:, None, None])
         mean, mul, bias = self._terms()
         return (x - mean) * mul + bias
+
+    def _train(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        if not getattr(_remat, "active", False):
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None]).to(x.dtype)
 
     def _terms(self):
         """(mean, rsqrt(var + eps) * weight, bias) as (C, 1, 1), kept until

@@ -7,8 +7,11 @@ convert_encoder_decoder_state`` key for key, as the JAX package's
 ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` -> ``weight``/``bias``
 /``running_mean``/``running_var``.  It covers the ResNet/ResNetV1c
 backbones, PSPHead and FCNHead, takes numpy arrays (or anything
-``np.asarray`` reads) and raises on any variable it does not convert.  It
-is how weights move between the two packages.
+``np.asarray`` reads; float64 stays float64, anything else becomes
+float32) and raises on any variable it does not convert.  It
+is how weights move between the two packages.  ``flax_train_state_to_torch``
+moves a whole training state: the variables into the model, optax Adam's
+moments and count into a ``torch.optim.Adam`` over it, and the step.
 """
 
 from __future__ import annotations
@@ -101,13 +104,46 @@ def flax_to_mmseg_state(variables: Mapping[str, Any]
             if name is None or name in sd:
                 left.append("/".join((col,) + path))
                 continue
-            arr = np.asarray(value, np.float32)
+            arr = np.asarray(value)
+            if arr.dtype != np.float64:
+                arr = arr.astype(np.float32)
             if arr.ndim == 4:
                 arr = arr.transpose(_CONV_T)
             sd[name] = np.ascontiguousarray(arr)
     if left:
         raise KeyError(f"Unconverted flax variables: {left[:8]}")
     return sd
+
+
+def flax_train_state_to_torch(tree: Mapping[str, Any],
+                              model: torch.nn.Module,
+                              optimizer: torch.optim.Adam) -> int:
+    """A JAX ``prediction.train.TrainState`` held as numpy trees --
+    {"step", "params", "batch_stats", "mu", "nu", "count"} with ``mu``,
+    ``nu`` and ``count`` from optax Adam's ``ScaleByAdamState`` -- into
+    ``model`` (its parameters and running statistics) and ``optimizer``
+    (each parameter's ``exp_avg``, ``exp_avg_sq`` and ``step``), which
+    must be a ``torch.optim.Adam`` over ``model.parameters()``.  Returns
+    the step, for the port's ``TrainState``.  The moments go through
+    ``flax_to_mmseg_state`` like the parameters they belong to."""
+    load_mmseg_state(model, flax_to_mmseg_state(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]}))
+    mu = flax_to_mmseg_state({"params": tree["mu"]})
+    nu = flax_to_mmseg_state({"params": tree["nu"]})
+    count = float(np.asarray(tree["count"]))
+    params = dict(model.named_parameters())
+    if set(params) != set(mu) or set(mu) != set(nu):
+        raise KeyError(f"Adam moments do not match the model's parameters: "
+                       f"{sorted(set(params) ^ set(mu))[:8]}")
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in params.items():
+        if id(p) not in owned:
+            raise ValueError(f"{name} is not a parameter of the optimizer")
+        optimizer.state[p] = {
+            "step": torch.tensor(count),
+            "exp_avg": torch.tensor(mu[name]).to(p),
+            "exp_avg_sq": torch.tensor(nu[name]).to(p)}
+    return int(np.asarray(tree["step"]))
 
 
 def load_mmseg_checkpoint(path: str) -> Dict[str, np.ndarray]:

@@ -23,10 +23,11 @@ def build_segmentor(cfg: Dict[str, Any],
     return EncoderDecoder(**cfg, seed=seed)
 
 
-def peanut_prediction_config(in_channels: int = 14,
-                             num_classes: int = 6) -> Dict[str, Any]:
+def peanut_prediction_config(in_channels: int = 14, num_classes: int = 6,
+                             remat: bool = False) -> Dict[str, Any]:
     """The PEANUT target-prediction model config (nav/pred_model_cfg.py:
-    2-42)."""
+    2-42).  ``remat`` recomputes the backbone's blocks in backward, as the
+    trainer runs the batch-8, crop-960 recipe."""
     return dict(
         type="EncoderDecoder",
         backbone=dict(
@@ -38,6 +39,7 @@ def peanut_prediction_config(in_channels: int = 14,
             strides=(1, 2, 1, 1),
             contract_dilation=True,
             in_channels=in_channels,
+            remat=remat,
         ),
         decode_head=dict(
             type="PSPHead",

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv2d
+from .layers import BatchNorm, Conv2d, remat
 
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -113,14 +113,18 @@ class V1cBottleneck(nn.Module):
 
 
 class ResNetV1c(nn.Module):
-    """Returns the stages of ``out_indices`` of NCHW inputs."""
+    """Returns the stages of ``out_indices`` of NCHW inputs.  ``remat``
+    recomputes each residual block's activations in backward (JAX
+    resnet.py's ``nn.remat`` of a block): stage-boundary activation memory
+    for about 1.3x the step's operations."""
 
     def __init__(self, depth: int = 50, in_channels: int = 3,
                  stem_channels: int = 64, base_channels: int = 64,
                  num_stages: int = 4, strides=(1, 2, 2, 2),
                  dilations=(1, 1, 1, 1), out_indices=(0, 1, 2, 3),
-                 contract_dilation: bool = False):
+                 contract_dilation: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if depth not in STAGE_BLOCKS:
             raise ValueError(f"ResNetV1c depth {depth}: only the bottleneck "
                              f"depths {sorted(STAGE_BLOCKS)}")
@@ -152,8 +156,10 @@ class ResNetV1c(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = F.max_pool2d(self.stem(x), 3, 2, 1)
         outs = []
+        rematted = self.remat and torch.is_grad_enabled()
         for i in range(self.num_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = remat(block, x) if rematted else block(x)
             if i in self.out_indices:
                 outs.append(x)
         return outs

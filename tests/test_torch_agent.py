@@ -117,8 +117,21 @@ def test_segmenter_host_call_equals_device_path():
         np.testing.assert_array_equal(a, b)
 
 
-def test_visualize_raises_naming_its_roadmap_item():
-    cfg = NavConfig(**dataclasses.asdict(small_cfg(visualize=2,
-                                                   only_explore=1)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        PeanutAgent(cfg, device="cpu")
+def test_visualize_raises_naming_its_roadmap_item(tmp_path):
+    """visualize=2 was ROADMAP A11's and raised; ported, an episode dumps
+    one dashboard frame a step (tests/test_torch_env_and_vis.py holds the
+    frames against the JAX package's)."""
+    import glob
+
+    cfg = NavConfig(**dataclasses.asdict(small_cfg(
+        visualize=2, only_explore=1, switch_step=999,
+        dump_location=str(tmp_path))))
+    agent = PeanutAgent(cfg, device="cpu")
+    env = FakeNavEnv(cfg, seed=0, max_steps=3)
+    obs = env.reset()
+    agent.reset()
+    while not env.episode_over:
+        obs = env.step(agent.act(obs)["action"])
+    frames = glob.glob(str(tmp_path / "dump" / "**" / "*.jpg"),
+                       recursive=True)
+    assert len(frames) == 3

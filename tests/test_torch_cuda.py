@@ -25,7 +25,7 @@ import torch
 from peanut_tpu_torch.kernels import fmm
 from peanut_tpu_torch.kernels.fmm_fused import (fused_eikonal,
                                                 fused_eikonal_reference)
-from peanut_tpu_torch.kernels import fmm_sweep
+from peanut_tpu_torch.kernels import fmm_long, fmm_sweep
 from peanut_tpu_torch.kernels.fmm_sweep import (block_sweep,
                                                 block_sweep2,
                                                 block_sweep2_reference,
@@ -148,14 +148,13 @@ def test_fused_eikonal_carry_isolated_between_grids(cuda):
 def test_fused_eikonal_takes_lines_past_1024(cuda):
     """Rows and columns of 1025 cells solve, bit-equal to the plain
     version, and so do rows too wide for scan_chunk ghost rows a side and
-    lines over 2048 cells; lines over 4096 cells raise, saying so."""
+    lines over 2048 cells; lines over 4096 cells too, through the
+    long-line kernel."""
     for shape in ((1, 16, 1025), (1, 1025, 16), (1, 16, 1700),
-                  (1, 2049, 16)):
+                  (1, 2049, 16), (1, 4097, 16)):
         trav, src = _grids(24, *shape, cuda)
         got = fused_eikonal(trav, src)
         assert torch.equal(got, fused_eikonal_reference(trav, src))
-    with pytest.raises(ValueError, match="4096 cells"):
-        fused_eikonal(*_grids(24, 1, 4097, 16, cuda))
     with pytest.raises(ValueError):      # not a cluster size
         fused_eikonal(*_grids(24, 1, 16, 64, cuda), cluster=3)
 
@@ -243,9 +242,54 @@ def test_block_sweep_rows_past_1024_equal_plain(cuda, w, reverse, cluster):
     want = block_sweep_reference(d, wall, reverse)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="4096 cells"):
-        block_sweep(torch.zeros(1, 16, 4097, device=cuda),
-                    torch.zeros(1, 16, 4097, dtype=torch.bool, device=cuda))
+    # past 4096 cells the long-line kernel
+    trav, src = _grids(26, 1, 16, 4097, cuda)
+    wall = ~trav & ~src
+    d = fmm._axis_relax(torch.where(src, 0.0, fmm.BIG).float(), wall)
+    assert torch.equal(block_sweep(d, wall, reverse),
+                       block_sweep_reference(d, wall, reverse))
+
+
+@pytest.mark.parametrize("kernel,shape,kw", [
+    ("B4", (1, 48, 8192), {}), ("B4", (1, 16, 40000), {}),
+    ("B4", (2, 37, 4100), dict(block=8, scan_chunk=4, reverse=True)),
+    ("B4", (3, 5, 4500), dict(block=16, inner=8)),
+    ("B1", (1, 4200, 24), dict(block=8, vscan=True)),
+    ("B1", (1, 16, 6000), dict(block=8, vscan=True)),
+    ("B1", (1, 300, 4100), dict(block=16, inner=40, rounds=2,
+                                vscan=False)),
+    ("B1", (3, 41, 4500), dict(block=8, inner=8, rounds=1, vscan=True)),
+    ("B2", (1, 16, 20000), {}), ("B2", (1, 37, 19281), dict(reverse=True)),
+    ("B2", (2, 20, 40000), dict(block=8, inner=8))])
+def test_long_line_kernels_equal_plain(cuda, kernel, shape, kw):
+    """Lines past the shared-memory kernels (order 1 over 4096 cells, B2
+    rows past its shared memory at C = 16) run through the long-line
+    kernels, one launch a call, bit-equal to the plain versions, ragged
+    row blocks and both directions included."""
+    trav, src = _grids(29, *shape, cuda)
+    wall = ~trav & ~src
+    kw = dict(kw)
+    reverse = kw.pop("reverse", False)
+    if kernel == "B1":
+        run = lambda: fused_eikonal(trav, src, **kw)        # noqa: E731
+        want = fused_eikonal_reference(trav, src, **kw)
+        counter = fmm_long.fused_eikonal_long
+    elif kernel == "B4":
+        d = fmm._axis_relax(torch.where(src, 0.0, fmm.BIG).float(), wall)
+        run = lambda: block_sweep(d, wall, reverse, **kw)   # noqa: E731
+        want = block_sweep_reference(d, wall, reverse, **kw)
+        counter = fmm_long.block_sweep_long
+    else:
+        d = torch.where(src, 0.0, fmm.BIG).float()
+        run = lambda: block_sweep2(d, wall, src, reverse, **kw)  # noqa
+        want = block_sweep2_reference(d, wall, src, reverse, **kw)
+        counter = fmm_long.block_sweep2_long
+    before = counter.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).sum() > 0
 
 
 @pytest.mark.parametrize("kernel,shape,kw", [
@@ -775,3 +819,48 @@ def test_serving_tick_with_prediction_on_the_card(cuda, profile):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     # the kernel run's goal solves launch B1 beside its planning solves
     assert runs[0][2] > runs[1][2] > 0
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One train step of the tiny PSPNet (base width 8, batch 2, crop 64,
+    dropout 0) from the same state on the card and the CPU, in float64:
+    loss within 1e-5 relative, gradients within 1e-4 of the largest
+    |gradient| (float32 gradients of this net are rounding-bound:
+    tests/test_torch_training.py); the running statistics move alike."""
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads)
+
+    def tiny_cfg():
+        cfg = peanut_prediction_config()
+        cfg["backbone"].update(base_channels=8, stem_channels=8)
+        cfg["decode_head"].update(in_channels=256, channels=64,
+                                  dropout_ratio=0.0)
+        cfg["auxiliary_head"].update(in_channels=128, channels=32,
+                                     dropout_ratio=0.0)
+        return cfg
+
+    rng = np.random.RandomState(10)
+    img = rng.rand(2, 14, 64, 64) * np.float64([1, 3])[:, None, None, None]
+    gt = (rng.rand(2, 6, 64, 64) > 0.9) * 255.0
+    tcfg = TrainConfig(lr=1e-3, max_iters=50)
+    out = {}
+    for where in ("cpu", cuda):
+        state = create_train_state(build_segmentor(tiny_cfg(), seed=0)
+                                   .double(), tcfg, device=where)
+        batch = {"img": torch.as_tensor(img, device=where),
+                 "gt": torch.as_tensor(gt, device=where)}
+        loss = float(loss_and_grads(state, batch, tcfg)["loss"])
+        out[str(where)] = (loss, {n: p.grad.cpu() for n, p in
+                                  state.model.named_parameters()},
+                           {k: v.cpu() for k, v in
+                            state.model.state_dict().items()})
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(cuda)]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    top = max(float(g.abs().max()) for g in gc.values())
+    for n in gc:
+        assert float((gg[n] - gc[n]).abs().max()) <= 1e-4 * top, n
+    for n in sc:
+        torch.testing.assert_close(sg[n], sc[n], rtol=1e-5, atol=1e-5)

@@ -55,7 +55,18 @@ def test_import_pulls_in_neither_jax_nor_peanut_tpu():
             "peanut_tpu_torch.models.mmseg_import",
             "peanut_tpu_torch.prediction.model",
             "peanut_tpu_torch.cli.collect", "peanut_tpu_torch.cli.collect_maps",
-            "peanut_tpu_torch.cli.eval"} <= set(_modules())
+            "peanut_tpu_torch.cli.eval",
+            "peanut_tpu_torch.kernels.fmm_long",
+            "peanut_tpu_torch.models.losses",
+            "peanut_tpu_torch.prediction.native",
+            "peanut_tpu_torch.prediction.dataset",
+            "peanut_tpu_torch.prediction.train",
+            "peanut_tpu_torch.prediction.runner",
+            "peanut_tpu_torch.prediction.metrics",
+            "peanut_tpu_torch.core.checkpoint",
+            "peanut_tpu_torch.utils.loggers",
+            "peanut_tpu_torch.cli.train_prediction_model",
+            "peanut_tpu_torch.cli.test"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -106,7 +117,8 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         MaskRCNNSegmenter(cfg, model=torch.nn.Module())
     from peanut_tpu_torch.agent import (MotionPlanner, NavAgentState,
                                         PeanutAgent)
-    from peanut_tpu_torch.cli import collect_maps
+    from peanut_tpu_torch.cli import collect_maps, train_prediction_model
+    from peanut_tpu_torch.cli import test as test_cli
     from peanut_tpu_torch.models.pspnet import build_segmentor
     from peanut_tpu_torch.prediction import PredictionModel
     tiny = dict(type="EncoderDecoder",
@@ -118,7 +130,9 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
                  lambda: MotionPlanner(cfg),
                  lambda: PredictionModel(cfg, model=build_segmentor(tiny)),
                  lambda: collect_maps.main(["--fake_env", "1",
-                                            "--num_episodes", "0"])):
+                                            "--num_episodes", "0"]),
+                 lambda: train_prediction_model.main(["--max_iters", "0"]),
+                 lambda: test_cli.main(["--checkpoint", "x.pth"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert PeanutAgent(cfg, device="cpu").agent_state.device.type == "cpu"

@@ -10,9 +10,10 @@ read them for an H100 at these layouts).
 
 import pytest
 
-from peanut_tpu_torch.kernels.fmm_sweep import (MAX_W1, MIN_SEG, SMEM_LIMIT,
-                                                SweepPlan, smem_bytes,
-                                                sweep_plan)
+from peanut_tpu_torch.kernels.fmm_sweep import (MAX_LONG_BLOCK, MAX_W1,
+                                                MIN_SEG, SMEM_LIMIT,
+                                                SweepPlan, needs_long,
+                                                smem_bytes, sweep_plan)
 
 # clusters of each size resident at once, as resident_clusters reads them
 # on an H100 (a block holds its SM alone; 8-block clusters fit 15 at once,
@@ -65,10 +66,7 @@ def test_segments_cover_every_column_once(order, w, cluster):
         p = sweep_plan(order, 1, w, 16, RESIDENT, cluster=cluster)
     except ValueError:
         # only where a block would own nothing, order 2's halo would reach
-        # past a neighbour, order 1's row is over 64 chunks, or shared
-        # memory runs out
-        if order == 1 and w > MAX_W1:
-            return
+        # past a neighbour, or shared memory runs out
         assert cluster is not None
         seg = -(-n // cluster)
         assert (-(-n // seg) != cluster or (order == 2 and seg < 2)
@@ -148,7 +146,7 @@ def test_the_plan_keeps_the_batch_resident():
     ((2, 1, 2, 16), {"cluster": 2}),          # halo past the neighbour
     ((2, 1, 1024, 400), {"cluster": 1}),      # shared memory
     ((1, 1, 960, 4000), {}),                  # too tall for any plan
-    ((1, 1, 4097, 16), {}),                   # order 1 past 128 chunks
+    ((1, 1, 4097, MAX_LONG_BLOCK + 1), {}),   # past the long kernels' block
 ])
 def test_shapes_the_kernels_do_not_take(args, kw):
     with pytest.raises(ValueError):
@@ -268,8 +266,9 @@ def test_fused_plan_keeps_the_batch_resident():
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((1, 1, 4097, 8), {"fused": (482, 4)}),    # rows over 4096 cells
-    ((1, 1, 482, 16), {"fused": (4097, 4)}),   # columns taller than 4096
+    # lines over 4096 cells (long) in blocks past the long kernels' rows
+    ((1, 1, 4097, MAX_LONG_BLOCK + 1), {"fused": (482, 4)}),
+    ((1, 1, 482, MAX_LONG_BLOCK + 1), {"fused": (4097, 4)}),
     ((1, 1, 2000, 16), {"fused": (2000, 4), "cluster": 1}),  # shared memory
     ((2, 1, 482, 16), {"fused": (482, 4)}),    # the fused solve is order 1
     ((1, 1, 482, 16), {"fused": (0, 4)}),      # no rows
@@ -298,8 +297,9 @@ def test_fused_plan_takes_lines_past_1024(b, h, w, block):
 def test_fused_plan_past_shared_memory_says_so():
     """Rows too wide for scan_chunk ghost rows a side in a block's shared
     memory get fewer (1608^2 at block 8: 3; 16 x 1700^2 at block 16: 2);
-    a plan that fits with none raises a ValueError that names shared
-    memory, and lines over 4096 cells name the line limit."""
+    a forced cluster size that fits with none raises a ValueError that
+    names shared memory, and lines over 4096 cells plan the long-line
+    kernel."""
     p = sweep_plan(1, 1, 1608, 8, RESIDENT, fused=(1608, 4))
     assert (p.cluster, p.seg, p.ghosts) == (8, 1, 3)
     assert smem_bytes(1, 1608, 8, 1, (1608, 4)) > SMEM_LIMIT
@@ -309,10 +309,9 @@ def test_fused_plan_past_shared_memory_says_so():
     assert p.smem_bytes <= SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         sweep_plan(1, 1, 2000, 16, RESIDENT, cluster=1, fused=(2000, 4))
-    with pytest.raises(ValueError, match="4096 cells"):
-        sweep_plan(1, 1, 482, 8, RESIDENT, fused=(4097, 4))
-    with pytest.raises(ValueError, match="4096 cells"):
-        sweep_plan(1, 1, 4097, 8, RESIDENT, fused=(48, 4))
+    # lines over 4096 cells take the long-line kernel
+    assert sweep_plan(1, 1, 482, 8, RESIDENT, fused=(4097, 4)).long
+    assert sweep_plan(1, 1, 4097, 8, RESIDENT, fused=(48, 4)).long
 
 
 @pytest.mark.parametrize("b,h,w,block,ghosts", [
@@ -347,3 +346,65 @@ def test_plan_is_a_value():
     assert p == SweepPlan(2, 16, 31, (31,) * 15 + (17,), 5952)
     with pytest.raises(AttributeError):
         p.cluster = 1
+
+
+# (order, B, H, W, block, fused scan_chunk) -> the long plan's cluster:
+# the 4097-cell row and columns, B2's row past its shared memory at C = 16
+# (19,281 cells at block 16), and chip_smoke.py's wide_lines shapes
+LONG = {
+    (1, 1, 16, 4097, 16, None): 16,
+    (1, 1, 4097, 482, 8, 4): 16,
+    (1, 1, 48, 4097, 8, 4): 16,
+    (2, 1, 16, 19281, 16, None): 16,
+    (1, 1, 48, 8192, 16, None): 16,
+    (1, 1, 16, 40000, 16, None): 16,
+    (1, 2, 8192, 48, 8, 4): 16,
+    (1, 1, 16, 6000, 8, 4): 16,
+    (2, 1, 16, 20000, 16, None): 16,
+    (1, 16, 16, 5000, 8, None): 6,
+    (2, 1, 16, 40000, 8, None): 16,
+    (1, 1, 4, 4097, 1, None): 2,
+}
+
+
+@pytest.mark.parametrize("key", sorted(LONG, key=str))
+def test_long_line_plans(key):
+    """Past the shared-memory kernels' lines the plan is long: no segments,
+    no shared memory, a block for every 2048 cells of the largest step up
+    to 16, the largest size whose clusters are all resident."""
+    order, b, h, w, block, chunk = key
+    fused = None if chunk is None else (h, chunk)
+    assert needs_long(order, w, block, fused)
+    p = sweep_plan(order, b, w, block, RESIDENT, fused=fused)
+    assert p.long and p.order == order
+    assert (p.cluster, p.seg, p.widths, p.smem_bytes) == (LONG[key], 0, (),
+                                                          0)
+    # a forced cluster size is the shared-memory kernel's, which cannot
+    with pytest.raises(ValueError):
+        sweep_plan(order, b, w, block, RESIDENT, cluster=p.cluster,
+                   fused=fused)
+
+
+def test_order2_long_starts_where_shared_memory_ends():
+    """B2's segment of 1205 columns at block 16 is its last that fits."""
+    assert smem_bytes(2, 19280, 16, 1205) <= SMEM_LIMIT
+    assert smem_bytes(2, 19281, 16, 1206) > SMEM_LIMIT
+    assert not sweep_plan(2, 1, 19280, 16, RESIDENT).long
+    assert sweep_plan(2, 1, 19281, 16, RESIDENT).long
+
+
+@pytest.mark.parametrize("block", [8, 16])
+@pytest.mark.parametrize("order,fused", [(1, False), (2, False), (1, True)])
+def test_every_grid_has_a_plan_at_the_configs_blocks(block, order, fused):
+    """At blocks 8 and 16 the plan raises for no grid size: the paths'
+    shapes stay on the shared-memory kernels, longer lines go long."""
+    for w in (1, 2, 31, 482, 1024, 2048, 4096, 4097, 6000, 19280, 19281,
+              33056, 33057, 65536):
+        for h in ((48, 4096, 4097, 8192) if fused else (None,)):
+            f = (h, 4) if fused else None
+            p = sweep_plan(order, 16, w, block, RESIDENT, fused=f)
+            line = max(w, h or 0) if order == 1 else 0
+            if line > MAX_W1:
+                assert p.long
+            if max(w, h or 0) <= 1024:
+                assert not p.long
