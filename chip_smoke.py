@@ -1,14 +1,14 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
     python3 chip_smoke.py [--seed N] [--ticks N]
-                          [--only b3|b1|wide|paths|train]
+                          [--only b3|b1|wide|paths|train|zoo]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
 phase 3's lines over 1024 cells (run from a copy of another tree, it times
 that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
 and B4 lines at the paths' shapes (to time another tree's beside these),
-"train" phase 11.
+"train" phase 11, "zoo" phase 12.
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -122,7 +122,25 @@ Phases (each prints one JSON line):
                for cuDNN); the tiny PSPNet's step on the card against the
                CPU's (float64: loss 1e-5 relative, gradients 1e-4 of the
                largest; float32 with TF32 off: the loss within 1e-5, the
-               gradients reported).
+               gradients reported);
+ 12. zoo    — the model zoo's serving path, every ResNetV1c EncoderDecoder
+               family (ann ... upernet, twenty) at its config's own widths
+               from --seed with random batch statistics and non-zero
+               attention gates: the card against the CPU in float64 on a
+               128x256 input (1e-8 of the largest |logit|), then one
+               512x1024 forward timed in float32 (TF32 off) and bfloat16
+               (zoo_family); cli/serve.py's handler in a thread on the
+               card serving configs/upernet/upernet_r50_512x1024_80k_
+               cityscapes.py, 5 POST /probs of a seeded 1024x2048x3 .npy:
+               every reply 200, (19, 1024, 2048) and equal to
+               inference_segmentor called directly (zoo_serve: ms per
+               request, peak memory); UPerNet's slide inference (crop
+               512x1024, stride 341x683) at 1024x2048 timed, and against
+               the CPU in float64 at 128x256, crop 64x128, stride 43x85
+               (zoo_slide); cli/benchmark.py on UPerNet at its defaults
+               (--size 720 --batch 4) in bfloat16 and float32
+               (zoo_benchmark: maps/s).  The zoo launches no kernel of
+               csrc/.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -1786,22 +1804,247 @@ def path_kernels(rng, dev, barrier_us) -> dict:
     return results
 
 
+# ---- 12. the model zoo's serving path (ResNetV1c families) ------------
+ZOO_FAMILIES = ("ann", "apcnet", "ccnet", "danet", "deeplabv3",
+                "deeplabv3plus", "dmnet", "dnlnet", "emanet", "encnet",
+                "fastfcn", "fcn", "gcnet", "isanet", "nonlocal_net", "ocrnet",
+                "psanet", "pspnet", "sem_fpn", "upernet")
+ZOO_SERVE = "configs/upernet/upernet_r50_512x1024_80k_cityscapes.py"
+ZOO_IMAGE = (1024, 2048)      # cityscapes' test_pipeline img_scale
+ZOO_REQUESTS = 5
+ZOO_TIMED = (512, 1024)       # the families' training crop
+ZOO_CHECK = (128, 256)        # card against CPU in float64
+# UPerNet's slide windows at ZOO_IMAGE, and at ZOO_CHECK
+ZOO_SLIDE = dict(mode="slide", crop_size=(512, 1024), stride=(341, 683))
+ZOO_SLIDE_CHECK = dict(mode="slide", crop_size=(64, 128), stride=(43, 85))
+
+
+def zoo_config_path(family: str) -> str:
+    """The family's 80k Cityscapes config (PSPNet's only one: PEANUT's)."""
+    import glob
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(root, "configs", family, "*.py")))
+    city = [p for p in paths if p.endswith("_512x1024_80k_cityscapes.py")]
+    return os.path.relpath((city or paths)[0], root)
+
+
+@torch.no_grad()
+def zoo_weights(model, seed: int):
+    """Random batch statistics and non-zero attention gates (at flax's
+    initial 0 a gate hides its attention branch) on a seeded model."""
+    from peanut_tpu_torch.models.layers import BatchNorm
+    g = torch.Generator().manual_seed(seed + 7)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
+                                                   generator=g))
+            m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
+                                                 generator=g))
+    for name, p in model.named_parameters():
+        if name.endswith("gamma"):
+            p.fill_(0.5 + float(torch.rand((), generator=g)))
+    return model
+
+
+def zoo_card_vs_cpu(cfg, dev, seed: int, hw) -> dict:
+    """The model of ``cfg`` (seeded, zoo_weights) in float64 on the CPU and
+    on the card on one seeded input: the error over the largest |logit|."""
+    import copy
+
+    from peanut_tpu_torch.models.builder import build_segmentor
+    in_ch = cfg["backbone"].get("in_channels", 3)
+    x = torch.as_tensor(np.random.RandomState(seed).rand(1, in_ch, *hw))
+    model = zoo_weights(build_segmentor(cfg, seed=seed), seed).double()
+    with torch.no_grad():
+        want = model(x)
+        card = copy.deepcopy(model).to(dev)
+        got = card(x.to(dev)).cpu()
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    top = float(want.abs().max())
+    return {"err_of_largest": float((got - want).abs().max()) / top,
+            "largest_abs_logit": top, "finite": finite,
+            "shape": list(got.shape)}
+
+
+def zoo_forward_ms(model, x, reps: int = 3) -> float:
+    with torch.no_grad():
+        return cuda_ms(lambda: model(x), reps)
+
+
+def zoo_phase(args, dev, smi_line: str) -> dict:
+    """Phase 12: every ResNetV1c family at its config's widths (card
+    against CPU in float64 at 128x256; one 512x1024 forward timed in
+    float32, TF32 off, and in bfloat16), cli/serve.py answering 5 /probs
+    requests for UPerNet-R50 at 1024x2048, UPerNet's slide inference, and
+    cli/benchmark.py at its defaults in both types."""
+    import copy
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from peanut_tpu_torch import apis
+    from peanut_tpu_torch.cli import benchmark, serve
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+
+    t_phase = time.perf_counter()
+    readings = {}
+    for fam in ZOO_FAMILIES:
+        path = zoo_config_path(fam)
+        cfg = load_config(path)["model"]
+        chk = zoo_card_vs_cpu(cfg, dev, args.seed, ZOO_CHECK)
+        in_ch = cfg["backbone"].get("in_channels", 3)
+        model = zoo_weights(build_segmentor(cfg, seed=args.seed),
+                            args.seed).to(dev)
+        x = torch.as_tensor(np.random.RandomState(args.seed).rand(
+            1, in_ch, *ZOO_TIMED), dtype=torch.float32, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = model(x)
+        ms32 = zoo_forward_ms(model, x)
+        peak32 = torch.cuda.max_memory_allocated() / 2 ** 20
+        model.to(torch.bfloat16)
+        ms16 = zoo_forward_ms(model, x.to(torch.bfloat16))
+        line = {"phase": "zoo_family", "family": fam, "config": path,
+                "card_vs_cpu_float64": dict(chk, input=list(ZOO_CHECK)),
+                "timed_input": list(ZOO_TIMED),
+                "out_shape": list(out.shape),
+                "out_finite": bool(torch.isfinite(out).all()),
+                "ms_float32": ms32, "ms_bf16": ms16,
+                "peak_mib_float32": peak32}
+        emit(line)
+        readings[fam] = line
+        del model, x, out
+        torch.cuda.empty_cache()
+        if (chk["err_of_largest"] > 1e-8 or not chk["finite"]
+                or not line["out_finite"]
+                or line["out_shape"][1:] != [
+                    cfg["decode_head"]["num_classes"], *ZOO_TIMED]):
+            fail(f"zoo family {fam}: the card disagrees with the CPU or "
+                 f"its output is wrong: {line}")
+
+    # serving: cli/serve.py's handler in a thread on the card
+    bundle = apis.init_segmentor(ZOO_SERVE, seed=args.seed, device=dev)
+    img = np.random.RandomState(args.seed).rand(*ZOO_IMAGE, 3).astype(
+        np.float32) * 255.0
+    buf = io.BytesIO()
+    np.save(buf, img)
+    body = buf.getvalue()
+    torch.cuda.reset_peak_memory_stats()
+    direct = apis.inference_segmentor(bundle, img)
+    t0 = time.perf_counter()
+    direct = apis.inference_segmentor(bundle, img)
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    # the forward alone on the card (what the request's other time is not)
+    x = torch.as_tensor(img[None], device=dev)
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: bundle.model.inference(x), 2)
+    del x
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(bundle))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/probs"
+    req_ms, codes, equal = [], [], []
+    try:
+        for _ in range(ZOO_REQUESTS):
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                codes.append(r.status)
+                probs = np.load(io.BytesIO(r.read()))
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            equal.append(probs.shape == direct.shape
+                         and bool(np.array_equal(probs, direct)))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    serve_line = {
+        "phase": "zoo_serve", "config": ZOO_SERVE, "image": list(ZOO_IMAGE),
+        "requests": ZOO_REQUESTS, "codes": codes,
+        "reply_shape": list(direct.shape), "equal_to_direct": equal,
+        "ms_per_request": req_ms,
+        "ms_per_request_median": float(np.median(req_ms)),
+        "direct_inference_ms": direct_ms, "forward_ms_card": forward_ms,
+        "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "probs_finite": bool(np.isfinite(direct).all())}
+    emit(serve_line)
+    del bundle
+    torch.cuda.empty_cache()
+    if (codes != [200] * ZOO_REQUESTS or not all(equal)
+            or serve_line["reply_shape"] != [19, *ZOO_IMAGE]
+            or not serve_line["probs_finite"]):
+        fail(f"cli/serve.py did not answer as inference_segmentor: "
+             f"{serve_line}")
+
+    # slide inference: UPerNet at 1024x2048 on the card, and the card
+    # against the CPU in float64 at 128x256
+    cfg = load_config(ZOO_SERVE)["model"]
+    cfg["test_cfg"] = dict(ZOO_SLIDE)
+    model = zoo_weights(build_segmentor(cfg, seed=args.seed),
+                        args.seed).to(dev)
+    x = torch.as_tensor(np.random.RandomState(args.seed).rand(
+        1, *ZOO_IMAGE, 3), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        out = model.inference(x)
+        slide_ms = cuda_ms(lambda: model.inference(x), 2)
+    small = dict(cfg, test_cfg=dict(ZOO_SLIDE_CHECK))
+    x64 = torch.as_tensor(np.random.RandomState(args.seed + 1).rand(
+        1, *ZOO_CHECK, 3))
+    m64 = zoo_weights(build_segmentor(small, seed=args.seed),
+                      args.seed).double()
+    with torch.no_grad():
+        want = m64.inference(x64)
+        got = copy.deepcopy(m64).to(dev).inference(x64.to(dev)).cpu()
+    slide_err = float((got - want).abs().max() / want.abs().max())
+    slide_line = {"phase": "zoo_slide", "config": ZOO_SERVE,
+                  "test_cfg": cfg["test_cfg"], "image": list(ZOO_IMAGE),
+                  "ms_float32": slide_ms, "out_shape": list(out.shape),
+                  "out_finite": bool(torch.isfinite(out).all()),
+                  "card_vs_cpu_float64": {
+                      "input": list(ZOO_CHECK), "test_cfg": ZOO_SLIDE_CHECK,
+                      "err_of_largest": slide_err}}
+    emit(slide_line)
+    del model, x, out
+    torch.cuda.empty_cache()
+    if slide_err > 1e-8 or not slide_line["out_finite"]:
+        fail(f"slide inference: {slide_line}")
+
+    # cli/benchmark.py at its defaults (--size 720 --batch 4)
+    bench = {}
+    for dtype in ("bfloat16", "float32"):
+        with contextlib.redirect_stdout(io.StringIO()):   # its own line
+            bench[dtype] = benchmark.main([ZOO_SERVE, "--dtype", dtype])
+    emit({"phase": "zoo_benchmark", "config": ZOO_SERVE,
+          "tf32": torch.backends.cudnn.allow_tf32, **bench,
+          "nvidia_smi": smi_line})
+    if not all(b["maps_per_sec"] > 0 for b in bench.values()):
+        fail(f"cli/benchmark.py: {bench}")
+    readings["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "zoo_done", "seconds": readings["seconds"]})
+    return readings
+
+
 def only_phase(args, dev) -> int:
     """``--only``: one phase alone, to compare trees (the parent's, a
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
     the lines over 1024 cells, "paths" phase 3's B1, B2 and B4 lines at
-    the paths' shapes, "train" the train phase.  Prints no result line."""
+    the paths' shapes, "train" the train phase, "zoo" the zoo phase.
+    Prints no result line."""
     from peanut_tpu_torch.kernels import _build
     for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
                  "wide": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
                           "fmm_long"),
                  "paths": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
-                 "train": ()}[args.only]:
+                 "train": (), "zoo": ()}[args.only]:
         _build.library(stem)
     if args.only == "paths":
         path_kernels(np.random.RandomState(args.seed), dev, {})
     elif args.only == "train":
         training_phase(args, dev, nvidia_smi_line())
+    elif args.only == "zoo":
+        zoo_phase(args, dev, nvidia_smi_line())
     elif args.only == "b3":
         mask_rcnn_phases(args, dev)
     elif args.only == "b1":
@@ -1816,7 +2059,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
-                                       "train"),
+                                       "train", "zoo"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -2058,6 +2301,9 @@ def main() -> int:
 
     # ---- 11. training: PSPNet-R50-v1c at full width ---------------------
     training_phase(args, dev, smi_line)
+
+    # ---- 12. the model zoo's serving path (no kernel of csrc/) ----------
+    zoo_phase(args, dev, smi_line)
 
     kernels = []
     for name_, src_file, replaces, keys, count_key in (

@@ -11,7 +11,8 @@ Layering (bottom-up), as in the JAX package:
               eikonal solver, whose three TPU kernels are CUDA kernels
               here, ROIAlign window pooling and NMS (CUDA kernels)
   models/     Mask R-CNN R101-FPN and PSPNet-R50-v1c (train mode too),
-              the segmentation losses
+              the segmentation losses, the model zoo's ResNetV1c
+              families (heads, necks, the registry-driven builder)
   mapping/    per-step semantic map update
   perception/ depth preprocessing, ground-truth and Mask R-CNN segmenters
   prediction/ the target-prediction model; its training: map dataset and
@@ -21,9 +22,11 @@ Layering (bottom-up), as in the JAX package:
   agent/      the single-env agent; batched ops + the batched
               parallel-episode runtime
   envs/       synthetic environments, the habitat adapter, the batch runner
-  core/       training checkpoints
+  core/       training checkpoints, the zoo's config-file loader
   utils/      stage timer, drawing, the episode dashboard, logger hooks
-  cli/        collect, collect_maps, eval, train_prediction_model, test
+  cli/        collect, collect_maps, eval, train_prediction_model, test,
+              serve and benchmark (the zoo's)
+  registry.py, apis.py   the zoo's registries and mmseg-style API
 
 Device rule: entry points take ``device=``; left unset they run on ``cuda``
 and raise when there is no card.  Nothing moves to the CPU by itself.

@@ -1,3 +1,2 @@
-"""Training infrastructure (port of the training half of
-``peanut_tpu.core``): checkpoints.  The config-file loader and the mesh are
-ROADMAP A13 and A14."""
+"""Infrastructure (port of ``peanut_tpu.core``): training checkpoints and
+the python config-file loader of the model zoo.  The mesh is ROADMAP A14."""

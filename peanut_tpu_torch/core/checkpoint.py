@@ -69,16 +69,24 @@ def save_checkpoint(path: str, state, step: Optional[int] = None) -> str:
     return path
 
 
+def load_model_state(path: str, model: torch.nn.Module) -> int:
+    """Load the model half of the checkpoint directory ``path`` into
+    ``model`` (strict: every parameter and statistic, nothing else), as
+    serving a trained model needs.  Returns the checkpoint's iteration."""
+    saved = torch.load(os.path.join(path, MODEL_FILE), map_location="cpu",
+                       weights_only=False)
+    model.load_state_dict(saved["state_dict"], strict=True)
+    return int(saved["meta"]["iter"])
+
+
 def load_checkpoint(path: str, state) -> int:
     """Restore the checkpoint directory ``path`` into ``state`` in place
     (the model's parameters and statistics, the optimizer's moments and
     counts, the step; ``load_state_dict`` puts each on the device the
     state lives on).  Returns the step."""
-    model = torch.load(os.path.join(path, MODEL_FILE), map_location="cpu",
-                       weights_only=False)
+    load_model_state(path, state.model)
     train = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                        weights_only=False)
-    state.model.load_state_dict(model["state_dict"], strict=True)
     state.optimizer.load_state_dict(train["optimizer"])
     state.step = int(train["step"])
     return state.step

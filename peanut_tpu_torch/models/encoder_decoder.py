@@ -1,13 +1,20 @@
-"""EncoderDecoder segmentor, whole-image inference (port of
-``peanut_tpu.models.encoder_decoder``).
+"""EncoderDecoder segmentor with whole and slide inference (port of
+``peanut_tpu.models.encoder_decoder``), registered in ``SEGMENTORS``.
 
 PEANUT's in-tree change to mmseg's EncoderDecoder (encoder_decoder.py:248,
 262-271) returns **raw logits** resized to the input instead of an argmax;
-the agent applies the sigmoid itself for multi-label probability maps.
-``forward`` runs NCHW, in eval or (``train=True``, the train step) train
-mode, with the auxiliary head's logits on request; ``inference`` keeps the
-JAX package's NHWC layout at its boundary.  Slide inference and the zoo's
-other parts are ROADMAP A13.
+the agent applies the sigmoid itself for multi-label probability maps, and
+``predict_labels`` gives the stock argmax for zoo use.  ``forward`` runs
+NCHW, in eval or (``train=True``, the train step) train mode, with the
+auxiliary head's logits on request; ``inference`` and ``predict_labels``
+keep the JAX package's NHWC layout at their boundary.
+
+The backbone, the neck and the heads come from the registries; a type the
+port does not have raises NotImplementedError naming ROADMAP A13.  As in
+the JAX package's ``setup``, ``pretrained`` and ``norm_cfg`` are dropped
+from the backbone's config and ``norm_cfg`` and ``loss_decode`` from the
+heads'.  A neck without ``in_channels`` is given the backbone's
+``out_channels`` (flax infers them).
 """
 
 from __future__ import annotations
@@ -17,51 +24,70 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from .heads import FCNHead, PSPHead, resize_nchw
+# the zoo's modules register their classes when imported
+from . import (fpn, heads, heads_attention, heads_zoo,  # noqa: F401
+               necks, resnet)
+from ..registry import BACKBONES, HEADS, NECKS, SEGMENTORS, Registry
 from .layers import init_flax_random
-from .resnet import ResNetV1c
-
-BACKBONES = {"ResNetV1c": ResNetV1c}
-HEADS = {"PSPHead": PSPHead, "FCNHead": FCNHead}
-# config keys of the JAX package's modules that inference does not read
-_IGNORED = ("type", "norm_cfg", "pretrained", "loss_decode", "norm_eval",
-            "style", "align_corners")
+from .ops import resize_nchw
 
 
-def _build(registry: Dict[str, type], cfg: Dict[str, Any]) -> nn.Module:
+def build_component(registry: Registry, cfg: Dict[str, Any],
+                    drop=()) -> nn.Module:
+    """``registry.build(cfg)`` without the keys ``drop``; a type that is
+    not registered raises NotImplementedError naming ROADMAP A13."""
     kind = cfg["type"]
-    if kind not in registry:
+    if not isinstance(kind, str) or kind not in registry:
         raise NotImplementedError(
-            f"{kind} is not ported (the model zoo is ROADMAP A13)")
-    if cfg.get("align_corners") or cfg.get("style", "pytorch") != "pytorch":
-        raise NotImplementedError(
-            f"{kind}: only align_corners=False and the pytorch style are "
-            "ported")
-    return registry[kind](**{k: v for k, v in cfg.items()
-                             if k not in _IGNORED})
+            f"{kind} ({registry.name}) is not ported (the model zoo is "
+            "ROADMAP A13)")
+    return registry.build({k: v for k, v in cfg.items() if k not in drop})
 
 
+@SEGMENTORS.register()
 class EncoderDecoder(nn.Module):
     def __init__(self, backbone: Dict[str, Any], decode_head: Dict[str, Any],
                  auxiliary_head: Optional[Dict[str, Any]] = None,
+                 neck: Optional[Dict[str, Any]] = None,
+                 train_cfg: Optional[Dict[str, Any]] = None,
                  test_cfg: Optional[Dict[str, Any]] = None,
+                 pretrained: Optional[str] = None,
                  seed: Optional[int] = None):
         """``seed``: random weights from a ``torch.Generator`` with the
         flax model's initialisers; unset, the weights are left for a state
         dict."""
         super().__init__()
-        mode = (test_cfg or {}).get("mode", "whole")
-        if mode != "whole":
-            raise NotImplementedError(
-                f"test_cfg mode {mode!r}: only whole-image inference is "
-                "ported (ROADMAP A13)")
-        self.backbone = _build(BACKBONES, backbone)
-        self.decode_head = _build(HEADS, decode_head)
-        self.auxiliary_head = (_build(HEADS, auxiliary_head)
+        self.test_cfg = dict(test_cfg or {})
+        self.head_cfg = dict(decode_head)
+        self.backbone = build_component(BACKBONES, backbone,
+                                        ("pretrained", "norm_cfg"))
+        self.neck = None
+        if neck:
+            ncfg = dict(neck)
+            ncfg.setdefault("in_channels", self.backbone.out_channels)
+            self.neck = build_component(NECKS, ncfg)
+        drop = ("norm_cfg", "loss_decode")
+        self.decode_head = build_component(HEADS, decode_head, drop)
+        self.auxiliary_head = (build_component(HEADS, auxiliary_head, drop)
                                if auxiliary_head else None)
         if seed is not None:
             init_flax_random(self, torch.Generator().manual_seed(seed))
         self.eval()      # built for serving; forward(train=True) trains
+
+    @property
+    def align_corners(self) -> bool:
+        return bool(self.head_cfg.get("align_corners", False))
+
+    @property
+    def num_classes(self) -> int:
+        return int(self.head_cfg["num_classes"])
+
+    def extract_feat(self, img: torch.Tensor):
+        feats = self.backbone(img)
+        return self.neck(feats) if self.neck is not None else feats
+
+    def _resize(self, x: torch.Tensor, hw) -> torch.Tensor:
+        return resize_nchw(x, hw, self.align_corners)
 
     def forward(self, img: torch.Tensor, train: Optional[bool] = None,
                 with_aux: bool = False,
@@ -75,15 +101,56 @@ class EncoderDecoder(nn.Module):
         module's mode."""
         if train is not None:
             self.train(train)
-        feats = self.backbone(img)
+        feats = self.extract_feat(img)
         hw = img.shape[-2:]
-        logits = resize_nchw(self.decode_head(feats, generator), hw)
+        logits = self._resize(self.decode_head(feats, generator), hw)
         if with_aux and self.auxiliary_head is not None:
-            return logits, resize_nchw(self.auxiliary_head(feats, generator),
-                                       hw)
+            return logits, self._resize(
+                self.auxiliary_head(feats, generator), hw)
         return logits
 
+    def encode_decode(self, img: torch.Tensor) -> torch.Tensor:
+        """Backbone, neck and decode head in the module's mode: (B, C, H,
+        W) -> logits resized to the input."""
+        return self._resize(self.decode_head(self.extract_feat(img)),
+                            img.shape[-2:])
+
+    def whole_inference(self, img: torch.Tensor) -> torch.Tensor:
+        return self.encode_decode(img)
+
+    def slide_inference(self, img: torch.Tensor) -> torch.Tensor:
+        """Sliding-window inference over (B, C, H, W): windows of
+        ``crop_size`` every ``stride`` (the last one of a row or column
+        clamped to end at the border), logits summed and divided by the
+        number of windows over each pixel; the JAX package's arithmetic
+        and defaults."""
+        h_stride, w_stride = self.test_cfg.get("stride", (512, 512))
+        h_crop, w_crop = self.test_cfg.get("crop_size", (768, 768))
+        b, _, h, w = img.shape
+        h_grids = max(h - h_crop + h_stride - 1, 0) // h_stride + 1
+        w_grids = max(w - w_crop + w_stride - 1, 0) // w_stride + 1
+        preds = img.new_zeros((b, self.num_classes, h, w))
+        count = img.new_zeros((b, 1, h, w))
+        for hi in range(h_grids):
+            for wi in range(w_grids):
+                y1 = min(hi * h_stride, max(h - h_crop, 0))
+                x1 = min(wi * w_stride, max(w - w_crop, 0))
+                y2, x2 = min(y1 + h_crop, h), min(x1 + w_crop, w)
+                preds[:, :, y1:y2, x1:x2] += self.encode_decode(
+                    img[:, :, y1:y2, x1:x2])
+                count[:, :, y1:y2, x1:x2] += 1.0
+        return preds / count
+
     def inference(self, img: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) -> (B, H, W, num_classes) raw logits, the JAX
-        package's layout."""
-        return self(img.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        """(B, H, W, C) -> (B, H, W, num_classes) raw logits at the input's
+        size, by ``test_cfg``'s mode (slide, else whole); the JAX package's
+        layout."""
+        x = img.permute(0, 3, 1, 2)
+        out = (self.slide_inference(x)
+               if self.test_cfg.get("mode", "whole") == "slide"
+               else self.whole_inference(x))
+        return out.permute(0, 2, 3, 1)
+
+    def predict_labels(self, img: torch.Tensor) -> torch.Tensor:
+        """Stock mmseg: (B, H, W, C) -> the (B, H, W) argmax class map."""
+        return self.inference(img).argmax(dim=-1)

@@ -4,7 +4,8 @@
 ``Conv2d`` carries its normalisation as a ``norm`` submodule, as detectron2's
 wrapper does, so a d2 state dict (``...conv1.weight``, ``...conv1.norm.*``)
 loads through ``load_state_dict``; ``ConvModule`` is mmcv's conv + BN + ReLU
-unit (``...conv.weight``, ``...bn.*``) for the mmseg models.  ``BatchNorm``
+unit (``...conv.weight``, ``...bn.*``) for the mmseg models; a bare
+convolution (the flax ``Conv2d``) is ``nn.Conv2d``.  ``BatchNorm``
 is flax's ``nn.BatchNorm`` (eps 1e-5, momentum 0.9): in eval mode the
 frozen batch norm of inference, in train mode batch statistics and a
 running-average update.  ``remat`` runs a block under
@@ -18,6 +19,7 @@ import math
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -140,33 +142,50 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 class ConvModule(nn.Module):
     """mmcv's conv -> BN -> ReLU unit with its parameter names (``conv``,
-    ``bn``), so an mmseg state dict loads through ``load_state_dict``."""
+    ``bn``), so an mmseg state dict loads through ``load_state_dict``.
+    As the JAX package's: ``with_norm`` / ``with_act`` drop the BN / the
+    ReLU, the conv has a bias exactly when there is no BN, and ``groups``
+    groups it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, dilation: int = 1):
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 with_norm: bool = True, with_act: bool = True,
+                 groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, padding=padding,
-                              dilation=dilation, bias=False)
-        self.bn = BatchNorm(out_channels)
+                              dilation=dilation, groups=groups,
+                              bias=not with_norm)
+        self.bn = BatchNorm(out_channels) if with_norm else None
+        self.with_act = with_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x) if self.with_act else x
 
 
 @torch.no_grad()
 def init_flax_random(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default initialisers in place: lecun-normal conv kernels,
-    zero biases, unit batch norm (weight 1, bias 0, mean 0, variance 1)."""
+    """flax's default initialisers in place: lecun-normal conv and dense
+    kernels, zero biases, unit batch and layer norms (weight 1, bias 0,
+    mean 0, variance 1); a module with parameters of its own (a gate, a
+    codebook, a basis) draws them in its ``flax_init_(generator)``."""
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             w = m.weight
-            fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            fan_in = int(np.prod(w.shape[1:]))
             w.copy_(lecun_normal_(torch.empty(w.shape), fan_in, generator))
             if m.bias is not None:
                 m.bias.zero_()
+        elif hasattr(m, "flax_init_"):
+            m.flax_init_(generator)

@@ -9,7 +9,10 @@ convert_encoder_decoder_state`` key for key, as the JAX package's
 backbones, PSPHead and FCNHead, takes numpy arrays (or anything
 ``np.asarray`` reads; float64 stays float64, anything else becomes
 float32) and raises on any variable it does not convert.  It
-is how weights move between the two packages.  ``flax_train_state_to_torch``
+is how weights move between the two packages.  ``flax_to_torch_state``
+carries a whole zoo segmentor: those parts by their mmseg names, the
+zoo's necks and heads (named after their flax modules in the port) by one
+generic rule.  ``flax_train_state_to_torch``
 moves a whole training state: the variables into the model, optax Adam's
 moments and count into a ``torch.optim.Adam`` over it, and the step.
 """
@@ -23,10 +26,19 @@ import numpy as np
 import torch
 
 from .checkpoint import load_torch_state_dict
+from .heads import FCNHead, PSPHead
+from .heads_zoo import MaskConv
+from .layers import BatchNorm
+from .resnet import ResNetV1c
 
 _CONV_T = (3, 2, 0, 1)   # HWIO -> OIHW
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
+
+
+def _array(value) -> np.ndarray:
+    arr = np.asarray(value)
+    return arr if arr.dtype == np.float64 else arr.astype(np.float32)
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -104,14 +116,100 @@ def flax_to_mmseg_state(variables: Mapping[str, Any]
             if name is None or name in sd:
                 left.append("/".join((col,) + path))
                 continue
-            arr = np.asarray(value)
-            if arr.dtype != np.float64:
-                arr = arr.astype(np.float32)
+            arr = _array(value)
             if arr.ndim == 4:
                 arr = arr.transpose(_CONV_T)
             sd[name] = np.ascontiguousarray(arr)
     if left:
         raise KeyError(f"Unconverted flax variables: {left[:8]}")
+    return sd
+
+
+# flax's leaf names on the port's module types
+_LEAF = {"conv": {"kernel": "weight", "bias": "bias"},
+         "dense": {"kernel": "weight", "bias": "bias"},
+         "bn": {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"},
+         "ln": {"scale": "weight", "bias": "bias"}}
+
+
+def _kind(m: torch.nn.Module):
+    if isinstance(m, (torch.nn.Conv2d, MaskConv)):
+        return "conv"
+    if isinstance(m, torch.nn.Linear):
+        return "dense"
+    if isinstance(m, BatchNorm):
+        return "bn"
+    if isinstance(m, torch.nn.LayerNorm):
+        return "ln"
+    return None
+
+
+def _generic_name(model: torch.nn.Module, path: Tuple[str, ...]):
+    """The port's name of one flax variable of a zoo module, or None.  The
+    port names its submodules after the flax ones; flax's wrappers fold
+    away: a ConvModule's ``conv_unit/conv`` is the port's ``conv`` and its
+    ``norm/bn`` the port's ``bn``, and the inner ``conv`` of a ``Conv2d``
+    (``bn`` of a ``BatchNorm``) is the port's conv (batch norm) itself.
+    The leaf maps by the port module's type (``_LEAF``); a bare parameter
+    (a gate, a codebook, a basis) keeps its name."""
+    mod, names = model, []
+    for c in path[:-1]:
+        child = mod._modules.get(c)
+        if child is not None:
+            mod = child
+            names.append(c)
+        elif c in ("conv", "bn") and _kind(mod) == c:
+            continue
+        elif c in ("conv_unit", "norm") and mod._modules.get(
+                {"conv_unit": "conv", "norm": "bn"}[c]) is not None:
+            c = {"conv_unit": "conv", "norm": "bn"}[c]
+            mod = mod._modules[c]
+            names.append(c)
+        else:
+            return None
+    kind = _kind(mod)
+    leaf = _LEAF[kind].get(path[-1]) if kind else path[-1]
+    if leaf is None or not (leaf in mod._parameters or leaf in mod._buffers):
+        return None
+    return ".".join(names + [leaf])
+
+
+def flax_to_torch_state(variables: Mapping[str, Any],
+                        model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The JAX package's variables of a zoo segmentor ({"params",
+    "batch_stats"}, numpy or anything ``np.asarray`` reads) as a state
+    dict of the port's ``model`` built from the same config.  ResNetV1c,
+    PSPHead and FCNHead go by their mmseg names (``flax_to_mmseg_state``'s
+    rule); the rest by ``_generic_name``: conv kernels HWIO -> OIHW, dense
+    kernels (in, out) -> (out, in), batch and layer norms' ``scale`` ->
+    ``weight`` and the batch statistics ``mean`` / ``var`` ->
+    ``running_mean`` / ``running_var``.  float64 stays float64, anything
+    else becomes float32.  Raises KeyError on any flax variable it does
+    not place and on any parameter or buffer of ``model`` left unset."""
+    sd: Dict[str, np.ndarray] = {}
+    left = []
+    for col in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(col, {})):
+            top = model._modules.get(path[0])
+            if isinstance(top, (ResNetV1c, PSPHead, FCNHead)):
+                name = _mmseg_name(path) if len(path) > 2 else None
+            else:
+                name = _generic_name(model, path)
+            if name is None or name in sd:
+                left.append("/".join((col,) + path))
+                continue
+            arr = _array(value)
+            if arr.ndim == 4:
+                arr = arr.transpose(_CONV_T)
+            elif arr.ndim == 2 and path[-1] == "kernel":
+                arr = arr.T
+            sd[name] = np.ascontiguousarray(arr)
+    if left:
+        raise KeyError(f"Unconverted flax variables: {left[:8]}")
+    unset = sorted(set(model.state_dict()) - set(sd))
+    if unset:
+        raise KeyError(f"Port parameters or buffers left unset: {unset[:8]}")
     return sd
 
 

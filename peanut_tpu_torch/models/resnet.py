@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..registry import BACKBONES
 from .layers import BatchNorm, Conv2d, remat
 
 
@@ -112,11 +113,13 @@ class V1cBottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+@BACKBONES.register()
 class ResNetV1c(nn.Module):
-    """Returns the stages of ``out_indices`` of NCHW inputs.  ``remat``
-    recomputes each residual block's activations in backward (JAX
-    resnet.py's ``nn.remat`` of a block): stage-boundary activation memory
-    for about 1.3x the step's operations."""
+    """Returns the stages of ``out_indices`` of NCHW inputs (their channels
+    are ``out_channels``).  ``remat`` recomputes each residual block's
+    activations in backward (JAX resnet.py's ``nn.remat`` of a block):
+    stage-boundary activation memory for about 1.3x the step's
+    operations.  The pytorch style: the stride on the 3x3 conv."""
 
     def __init__(self, depth: int = 50, in_channels: int = 3,
                  stem_channels: int = 64, base_channels: int = 64,
@@ -125,6 +128,8 @@ class ResNetV1c(nn.Module):
                  contract_dilation: bool = False, remat: bool = False):
         super().__init__()
         self.remat = remat
+        self.out_channels = tuple(base_channels * 2 ** i * 4
+                                  for i in out_indices)
         if depth not in STAGE_BLOCKS:
             raise ValueError(f"ResNetV1c depth {depth}: only the bottleneck "
                              f"depths {sorted(STAGE_BLOCKS)}")

@@ -66,7 +66,16 @@ def test_import_pulls_in_neither_jax_nor_peanut_tpu():
             "peanut_tpu_torch.core.checkpoint",
             "peanut_tpu_torch.utils.loggers",
             "peanut_tpu_torch.cli.train_prediction_model",
-            "peanut_tpu_torch.cli.test"} <= set(_modules())
+            "peanut_tpu_torch.cli.test",
+            "peanut_tpu_torch.registry",
+            "peanut_tpu_torch.core.config_file",
+            "peanut_tpu_torch.models.builder",
+            "peanut_tpu_torch.models.necks",
+            "peanut_tpu_torch.models.heads_attention",
+            "peanut_tpu_torch.models.heads_zoo",
+            "peanut_tpu_torch.apis",
+            "peanut_tpu_torch.cli.serve",
+            "peanut_tpu_torch.cli.benchmark"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
