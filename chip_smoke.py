@@ -123,18 +123,26 @@ Phases (each prints one JSON line):
                CPU's (float64: loss 1e-5 relative, gradients 1e-4 of the
                largest; float32 with TF32 off: the loss within 1e-5, the
                gradients reported);
- 12. zoo    — the model zoo's serving path, every ResNetV1c EncoderDecoder
-               family (ann ... upernet, twenty) at its config's own widths
-               from --seed with random batch statistics and non-zero
-               attention gates: the card against the CPU in float64 on a
+ 12. zoo    — the model zoo's serving path, every family the port builds
+               (thirty-two: the twenty ResNetV1c EncoderDecoder ones, ann
+               ... upernet, the ten transformer ones, beit ... vit, and
+               the cascade ones, knet and point_rend), each its 80k
+               Cityscapes config at the config's own widths from --seed
+               with random batch statistics and non-zero attention gates
+               and layer scales: the card against the CPU in float64 on a
                128x256 input (1e-8 of the largest |logit|), then one
                512x1024 forward timed in float32 (TF32 off) and bfloat16
-               (zoo_family); cli/serve.py's handler in a thread on the
-               card serving configs/upernet/upernet_r50_512x1024_80k_
-               cityscapes.py, 5 POST /probs of a seeded 1024x2048x3 .npy:
-               every reply 200, (19, 1024, 2048) and equal to
-               inference_segmentor called directly (zoo_serve: ms per
-               request, peak memory); UPerNet's slide inference (crop
+               (zoo_family; BEiT's tables and MAE's positional embedding
+               bound by each model's first input, so at the size it runs);
+               cli/serve.py's handler in a thread on the card serving
+               configs/upernet/upernet_r50_512x1024_80k_cityscapes.py, 5
+               POST /probs of a seeded 1024x2048x3 .npy: every reply 200,
+               (19, 1024, 2048) and equal to inference_segmentor called
+               directly (zoo_serve: ms per request, peak memory); the same
+               for configs/swin/upernet_swin-t_512x512_160k_ade20k.py on a
+               512x683 image (ADE20K's test scale on a 4:3 image, not a
+               multiple of the 7x7 windows: replies (150, 512, 683);
+               zoo_serve_swin); UPerNet's slide inference (crop
                512x1024, stride 341x683) at 1024x2048 timed, and against
                the CPU in float64 at 128x256, crop 64x128, stride 43x85
                (zoo_slide); cli/benchmark.py on UPerNet at its defaults
@@ -1804,13 +1812,19 @@ def path_kernels(rng, dev, barrier_us) -> dict:
     return results
 
 
-# ---- 12. the model zoo's serving path (ResNetV1c families) ------------
+# ---- 12. the model zoo's serving path ----------------------------------
 ZOO_FAMILIES = ("ann", "apcnet", "ccnet", "danet", "deeplabv3",
                 "deeplabv3plus", "dmnet", "dnlnet", "emanet", "encnet",
                 "fastfcn", "fcn", "gcnet", "isanet", "nonlocal_net", "ocrnet",
-                "psanet", "pspnet", "sem_fpn", "upernet")
+                "psanet", "pspnet", "sem_fpn", "upernet",
+                # the transformer families, then the cascade ones
+                "beit", "convnext", "dpt", "mae", "segformer", "segmenter",
+                "setr", "swin", "twins", "vit", "knet", "point_rend")
 ZOO_SERVE = "configs/upernet/upernet_r50_512x1024_80k_cityscapes.py"
 ZOO_IMAGE = (1024, 2048)      # cityscapes' test_pipeline img_scale
+ZOO_SERVE_SWIN = "configs/swin/upernet_swin-t_512x512_160k_ade20k.py"
+# ADE20K's test scale (2048, 512), keep-ratio, on a 4:3 image
+ZOO_IMAGE_SWIN = (512, 683)
 ZOO_REQUESTS = 5
 ZOO_TIMED = (512, 1024)       # the families' training crop
 ZOO_CHECK = (128, 256)        # card against CPU in float64
@@ -1830,8 +1844,12 @@ def zoo_config_path(family: str) -> str:
 
 @torch.no_grad()
 def zoo_weights(model, seed: int):
-    """Random batch statistics and non-zero attention gates (at flax's
-    initial 0 a gate hides its attention branch) on a seeded model."""
+    """Random batch statistics, non-zero attention gates (at flax's
+    initial 0 a gate hides its attention branch) and layer scales of
+    order 1 (ConvNeXt's start at 1e-6, BEiT's at 0.1) on a seeded
+    model."""
+    import re
+
     from peanut_tpu_torch.models.layers import BatchNorm
     g = torch.Generator().manual_seed(seed + 7)
     for m in model.modules():
@@ -1841,7 +1859,7 @@ def zoo_weights(model, seed: int):
             m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
                                                  generator=g))
     for name, p in model.named_parameters():
-        if name.endswith("gamma"):
+        if re.search(r"gamma[12]?$", name):
             p.fill_(0.5 + float(torch.rand((), generator=g)))
     return model
 
@@ -1866,25 +1884,97 @@ def zoo_card_vs_cpu(cfg, dev, seed: int, hw) -> dict:
             "shape": list(got.shape)}
 
 
-def zoo_forward_ms(model, x, reps: int = 3) -> float:
-    with torch.no_grad():
-        return cuda_ms(lambda: model(x), reps)
+def zoo_classes(cfg) -> int:
+    head = cfg["decode_head"]
+    return (head[-1] if isinstance(head, list) else head)["num_classes"]
 
 
-def zoo_phase(args, dev, smi_line: str) -> dict:
-    """Phase 12: every ResNetV1c family at its config's widths (card
-    against CPU in float64 at 128x256; one 512x1024 forward timed in
-    float32, TF32 off, and in bfloat16), cli/serve.py answering 5 /probs
-    requests for UPerNet-R50 at 1024x2048, UPerNet's slide inference, and
-    cli/benchmark.py at its defaults in both types."""
-    import copy
+def zoo_serve(args, dev, config: str, image_hw, phase: str) -> dict:
+    """cli/serve.py's handler in a thread on the card serving ``config``
+    (random weights from --seed): ZOO_REQUESTS POST /probs of a seeded
+    image against inference_segmentor called directly.  Fails unless
+    every reply is 200, finite, of the config's classes at the image's
+    size and equal to the direct call."""
     import io
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
 
     from peanut_tpu_torch import apis
-    from peanut_tpu_torch.cli import benchmark, serve
+    from peanut_tpu_torch.cli import serve
+
+    bundle = apis.init_segmentor(config, seed=args.seed, device=dev)
+    img = np.random.RandomState(args.seed).rand(*image_hw, 3).astype(
+        np.float32) * 255.0
+    buf = io.BytesIO()
+    np.save(buf, img)
+    body = buf.getvalue()
+    torch.cuda.reset_peak_memory_stats()
+    direct = apis.inference_segmentor(bundle, img)
+    t0 = time.perf_counter()
+    direct = apis.inference_segmentor(bundle, img)
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    # the forward alone on the card (what the request's other time is not)
+    x = torch.as_tensor(img[None], device=dev)
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: bundle.model.inference(x), 2)
+    del x
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(bundle))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/probs"
+    req_ms, codes, equal = [], [], []
+    try:
+        for _ in range(ZOO_REQUESTS):
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                codes.append(r.status)
+                probs = np.load(io.BytesIO(r.read()))
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            equal.append(probs.shape == direct.shape
+                         and bool(np.array_equal(probs, direct)))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    peak = torch.cuda.max_memory_allocated()
+    line = {
+        "phase": phase, "config": config, "image": list(image_hw),
+        "requests": ZOO_REQUESTS, "codes": codes,
+        "reply_shape": list(direct.shape), "equal_to_direct": equal,
+        "ms_per_request": req_ms,
+        "ms_per_request_median": float(np.median(req_ms)),
+        "direct_inference_ms": direct_ms, "forward_ms_card": forward_ms,
+        "peak_mib": peak / 2 ** 20, "peak_gib": peak / 2 ** 30,
+        "probs_finite": bool(np.isfinite(direct).all())}
+    emit(line)
+    classes = zoo_classes(bundle.cfg["model"])
+    del bundle
+    torch.cuda.empty_cache()
+    if (codes != [200] * ZOO_REQUESTS or not all(equal)
+            or line["reply_shape"] != [classes, *image_hw]
+            or not line["probs_finite"]):
+        fail(f"cli/serve.py did not answer as inference_segmentor: {line}")
+    return line
+
+
+def zoo_forward_ms(model, x, reps: int = 3) -> float:
+    with torch.no_grad():
+        return cuda_ms(lambda: model(x), reps)
+
+
+def zoo_phase(args, dev, smi_line: str) -> dict:
+    """Phase 12: every family the port builds at its config's widths
+    (card against CPU in float64 at 128x256; one 512x1024 forward timed
+    in float32, TF32 off, and in bfloat16), cli/serve.py answering 5
+    /probs requests for UPerNet-R50 at 1024x2048 and for UPerNet-Swin-T
+    at 512x683, UPerNet's slide inference, and cli/benchmark.py at its
+    defaults in both types."""
+    import copy
+    import io
+
+    from peanut_tpu_torch.cli import benchmark
     from peanut_tpu_torch.core.config_file import load_config
     from peanut_tpu_torch.models.builder import build_segmentor
 
@@ -1920,63 +2010,14 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
         if (chk["err_of_largest"] > 1e-8 or not chk["finite"]
                 or not line["out_finite"]
                 or line["out_shape"][1:] != [
-                    cfg["decode_head"]["num_classes"], *ZOO_TIMED]):
+                    zoo_classes(cfg), *ZOO_TIMED]):
             fail(f"zoo family {fam}: the card disagrees with the CPU or "
                  f"its output is wrong: {line}")
 
-    # serving: cli/serve.py's handler in a thread on the card
-    bundle = apis.init_segmentor(ZOO_SERVE, seed=args.seed, device=dev)
-    img = np.random.RandomState(args.seed).rand(*ZOO_IMAGE, 3).astype(
-        np.float32) * 255.0
-    buf = io.BytesIO()
-    np.save(buf, img)
-    body = buf.getvalue()
-    torch.cuda.reset_peak_memory_stats()
-    direct = apis.inference_segmentor(bundle, img)
-    t0 = time.perf_counter()
-    direct = apis.inference_segmentor(bundle, img)
-    direct_ms = (time.perf_counter() - t0) * 1e3
-    # the forward alone on the card (what the request's other time is not)
-    x = torch.as_tensor(img[None], device=dev)
-    with torch.no_grad():
-        forward_ms = cuda_ms(lambda: bundle.model.inference(x), 2)
-    del x
-    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(bundle))
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/probs"
-    req_ms, codes, equal = [], [], []
-    try:
-        for _ in range(ZOO_REQUESTS):
-            t0 = time.perf_counter()
-            req = urllib.request.Request(url, data=body, method="POST")
-            with urllib.request.urlopen(req, timeout=300) as r:
-                codes.append(r.status)
-                probs = np.load(io.BytesIO(r.read()))
-            req_ms.append((time.perf_counter() - t0) * 1e3)
-            equal.append(probs.shape == direct.shape
-                         and bool(np.array_equal(probs, direct)))
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join()
-    serve_line = {
-        "phase": "zoo_serve", "config": ZOO_SERVE, "image": list(ZOO_IMAGE),
-        "requests": ZOO_REQUESTS, "codes": codes,
-        "reply_shape": list(direct.shape), "equal_to_direct": equal,
-        "ms_per_request": req_ms,
-        "ms_per_request_median": float(np.median(req_ms)),
-        "direct_inference_ms": direct_ms, "forward_ms_card": forward_ms,
-        "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
-        "probs_finite": bool(np.isfinite(direct).all())}
-    emit(serve_line)
-    del bundle
-    torch.cuda.empty_cache()
-    if (codes != [200] * ZOO_REQUESTS or not all(equal)
-            or serve_line["reply_shape"] != [19, *ZOO_IMAGE]
-            or not serve_line["probs_finite"]):
-        fail(f"cli/serve.py did not answer as inference_segmentor: "
-             f"{serve_line}")
+    # serving: cli/serve.py's handler in a thread on the card, UPerNet-R50
+    # (Cityscapes) at 1024x2048, then UPerNet-Swin-T (ADE20K) at 512x683
+    zoo_serve(args, dev, ZOO_SERVE, ZOO_IMAGE, "zoo_serve")
+    zoo_serve(args, dev, ZOO_SERVE_SWIN, ZOO_IMAGE_SWIN, "zoo_serve_swin")
 
     # slide inference: UPerNet at 1024x2048 on the card, and the card
     # against the CPU in float64 at 128x256

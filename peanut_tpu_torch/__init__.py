@@ -11,8 +11,10 @@ Layering (bottom-up), as in the JAX package:
               eikonal solver, whose three TPU kernels are CUDA kernels
               here, ROIAlign window pooling and NMS (CUDA kernels)
   models/     Mask R-CNN R101-FPN and PSPNet-R50-v1c (train mode too),
-              the segmentation losses, the model zoo's ResNetV1c
-              families (heads, necks, the registry-driven builder)
+              the segmentation losses, the model zoo's ResNetV1c,
+              transformer (ViT, Swin, MiT, ConvNeXt, Twins, BEiT, MAE)
+              and cascade (K-Net, PointRend) families (heads, necks, the
+              registry-driven builder)
   mapping/    per-step semantic map update
   perception/ depth preprocessing, ground-truth and Mask R-CNN segmenters
   prediction/ the target-prediction model; its training: map dataset and

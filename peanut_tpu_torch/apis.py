@@ -51,17 +51,22 @@ def init_segmentor(config: Union[str, Dict], checkpoint: Optional[str] = None,
     * none: random weights from ``seed`` with flax's initialisers, as the
       JAX package's ``init_segmentor_params`` draws them.
 
-    The port's modules know their shapes, except PSAHead's masks, which
-    span the relative positions of one feature size: they are bound here,
-    by one forward at the size the bundle serves (the slide crop, else the
+    The port's modules know their shapes, except the parameters that flax
+    shapes from the input at init (``layers.InputShaped``): PSAHead's
+    masks, which span the relative positions of one feature size, BEiT's
+    relative-position tables, which span its patch grid, and MAE's
+    positional embedding, one per patch.  They are bound here, by one
+    forward at the size the bundle serves (the slide crop, else the
     config's ``crop_size``, else an ``input_size`` square, the dummy input
     JAX's ``init_segmentor_params`` shapes flax's variables from), so a
-    request never changes the model.
+    request never changes the model; BEiT and MAE then serve that size
+    alone, and another raises ValueError, as the JAX package's variables
+    do not fit it.
     """
     from .core.checkpoint import load_model_state
     from .core.config_file import load_config
     from .models.builder import build_segmentor
-    from .models.heads_zoo import MaskConv
+    from .models.layers import needs_binding
     from .models.mmseg_import import load_mmseg_checkpoint, load_mmseg_state
 
     device = resolve_device(device)
@@ -80,8 +85,7 @@ def init_segmentor(config: Union[str, Dict], checkpoint: Optional[str] = None,
     else:
         model = build_segmentor(model_cfg, seed=seed)
     model = model.to(device).eval()
-    if any(isinstance(m, MaskConv) and m.weight is None
-           for m in model.modules()):
+    if needs_binding(model):
         test_cfg = model_cfg.get("test_cfg") or {}
         h, w = (test_cfg["crop_size"] if test_cfg.get("mode") == "slide"
                 else cfg.get("crop_size", (input_size, input_size)))

@@ -9,7 +9,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..registry import SEGMENTORS
-from .encoder_decoder import EncoderDecoder  # noqa: F401  (registers it)
+# the segmentors register themselves when imported
+from .cascade import CascadeEncoderDecoder  # noqa: F401
+from .encoder_decoder import EncoderDecoder  # noqa: F401
 
 
 def build_segmentor(cfg: Dict[str, Any], seed: Optional[int] = None,

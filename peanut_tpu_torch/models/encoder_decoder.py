@@ -25,8 +25,8 @@ import torch
 from torch import nn
 
 # the zoo's modules register their classes when imported
-from . import (fpn, heads, heads_attention, heads_zoo,  # noqa: F401
-               necks, resnet)
+from . import (backbones_zoo, convnext, fpn, heads,  # noqa: F401
+               heads_attention, heads_zoo, knet, mit, necks, resnet, vit)
 from ..registry import BACKBONES, HEADS, NECKS, SEGMENTORS, Registry
 from .layers import init_flax_random
 from .ops import resize_nchw
@@ -44,6 +44,10 @@ def build_component(registry: Registry, cfg: Dict[str, Any],
     return registry.build({k: v for k, v in cfg.items() if k not in drop})
 
 
+# the heads' config keys that only training reads
+HEAD_DROP = ("norm_cfg", "loss_decode")
+
+
 @SEGMENTORS.register()
 class EncoderDecoder(nn.Module):
     def __init__(self, backbone: Dict[str, Any], decode_head: Dict[str, Any],
@@ -58,7 +62,8 @@ class EncoderDecoder(nn.Module):
         dict."""
         super().__init__()
         self.test_cfg = dict(test_cfg or {})
-        self.head_cfg = dict(decode_head)
+        self.head_cfg = dict(decode_head if isinstance(decode_head, dict)
+                             else decode_head[-1])
         self.backbone = build_component(BACKBONES, backbone,
                                         ("pretrained", "norm_cfg"))
         self.neck = None
@@ -66,13 +71,16 @@ class EncoderDecoder(nn.Module):
             ncfg = dict(neck)
             ncfg.setdefault("in_channels", self.backbone.out_channels)
             self.neck = build_component(NECKS, ncfg)
-        drop = ("norm_cfg", "loss_decode")
-        self.decode_head = build_component(HEADS, decode_head, drop)
-        self.auxiliary_head = (build_component(HEADS, auxiliary_head, drop)
+        self.build_heads(decode_head)
+        self.auxiliary_head = (build_component(HEADS, auxiliary_head,
+                                               HEAD_DROP)
                                if auxiliary_head else None)
         if seed is not None:
             init_flax_random(self, torch.Generator().manual_seed(seed))
         self.eval()      # built for serving; forward(train=True) trains
+
+    def build_heads(self, decode_head: Dict[str, Any]) -> None:
+        self.decode_head = build_component(HEADS, decode_head, HEAD_DROP)
 
     @property
     def align_corners(self) -> bool:

@@ -1,6 +1,7 @@
 """Decode heads, NCHW (port of ``peanut_tpu.models.heads``): PSPHead and
 FCNHead, the two on PEANUT's path, in mmseg's module layout; UPerHead,
-DepthwiseSeparableASPPHead, OCRHead and ASPPHead for the zoo, their
+DepthwiseSeparableASPPHead, OCRHead, ASPPHead and SegFormerHead for the
+zoo, their
 submodules named after the flax modules (``ppm0``, ``lateral1``,
 ``fpn_bottleneck``, ``aspp2``, ...), so ``mmseg_import.
 flax_to_torch_state`` carries the JAX package's variables by one rule.
@@ -297,10 +298,15 @@ class OCRHead(DecodeHead):
         self.fuse = ConvModule(2 * channels, channels, 1)
         self.classifier(channels)
 
-    def forward(self, inputs, generator=None) -> torch.Tensor:
+    def forward(self, inputs, generator=None,
+                prev_logits: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``prev_logits``: a cascade's earlier stage's logits as the soft
+        regions (the cascade then drops ``soft_regions``, which flax does
+        not create for such a stage)."""
         feats = self.bottleneck(inputs[self.in_index])
         h, w = feats.shape[-2:]
-        regions = self.soft_regions(feats)
+        regions = (self.soft_regions(feats) if prev_logits is None
+                   else prev_logits)
         probs = torch.softmax(tokens(regions) * self.scale, dim=1)
         pixels = tokens(feats)                               # (B, HW, C)
         context = torch.einsum("bpk,bpc->bkc", probs, pixels)
@@ -311,3 +317,30 @@ class OCRHead(DecodeHead):
                            self.value(context))
         out = untokens(torch.cat([pixels, self.up_proj(ocr)], dim=-1), h, w)
         return self.cls_seg(self.fuse(out), generator)
+
+
+@HEADS.register()
+class SegFormerHead(DecodeHead):
+    """SegFormer's all-MLP head (segformer_head.py): a dense projection of
+    each level's channels (``linear{i}``), resized to the finest level,
+    concatenated, fused by a 1x1 ConvModule."""
+
+    def __init__(self, in_channels: Sequence[int] = (32, 64, 160, 256),
+                 channels: int = 256, num_classes: int = 19,
+                 dropout_ratio: float = 0.1,
+                 in_index: Sequence[int] = (0, 1, 2, 3),
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        _named(self, "linear", [nn.Linear(in_channels[i], channels)
+                                for i in range(len(in_index))])
+        self.fuse = ConvModule(len(in_index) * channels, channels, 1)
+        self.classifier(channels)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        feats = [inputs[i] for i in self.in_index]
+        hw0 = feats[0].shape[-2:]
+        projected = [self.resize(getattr(self, f"linear{i}")(
+            f.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), hw0)
+            for i, f in enumerate(feats)]
+        return self.cls_seg(self.fuse(torch.cat(projected, dim=1)),
+                            generator)

@@ -1,13 +1,15 @@
-"""Zoo decode heads over ResNetV1c, NCHW (port of the ResNetV1c half of
-``peanut_tpu.models.heads_zoo``): ANN, APC, DM, EMA, Enc (with its
-Encoding codebook), DNL, ISA, FPN, PSA and CC.  The reference's CUDA ops
-for the last two (mmcv's ``CrissCrossAttention`` and ``PSAMask``) are dense
-products and a gather here, as in the JAX package (``torch.einsum``,
+"""Zoo decode heads, NCHW (port of ``peanut_tpu.models.heads_zoo``):
+over ResNetV1c, ANN, APC, DM, EMA, Enc (with its Encoding codebook), DNL,
+ISA, FPN, PSA and CC; over the transformers, SETR's UP and MLA heads,
+Segmenter's mask transformer, DPT and PointRend's point head (with
+``point_sample``).  The reference's CUDA ops for CC, PSA and PointRend
+(mmcv's ``CrissCrossAttention``, ``PSAMask`` and ``point_sample``) are
+dense products and gathers here, as in the JAX package (``torch.einsum``,
 ``torch.gather``): no hand-written kernel.  Submodules and parameters are
 named after the flax modules, so ``mmseg_import.flax_to_torch_state``
 carries the JAX package's variables.  The other heads of that file
-(LRASPP, DepthwiseSeparableFCN, SETR, Segmenter, STDC, Point, DPT) wait
-for their backbones (ROADMAP A13).
+(LRASPP, DepthwiseSeparableFCN, STDC) wait for their backbones (ROADMAP
+A13 part 4).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from torch import nn
 
 from ..registry import HEADS
 from .heads import DecodeHead, _named, tokens, untokens
-from .layers import BatchNorm, ConvModule, lecun_normal_
+from .layers import (BatchNorm, ConvModule, InputShaped, LayerNorm,
+                     MultiHeadAttention, gelu, lecun_normal_, ln_nchw,
+                     normal_)
 from .ops import adaptive_avg_pool
 
 
@@ -430,47 +434,29 @@ def _psa_index(h: int, w: int, device) -> torch.Tensor:
             + (j[None, :] - j[:, None] + w - 1))
 
 
-class MaskConv(nn.Module):
+class MaskConv(InputShaped):
     """PSAHead's bias-free 1x1 conv to the (2H-1)(2W-1) relative-position
     masks.  Its output channels follow the feature size, so, as flax
     shapes the kernel at init, the weight takes its shape from the first
     feature map it sees (or from the state dict loaded into it) and is
     held to it after: another size raises, as the JAX package's kernel
-    does.  Its random values come from a seed ``flax_init_`` draws."""
+    does."""
+
+    input_shaped = ("weight",)
 
     def __init__(self, in_channels: int):
         super().__init__()
         self.in_channels = in_channels
-        self.register_parameter("weight", None)
-        self.seed = None
-
-    @torch.no_grad()
-    def flax_init_(self, generator) -> None:
-        self.seed = int(torch.randint(0, 2 ** 62, (),
-                                      generator=generator))
-        self.weight = None
-
-    def _load_from_state_dict(self, state_dict, prefix, *args, **kw):
-        w = state_dict.get(prefix + "weight")
-        if w is not None and self.weight is None:
-            self.weight = nn.Parameter(torch.empty(w.shape, dtype=w.dtype,
-                                                   device=w.device))
-        super()._load_from_state_dict(state_dict, prefix, *args, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
         m = (2 * h - 1) * (2 * w - 1)
-        if self.weight is None:
-            g = (torch.Generator().manual_seed(self.seed)
-                 if self.seed is not None else None)
-            self.weight = nn.Parameter(lecun_normal_(
-                torch.empty(m, self.in_channels, 1, 1), self.in_channels,
-                g).to(device=x.device, dtype=x.dtype))
-        elif self.weight.shape[0] != m:
-            raise ValueError(
-                f"PSAHead's masks were shaped for {self.weight.shape[0]} "
-                f"relative positions, a {h}x{w} feature map needs {m}")
-        return F.conv2d(x, self.weight)
+        weight = self.bind(
+            "weight", (m, self.in_channels, 1, 1), x,
+            lambda t, g: lecun_normal_(t, self.in_channels, g),
+            f"PSAHead's masks were shaped for other relative positions "
+            f"than a {h}x{w} feature map's {m}")
+        return F.conv2d(x, weight)
 
 
 @HEADS.register()
@@ -560,3 +546,260 @@ class CCHead(DecodeHead):
                    + torch.einsum("biju,biuc->bijc", attn[..., h:], v))
             y = y + self.cca_gamma * out.permute(0, 3, 1, 2)
         return self.cls_seg(self.conv1(torch.cat([x, y], 1)), generator)
+
+
+@HEADS.register()
+class SETRUPHead(DecodeHead):
+    """SETR's naive / PUP head (setr_up_head.py): an LN on the ViT map,
+    then ``num_convs`` ConvModules, each followed by an ``up_scale``
+    bilinear upsampling."""
+
+    def __init__(self, in_channels: int = 1024, channels: int = 256,
+                 num_classes: int = 19, num_convs: int = 1,
+                 up_scale: int = 4, kernel_size: int = 3,
+                 dropout_ratio: float = 0.0, in_index: int = -1,
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        self.up_scale = up_scale
+        self.norm = LayerNorm(in_channels)
+        _named(self, "up_conv", [
+            ConvModule(in_channels if i == 0 else channels, channels,
+                       kernel_size, padding=kernel_size // 2)
+            for i in range(num_convs)])
+        self.num_convs = num_convs
+        self.classifier(channels)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        x = ln_nchw(self.norm, inputs[self.in_index])
+        for i in range(self.num_convs):
+            x = getattr(self, f"up_conv{i}")(x)
+            x = self.resize(x, (x.shape[-2] * self.up_scale,
+                                x.shape[-1] * self.up_scale))
+        return self.cls_seg(x, generator)
+
+
+@HEADS.register()
+class SETRMLAHead(DecodeHead):
+    """SETR's MLA head (setr_mla_head.py): two 3x3 ConvModules and an
+    ``up_scale`` upsampling per stream, the streams concatenated and
+    classified."""
+
+    def __init__(self, in_channels: Sequence[int] = (256, 256, 256, 256),
+                 channels: int = 512, num_classes: int = 19,
+                 mla_channels: int = 128, up_scale: int = 4,
+                 dropout_ratio: float = 0.0,
+                 in_index: Sequence[int] = (0, 1, 2, 3),
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        self.up_scale = up_scale
+        for c, i in zip(in_channels, in_index):
+            self.add_module(f"up{i}_conv0", ConvModule(c, mla_channels, 3,
+                                                       padding=1))
+            self.add_module(f"up{i}_conv1", ConvModule(
+                mla_channels, mla_channels, 3, padding=1))
+        self.classifier(len(in_index) * mla_channels)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        outs = []
+        for i in self.in_index:
+            y = getattr(self, f"up{i}_conv1")(
+                getattr(self, f"up{i}_conv0")(inputs[i]))
+            outs.append(self.resize(y, (y.shape[-2] * self.up_scale,
+                                        y.shape[-1] * self.up_scale)))
+        return self.cls_seg(torch.cat(outs, dim=1), generator)
+
+
+class _TransformerLayer(nn.Module):
+    """A pre-LN transformer layer: flax's multi-head attention, then an
+    MLP with flax's tanh GELU."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = MultiHeadAttention(dim, num_heads)
+        self.norm2 = LayerNorm(dim)
+        self.fc1 = nn.Linear(dim, dim * mlp_ratio)
+        self.fc2 = nn.Linear(dim * mlp_ratio, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm1(x)
+        x = x + self.attn(y, y)
+        return x + self.fc2(gelu(self.fc1(self.norm2(x)), approximate=True))
+
+
+@HEADS.register()
+class SegmenterMaskTransformerHead(DecodeHead):
+    """Segmenter's mask transformer (segmenter_mask_head.py): the patch
+    tokens and learned class tokens (``cls_emb``) through transformer
+    layers; the masks are the L2-normalised patch-class similarities,
+    layer-normalised over the classes (``mask_norm``).  No ``conv_seg``."""
+
+    def __init__(self, in_channels: int = 768, channels: int = 768,
+                 num_classes: int = 19, num_layers: int = 2,
+                 num_heads: int = 12, dropout_ratio: float = 0.0,
+                 in_index: int = -1, align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        self.channels = channels
+        self.proj_dec = nn.Linear(in_channels, channels)
+        self.cls_emb = nn.Parameter(torch.empty(1, num_classes, channels))
+        _named(self, "layer", [_TransformerLayer(channels, num_heads)
+                               for _ in range(num_layers)])
+        self.num_layers = num_layers
+        self.decoder_norm = LayerNorm(channels)
+        self.patch_proj = nn.Linear(channels, channels)
+        self.classes_proj = nn.Linear(channels, channels)
+        self.mask_norm = LayerNorm(num_classes)
+
+    @torch.no_grad()
+    def flax_init_(self, generator) -> None:
+        normal_(self.cls_emb, 0.02, generator, truncated=True)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        x = inputs[self.in_index]
+        b, _, h, w = x.shape
+        t = torch.cat([self.proj_dec(tokens(x)),
+                       self.cls_emb.expand(b, -1, -1)], dim=1)
+        for i in range(self.num_layers):
+            t = getattr(self, f"layer{i}")(t)
+        t = self.decoder_norm(t)
+        patches = self.patch_proj(t[:, :h * w]) / (self.channels ** 0.5)
+        classes = self.classes_proj(t[:, h * w:])
+        masks = torch.einsum("bnc,bkc->bnk", _l2norm(patches, -1),
+                             _l2norm(classes, -1))
+        return untokens(self.mask_norm(masks), h, w)
+
+
+def _sample_axis(p: torch.Tensor, size: int, align_corners: bool):
+    """The low and high cells and the fraction of normalised float32
+    coordinates ``p`` on an axis of ``size`` cells, rounded as XLA's CPU
+    backend rounds the JAX package's arithmetic under ``jit``: it
+    contracts a multiply and the add after it into one rounding, so the
+    scaled coordinate is p * size - 0.5 rounded once, and, with
+    ``align_corners``, the fraction p * (size - 1) - low rounded once.
+    Exact products and sums in float64, then one rounding, do the same."""
+    dt = p.dtype
+    if align_corners:
+        exact = p.double() * (size - 1)
+        pos = exact.to(dt)
+    else:
+        pos = (p.double() * size - 0.5).to(dt)
+    lo = torch.clamp(torch.floor(pos), 0, size - 1)
+    hi = torch.clamp(lo + 1, 0, size - 1)
+    frac = (exact - lo).to(dt) if align_corners else pos - lo
+    return lo, hi, torch.clamp(frac, 0.0, 1.0)
+
+
+def point_sample(feats: torch.Tensor, points: torch.Tensor,
+                 align_corners: bool = False) -> torch.Tensor:
+    """Bilinear samples of (B, C, H, W) maps at normalised [0, 1]^2 float32
+    points (B, P, 2 as (x, y)): (B, C, P), in the maps' type.  The JAX
+    package's arithmetic (``_sample_axis``): the corner weights in
+    float32, the corners clamped to the map."""
+    b, c, h, w = feats.shape
+    x0, x1, fx = _sample_axis(points[..., 0], w, align_corners)
+    y0, y1, fy = _sample_axis(points[..., 1], h, align_corners)
+    flat = feats.reshape(b, c, h * w)
+
+    def gather(yy, xx):
+        idx = (yy * w + xx).long()
+        return torch.gather(flat, 2, idx[:, None, :].expand(b, c, -1))
+
+    return (gather(y0, x0) * ((1 - fy) * (1 - fx))[:, None]
+            + gather(y0, x1) * ((1 - fy) * fx)[:, None]
+            + gather(y1, x0) * (fy * (1 - fx))[:, None]
+            + gather(y1, x1) * (fy * fx)[:, None]).to(feats.dtype)
+
+
+@HEADS.register()
+class PointHead(DecodeHead):
+    """PointRend's point head (point_head.py): an MLP of 1-D convs (kernel
+    1, ``fc{i}``, ReLU) over the fine features and the coarse logits
+    sampled at the points, the coarse logits joined again after each
+    layer (``coarse_pred_each_layer``), ``fc_seg`` to the classes.  The
+    cascade (``cascade.CascadeEncoderDecoder``) runs the subdivision."""
+
+    def __init__(self, in_channels: Sequence[int] = (256,),
+                 channels: int = 256, num_classes: int = 19,
+                 num_fcs: int = 3, coarse_pred_each_layer: bool = True,
+                 dropout_ratio: float = 0.0, in_index: Sequence[int] = (0,),
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        self.coarse_pred_each_layer = coarse_pred_each_layer
+        extra = num_classes if coarse_pred_each_layer else 0
+        cin = sum(in_channels) + num_classes
+        for i in range(num_fcs):
+            self.add_module(f"fc{i}", nn.Conv1d(cin, channels, 1))
+            cin = channels + extra
+        self.num_fcs = num_fcs
+        self.fc_seg = nn.Conv1d(cin, num_classes, 1)
+
+    def forward(self, fine_feats, coarse_logits: torch.Tensor,
+                points: torch.Tensor) -> torch.Tensor:
+        """fine_feats: the levels (B, C, H, W); coarse_logits (B, K, h, w);
+        points (B, P, 2) normalised -> point logits (B, K, P)."""
+        fine = torch.cat([point_sample(fine_feats[i], points,
+                                       self.align_corners)
+                          for i in self.in_index], dim=1)
+        coarse = point_sample(coarse_logits, points, self.align_corners)
+        x = torch.cat([fine, coarse], dim=1)
+        for i in range(self.num_fcs):
+            x = F.relu(getattr(self, f"fc{i}")(x))
+            if self.coarse_pred_each_layer:
+                x = torch.cat([x, coarse], dim=1)
+        return self.fc_seg(x)
+
+    @staticmethod
+    def uncertainty(logits: torch.Tensor) -> torch.Tensor:
+        """-(top1 - top2) of (B, K, H, W) logits over the classes: (B, H,
+        W) (point_head.py calculate_uncertainty)."""
+        top2 = torch.topk(logits, 2, dim=1).values
+        return top2[:, 1] - top2[:, 0]
+
+
+@HEADS.register()
+class DPTHead(DecodeHead):
+    """DPT's head (dpt_head.py): the equal-sized ViT taps reassembled into
+    a 4x .. 0.5x pyramid (1x1 projection, resize, 3x3 conv), fused top
+    down through residual conv units, projected and classified."""
+
+    def __init__(self, in_channels: Sequence[int] = (768, 768, 768, 768),
+                 channels: int = 256, num_classes: int = 19,
+                 embed_dims: int = 768,
+                 post_process_channels: Sequence[int] = (96, 192, 384, 768),
+                 dropout_ratio: float = 0.0,
+                 in_index: Sequence[int] = (0, 1, 2, 3),
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        n = min(len(in_index), 4)
+        for i in range(n):
+            self.add_module(f"reassemble{i}_proj", nn.Conv2d(
+                in_channels[i], post_process_channels[i], 1))
+            self.add_module(f"reassemble{i}_out", nn.Conv2d(
+                post_process_channels[i], channels, 3, padding=1,
+                bias=False))
+        # the JAX head names the coarsest level's unit "fusion3" whatever
+        # the number of levels
+        for i in [3] + list(range(n - 2, -1, -1)):
+            for j in range(2):
+                self.add_module(f"fusion{i}_res_conv{j}", nn.Conv2d(
+                    channels, channels, 3, padding=1))
+        self.project = ConvModule(channels, channels, 3, padding=1)
+        self.classifier(channels)
+
+    def _residual(self, z: torch.Tensor, i: int) -> torch.Tensor:
+        y = getattr(self, f"fusion{i}_res_conv0")(F.relu(z))
+        return z + getattr(self, f"fusion{i}_res_conv1")(F.relu(y))
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        feats = [inputs[i] for i in self.in_index]
+        h, w = feats[0].shape[-2:]
+        pyramid = []
+        for i, (f, s) in enumerate(zip(feats, (4.0, 2.0, 1.0, 0.5))):
+            y = self.resize(getattr(self, f"reassemble{i}_proj")(f),
+                            (max(int(h * s), 1), max(int(w * s), 1)))
+            pyramid.append(getattr(self, f"reassemble{i}_out")(y))
+        out = self._residual(pyramid[-1], 3)
+        for i in range(len(pyramid) - 2, -1, -1):
+            out = self._residual(
+                self.resize(out, pyramid[i].shape[-2:]) + pyramid[i], i)
+        return self.cls_seg(self.project(out), generator)

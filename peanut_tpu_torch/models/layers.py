@@ -10,6 +10,14 @@ is flax's ``nn.BatchNorm`` (eps 1e-5, momentum 0.9): in eval mode the
 frozen batch norm of inference, in train mode batch statistics and a
 running-average update.  ``remat`` runs a block under
 ``torch.utils.checkpoint`` as ``nn.remat`` does in the JAX package.
+
+The transformers' pieces: ``LayerNorm`` (flax's epsilon, 1e-6), ``gelu``
+(each call site names its form: flax's default is the tanh approximation,
+torch's the exact erf), ``MultiHeadAttention`` (flax's
+``MultiHeadDotProductAttention``), ``SameConv2d`` (flax's ``nn.Conv``
+with its default ``"SAME"`` padding) and ``InputShaped``, the base of a
+module whose parameter takes its shape from the first input, as flax
+shapes a variable at init.
 """
 
 from __future__ import annotations
@@ -181,7 +189,7 @@ def init_flax_random(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = m.weight
             fan_in = int(np.prod(w.shape[1:]))
             w.copy_(lecun_normal_(torch.empty(w.shape), fan_in, generator))
@@ -189,3 +197,173 @@ def init_flax_random(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif hasattr(m, "flax_init_"):
             m.flax_init_(generator)
+
+
+LN_EPS = 1e-6         # flax's nn.LayerNorm
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm over the last axis with flax's epsilon (1e-6; torch's
+    default is 1e-5)."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=LN_EPS)
+
+
+def ln_nchw(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm over the channels of a (B, C, H, W) map (flax's over the
+    last axis of an NHWC one)."""
+    return norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """GELU in the form the call site names: ``approximate=True`` is
+    flax's default ``nn.gelu`` (tanh), ``False`` the exact erf form."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def heads_split(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, H*D) -> (B, H, N, D)."""
+    b, n, c = t.shape
+    return t.reshape(b, n, heads, c // heads).transpose(1, 2)
+
+
+def heads_merge(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, D) -> (B, N, H*D)."""
+    b, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * d)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           divisor=None, bias=None) -> torch.Tensor:
+    """softmax(q k^T / divisor + bias) v over (B, H, N, D) heads: the
+    product divided by ``divisor`` where the JAX module divides it (by
+    sqrt(head_dim)), or not, where it scaled the queries already."""
+    attn = torch.einsum("bhnd,bhmd->bhnm", q, k)
+    if divisor is not None:
+        attn = attn / divisor
+    if bias is not None:
+        attn = attn + bias
+    return torch.einsum("bhnm,bhmd->bhnd", torch.softmax(attn, dim=-1), v)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax's ``nn.MultiHeadDotProductAttention`` (no dropout, no mask):
+    ``query`` / ``key`` / ``value`` projections to heads x head_dim, each
+    with a bias, the query divided by sqrt(head_dim) before its product
+    with the keys, a softmax, and the ``out`` projection.  flax's
+    (C, heads, head_dim) kernels are the port's (heads * head_dim, C)
+    ``nn.Linear`` weights (``mmseg_import.flax_to_torch_state`` reshapes
+    them)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        h = self.num_heads
+        q = heads_split(self.query(x), h)
+        q = q / math.sqrt(q.shape[-1])
+        out = attend(q, heads_split(self.key(kv), h),
+                     heads_split(self.value(kv), h))
+        return self.out(heads_merge(out))
+
+
+def same_pads(size: int, kernel: int, stride: int):
+    """flax's (lax's) ``"SAME"`` padding of one axis: (low, high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """nn.Conv2d with flax ``nn.Conv``'s default ``"SAME"`` padding: the
+    output has ceil(size / stride) cells a side, the padding split with
+    the odd cell at the end."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        ph, pw = same_pads(x.shape[-2], kh, sh), same_pads(x.shape[-1], kw, sw)
+        if any(ph + pw):
+            x = F.pad(x, (*pw, *ph))
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
+                        self.dilation, self.groups)
+
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator,
+            truncated: bool = False) -> torch.Tensor:
+    """flax's ``normal(std)`` or ``truncated_normal(std)`` (cut at +-2
+    standard deviations, scaled back to std) into ``t``."""
+    with torch.no_grad():
+        if not truncated:
+            return t.normal_(0.0, std, generator=generator)
+        s = std / 0.87962566103423978
+        return nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s,
+                                     generator=generator)
+
+
+class InputShaped(nn.Module):
+    """The base of a module whose parameters named in ``input_shaped``
+    take their shape from the input, as flax shapes a variable from the
+    input it is initialised on: each is None until the first forward
+    binds it (``bind``) or a loaded state dict gives it, and is held to
+    that shape after; another raises ValueError, where the JAX package's
+    variable would not fit.  Its random values come from a seed that
+    ``flax_init_`` draws, so a seed gives the same weights whatever
+    device binds them."""
+
+    input_shaped: tuple = ()
+
+    def __init__(self):
+        super().__init__()
+        for name in self.input_shaped:
+            self.register_parameter(name, None)
+        self.shape_seed = None
+
+    @torch.no_grad()
+    def flax_init_(self, generator) -> None:
+        self.shape_seed = int(torch.randint(0, 2 ** 62, (),
+                                            generator=generator))
+        for name in self.input_shaped:
+            self._parameters[name] = None
+
+    def unbound(self) -> bool:
+        return any(self._parameters[n] is None for n in self.input_shaped)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kw):
+        for name in self.input_shaped:
+            w = state_dict.get(prefix + name)
+            if w is not None and self._parameters[name] is None:
+                self._parameters[name] = nn.Parameter(torch.empty(
+                    w.shape, dtype=w.dtype, device=w.device))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kw)
+
+    def bind(self, name: str, shape, like: torch.Tensor, init,
+             mismatch: str) -> torch.Tensor:
+        """The parameter ``name``, made now of ``shape`` (on ``like``'s
+        device and in its type, drawn by ``init(tensor, generator)``) if
+        it is unbound; ValueError with ``mismatch`` if it was bound to
+        another shape."""
+        p = self._parameters[name]
+        shape = tuple(shape)
+        if p is None:
+            g = (torch.Generator().manual_seed(self.shape_seed)
+                 if self.shape_seed is not None else None)
+            with torch.no_grad():
+                w = init(torch.empty(shape, dtype=torch.float32), g)
+            p = nn.Parameter(w.to(device=like.device, dtype=like.dtype))
+            self._parameters[name] = p
+        elif tuple(p.shape) != shape:
+            raise ValueError(f"{mismatch}: {name} has shape "
+                             f"{tuple(p.shape)}, this input needs {shape}")
+        return p
+
+
+def needs_binding(model: nn.Module) -> bool:
+    """Whether a parameter of ``model`` waits for an input to shape it."""
+    return any(isinstance(m, InputShaped) and m.unbound()
+               for m in model.modules())

@@ -93,7 +93,7 @@ def _mmseg_name(path: Tuple[str, ...]):
         if part == "downsample_bn" and rest[1] == "bn":
             return f"{block}.downsample.1.{_BN[leaf]}"
         return None
-    if top in ("decode_head", "auxiliary_head"):
+    if re.fullmatch(r"decode_head\d*|auxiliary_head", top):
         if sub == "conv_seg" and rest[0] == "conv":
             return f"{top}.conv_seg.{'weight' if leaf == 'kernel' else 'bias'}"
         unit = _unit(top, sub)
@@ -134,7 +134,7 @@ _LEAF = {"conv": {"kernel": "weight", "bias": "bias"},
 
 
 def _kind(m: torch.nn.Module):
-    if isinstance(m, (torch.nn.Conv2d, MaskConv)):
+    if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d, MaskConv)):
         return "conv"
     if isinstance(m, torch.nn.Linear):
         return "dense"
@@ -152,7 +152,8 @@ def _generic_name(model: torch.nn.Module, path: Tuple[str, ...]):
     ``norm/bn`` the port's ``bn``, and the inner ``conv`` of a ``Conv2d``
     (``bn`` of a ``BatchNorm``) is the port's conv (batch norm) itself.
     The leaf maps by the port module's type (``_LEAF``); a bare parameter
-    (a gate, a codebook, a basis) keeps its name."""
+    (a gate, a codebook, a basis, a positional embedding) keeps its name.
+    Returns the name and the port module that holds it."""
     mod, names = model, []
     for c in path[:-1]:
         child = mod._modules.get(c)
@@ -172,7 +173,27 @@ def _generic_name(model: torch.nn.Module, path: Tuple[str, ...]):
     leaf = _LEAF[kind].get(path[-1]) if kind else path[-1]
     if leaf is None or not (leaf in mod._parameters or leaf in mod._buffers):
         return None
-    return ".".join(names + [leaf])
+    return ".".join(names + [leaf]), mod
+
+
+def _port_layout(arr: np.ndarray, mod: torch.nn.Module, leaf: str):
+    """A flax variable in the layout of the port module ``mod`` that
+    receives it as ``leaf``: a conv kernel (spatial..., in, out) as (out,
+    in, spatial...), whatever its rank (2-D, and the 1-D convs of
+    PointHead); a dense kernel, flax's (in..., out...) with its input and
+    output axes possibly split (``MultiHeadDotProductAttention``'s
+    (C, heads, head_dim) and (heads, head_dim, C)), as the (out, in)
+    weight of the ``nn.Linear``, and its bias flat; anything else (norms,
+    a positional embedding, a table, a gate) as it is."""
+    kind = _kind(mod)
+    if kind == "conv" and leaf == "weight":
+        nd = arr.ndim
+        return arr.transpose((nd - 1, nd - 2) + tuple(range(nd - 2)))
+    if kind == "dense" and leaf == "weight":
+        return arr.reshape(mod.in_features, mod.out_features).T
+    if kind == "dense":
+        return arr.reshape(mod.out_features)
+    return arr
 
 
 def flax_to_torch_state(variables: Mapping[str, Any],
@@ -181,8 +202,10 @@ def flax_to_torch_state(variables: Mapping[str, Any],
     "batch_stats"}, numpy or anything ``np.asarray`` reads) as a state
     dict of the port's ``model`` built from the same config.  ResNetV1c,
     PSPHead and FCNHead go by their mmseg names (``flax_to_mmseg_state``'s
-    rule); the rest by ``_generic_name``: conv kernels HWIO -> OIHW, dense
-    kernels (in, out) -> (out, in), batch and layer norms' ``scale`` ->
+    rule); the rest by ``_generic_name``, in the layout of the port module
+    that receives each (``_port_layout``: conv kernels by the conv's rank,
+    dense kernels transposed, attention kernels reshaped, other
+    parameters as they are), batch and layer norms' ``scale`` ->
     ``weight`` and the batch statistics ``mean`` / ``var`` ->
     ``running_mean`` / ``running_var``.  float64 stays float64, anything
     else becomes float32.  Raises KeyError on any flax variable it does
@@ -192,18 +215,20 @@ def flax_to_torch_state(variables: Mapping[str, Any],
     for col in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(col, {})):
             top = model._modules.get(path[0])
+            arr = _array(value)
             if isinstance(top, (ResNetV1c, PSPHead, FCNHead)):
                 name = _mmseg_name(path) if len(path) > 2 else None
+                if arr.ndim == 4:
+                    arr = arr.transpose(_CONV_T)
             else:
-                name = _generic_name(model, path)
+                found = _generic_name(model, path)
+                name = None
+                if found is not None:
+                    name, mod = found
+                    arr = _port_layout(arr, mod, name.rsplit(".", 1)[-1])
             if name is None or name in sd:
                 left.append("/".join((col,) + path))
                 continue
-            arr = _array(value)
-            if arr.ndim == 4:
-                arr = arr.transpose(_CONV_T)
-            elif arr.ndim == 2 and path[-1] == "kernel":
-                arr = arr.T
             sd[name] = np.ascontiguousarray(arr)
     if left:
         raise KeyError(f"Unconverted flax variables: {left[:8]}")

@@ -864,3 +864,27 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         assert float((gg[n] - gc[n]).abs().max()) <= 1e-4 * top, n
     for n in sc:
         torch.testing.assert_close(sg[n], sc[n], rtol=1e-5, atol=1e-5)
+
+
+def test_swin_on_the_card_matches_the_cpu(cuda):
+    """UPerNet-Swin-T at its config's widths (150 classes), seeded, in
+    float64 on the card and the CPU on a 96x160 input (its 24x40 patch
+    grid pads to the 7x7 windows, the shifted blocks roll and mask):
+    within 1e-8 of the largest |logit|."""
+    import copy
+    import os
+
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        root, "configs/swin/upernet_swin-t_512x512_160k_ade20k.py"))
+    model = build_segmentor(cfg["model"], seed=0).double()
+    x = torch.as_tensor(np.random.RandomState(11).rand(1, 3, 96, 160))
+    with torch.no_grad():
+        want = model(x)
+        got = copy.deepcopy(model).to(cuda)(x.to(cuda)).cpu()
+    assert got.shape == (1, 150, 96, 160)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-8 * float(want.abs().max())

@@ -14,7 +14,11 @@
   ``train_segmentor`` raises naming ROADMAP A13.
 * PSAHead's masks take their shape from the first feature map, as flax's
   kernel from init, and another size raises; ``init_segmentor`` binds
-  them before any request.
+  them before any request.  So it binds MAE's positional embedding and
+  BEiT's relative-position tables: MAE then serves its bound size (the
+  JAX package's variables carried in as a ``.pth`` answer as the JAX
+  APIs do) and raises ValueError at another.
+* ``cli.benchmark`` runs UPerNet-Swin-T (ADE20K) at ``--size 64``.
 """
 
 import contextlib
@@ -45,6 +49,7 @@ from torch_zoo_support import one_thread  # noqa: F401  (autouse)
 
 UPERNET = os.path.join(REPO, "configs/upernet/"
                        "upernet_r50_512x1024_80k_cityscapes.py")
+SWIN = os.path.join(REPO, "configs/swin/upernet_swin-t_512x512_160k_ade20k.py")
 
 
 @pytest.fixture(scope="module")
@@ -201,3 +206,42 @@ def test_init_segmentor_binds_psa_masks_before_serving():
         assert mask.shape[0] == (2 * h - 1) * (2 * w - 1)
         assert bundle.model.to(torch.float64).decode_head \
             .distribute_attn1.weight.dtype == torch.float64
+
+
+def test_mae_serves_the_size_its_weights_were_bound_at(tmp_path):
+    cfg = family_config("mae")
+    bundle = apis.init_segmentor(cfg, input_size=64, device="cpu")
+    assert bundle.model.backbone.pos_embed.shape == (1, 16, 96)
+    img = np.random.RandomState(7).rand(64, 64, 3).astype(np.float32)
+    probs = apis.inference_segmentor(bundle, img)
+    assert probs.shape == (19, 64, 64) and np.isfinite(probs).all()
+    with pytest.raises(ValueError, match="positional embedding"):
+        apis.inference_segmentor(bundle, img[:, :48])
+    # the JAX package's variables, shaped by a 64x64 init, as a .pth
+    jm = jbuild(cfg)
+    v = random_variables(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, jax.numpy.zeros((1, 64, 64, 3)),
+        train=False))
+    v = randomize(v, np.random.RandomState(8), np.float32)
+    sd = flax_to_torch_state(v, build_segmentor(cfg))
+    pth = str(tmp_path / "mae.pth")
+    torch.save({"state_dict": {k: torch.as_tensor(a)
+                               for k, a in sd.items()}}, pth)
+    bundle = apis.init_segmentor(cfg, checkpoint=pth, device="cpu")
+    want = j_inference(JBundle(jm, v, {"model": cfg}), img)
+    assert rel_err(apis.inference_segmentor(bundle, img), want) <= 1e-4
+
+
+def test_init_segmentor_binds_beit_tables():
+    bundle = apis.init_segmentor(family_config("beit"), input_size=64,
+                                 device="cpu")
+    # a 4x4 patch grid: (2 * 4 - 1)^2 relative positions, 3 heads
+    assert bundle.model.backbone.block0.rel_pos_bias.shape == (49, 3)
+    img = np.random.RandomState(9).rand(64, 64, 3).astype(np.float32)
+    assert np.isfinite(apis.inference_segmentor(bundle, img)).all()
+
+
+def test_benchmark_runs_swin(capsys):
+    out = benchmark.main([SWIN, "--size", "64", "--batch", "1",
+                          "--device", "cpu"])
+    assert out["maps_per_sec"] > 0 and out["dtype"] == "bfloat16"

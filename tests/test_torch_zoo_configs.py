@@ -5,11 +5,12 @@
 * ``core.config_file.load_config`` gives the JAX loader's dict for every
   file under ``configs/*/*.py``, and the same merge and ``_delete_``
   semantics.
-* Every config of the twenty ResNetV1c EncoderDecoder families (134)
-  builds on ``device="meta"``, and a meta forward at 64x128 gives logits of
-  the config's classes (the channel arithmetic of every module checked
-  without memory); every other config raises NotImplementedError naming
-  ROADMAP A13 -- the sweep accounts for all 302.
+* Every config of the twenty ResNetV1c EncoderDecoder families, the ten
+  transformer families and the two cascade ones (218) builds on
+  ``device="meta"``, and a meta forward at 64x128 gives logits of the
+  config's classes (the channel arithmetic of every module checked
+  without memory); every other config (84) raises NotImplementedError
+  naming ROADMAP A13 -- the sweep accounts for all 302.
 """
 
 import glob
@@ -25,7 +26,7 @@ from peanut_tpu_torch.core.config_file import load_config, merge_dict
 from peanut_tpu_torch.models.builder import build_segmentor
 from peanut_tpu_torch.registry import Registry
 
-from torch_zoo_support import FAMILIES
+from torch_zoo_support import PORTED
 from torch_zoo_support import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,15 +88,15 @@ def test_load_config_equals_the_jax_loader(path):
 
 
 def test_the_sweep_covers_every_config():
-    built = [p for p in MODELS if _family(p) in FAMILIES]
-    assert len(MODELS) == 302 and len(built) == 134
-    assert {_family(p) for p in built} == set(FAMILIES)
+    built = [p for p in MODELS if _family(p) in PORTED]
+    assert len(MODELS) == 302 and len(built) == 218
+    assert {_family(p) for p in built} == set(PORTED)
 
 
 @pytest.mark.parametrize("path", MODELS, ids=_id)
 def test_config_builds_or_names_a13(path):
     model_cfg = load_config(path)["model"]
-    if _family(path) not in FAMILIES:
+    if _family(path) not in PORTED:
         with pytest.raises(NotImplementedError, match="A13"):
             build_segmentor(model_cfg, device="meta")
         return
@@ -103,5 +104,6 @@ def test_config_builds_or_names_a13(path):
     in_ch = model_cfg["backbone"].get("in_channels", 3)
     with torch.no_grad():
         out = model.inference(torch.empty(1, 64, 128, in_ch, device="meta"))
-    assert tuple(out.shape) == (1, 64, 128,
-                                model_cfg["decode_head"]["num_classes"])
+    head = model_cfg["decode_head"]
+    head = head[-1] if isinstance(head, list) else head
+    assert tuple(out.shape) == (1, 64, 128, head["num_classes"])

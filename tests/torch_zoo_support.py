@@ -21,6 +21,22 @@ FAMILIES = ("ann", "apcnet", "ccnet", "danet", "deeplabv3", "deeplabv3plus",
             "dmnet", "dnlnet", "emanet", "encnet", "fastfcn", "fcn", "gcnet",
             "isanet", "nonlocal_net", "ocrnet", "psanet", "pspnet",
             "sem_fpn", "upernet")
+# the transformer families (ROADMAP A13 part 3) and the cascade ones
+# (part 2: K-Net's head over ResNetV1c, PointRend's CascadeEncoderDecoder)
+TRANSFORMER_FAMILIES = ("beit", "convnext", "dpt", "mae", "segformer",
+                        "segmenter", "setr", "swin", "twins", "vit")
+CASCADE_FAMILIES = ("knet", "point_rend")
+PORTED = FAMILIES + TRANSFORMER_FAMILIES + CASCADE_FAMILIES
+# depth cuts of the published widths in the CPU parity tests, which keep a
+# file near a minute on one core (the card runs the configs as they are):
+# ViT-B/16 keeps its width and four of its twelve blocks, a tap after
+# each; Swin-T keeps its widths and two blocks a stage (one shifted)
+CUTS = {"vit": dict(depth=4, out_indices=(0, 1, 2, 3)),
+        "swin": dict(depths=(2, 2, 2, 2))}
+# the whole-model check's input: 64x128, but 32x64 for the three UPerNets
+# of 512 channels (float64 convolutions in XLA's CPU backend take most of
+# their time); Swin's grids still pad to its 7x7 windows
+CHECK_HW = {"convnext": (32, 64), "swin": (32, 64), "vit": (32, 64)}
 # the attention gates that start at 0: set non-zero, or a parity test
 # would pass with the attention branch wrong
 GATES = ("gamma", "cca_gamma")
@@ -89,11 +105,14 @@ def random_variables(init_fn, seed: int = 1):
 
 def family_config(family: str) -> dict:
     """The first config of ``configs/<family>/`` at
-    ``tests/test_zoo_forward.py``'s ``SHRINK`` widths."""
+    ``tests/test_zoo_forward.py``'s ``SHRINK`` widths, with the family's
+    depth cut (``CUTS``)."""
     from peanut_tpu.core.config_file import load_config
     from test_zoo_forward import shrink_cfg
     path = sorted(glob.glob(os.path.join(REPO, "configs", family, "*.py")))[0]
-    return shrink_cfg(load_config(path)["model"])
+    cfg = shrink_cfg(load_config(path)["model"])
+    cfg["backbone"].update(CUTS.get(family, {}))
+    return cfg
 
 
 def jax_and_port(cfg, hw, seed=0):
@@ -113,10 +132,11 @@ def jax_and_port(cfg, hw, seed=0):
 
 
 def check_family(family: str) -> None:
-    """The family's whole model at SHRINK widths on a 64x128 input, in
-    float64 on both sides: logits within 1e-9 of the largest |logit|, and
-    ``predict_labels`` equal."""
-    jm, v, pm, x = jax_and_port(family_config(family), (64, 128))
+    """The family's whole model at SHRINK widths on a 64x128 input (or
+    ``CHECK_HW``'s), in float64 on both sides: logits within 1e-9 of the
+    largest |logit|, and ``predict_labels`` equal."""
+    jm, v, pm, x = jax_and_port(family_config(family),
+                                CHECK_HW.get(family, (64, 128)))
     with jax.enable_x64(True):
         fn = jax.jit(lambda v, x: jm.apply(v, x, method=lambda m, x: (
             m.inference(x), m.predict_labels(x))))
@@ -127,3 +147,28 @@ def check_family(family: str) -> None:
     assert want.dtype == got.dtype == np.float64
     assert rel_err(got, want) <= 1e-9
     np.testing.assert_array_equal(labels, want_labels)
+
+
+def carried_module(jmod, tmod, *init_args, seed: int = 2, **init_kw):
+    """Seeded float64 variables of the flax module ``jmod`` (shaped by an
+    init on ``init_args``), carried into the port's ``tmod`` by
+    ``flax_to_torch_state`` (under a holder's child ``m``, so every
+    variable and parameter must be placed).  Returns the variables."""
+    from torch import nn
+    shapes = jax.tree_util.tree_map(        # the init traces in float32
+        lambda a: np.asarray(a, np.float32), init_args)
+    v = random_variables(lambda: jmod.init(
+        {"params": jax.random.PRNGKey(0)}, *shapes, **init_kw))
+    v = randomize(v, np.random.RandomState(seed), np.float64)
+    holder = nn.Module()
+    holder.add_module("m", tmod)
+    carry({c: {"m": t} for c, t in v.items()}, holder)
+    return v
+
+
+def jax64(jmod, v, *args, **kw):
+    """``jmod.apply(v, *args, **kw)`` in float64 (``args`` numpy arrays,
+    ``kw`` static), the outputs as numpy."""
+    with jax.enable_x64(True):
+        out = jax.jit(lambda v, *a: jmod.apply(v, *a, **kw))(v, *args)
+    return jax.tree_util.tree_map(np.asarray, out)
