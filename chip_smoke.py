@@ -124,12 +124,13 @@ Phases (each prints one JSON line):
                largest; float32 with TF32 off: the loss within 1e-5, the
                gradients reported);
  12. zoo    — the model zoo's serving path, every family the port builds
-               (thirty-two: the twenty ResNetV1c EncoderDecoder ones, ann
-               ... upernet, the ten transformer ones, beit ... vit, and
-               the cascade ones, knet and point_rend), each its 80k
-               Cityscapes config at the config's own widths from --seed
-               with random batch statistics and non-zero attention gates
-               and layer scales: the card against the CPU in float64 on a
+               (forty-four: the twenty ResNetV1c EncoderDecoder ones, ann
+               ... upernet, the ten transformer ones, beit ... vit, the
+               cascade ones, knet and point_rend, and the twelve light-CNN
+               ones, bisenetv1 ... unet), each its 80k Cityscapes config
+               at the config's own widths from --seed with random batch
+               statistics, non-zero attention gates, layer scales and
+               seeded PReLU slopes: the card against the CPU in float64 on a
                128x256 input (1e-8 of the largest |logit|), then one
                512x1024 forward timed in float32 (TF32 off) and bfloat16
                (zoo_family; BEiT's tables and MAE's positional embedding
@@ -139,7 +140,9 @@ Phases (each prints one JSON line):
                POST /probs of a seeded 1024x2048x3 .npy: every reply 200,
                (19, 1024, 2048) and equal to inference_segmentor called
                directly (zoo_serve: ms per request, peak memory); the same
-               for configs/swin/upernet_swin-t_512x512_160k_ade20k.py on a
+               for configs/hrnet/fcn_hr18_512x1024_80k_cityscapes.py
+               (zoo_serve_hrnet) and for
+               configs/swin/upernet_swin-t_512x512_160k_ade20k.py on a
                512x683 image (ADE20K's test scale on a 4:3 image, not a
                multiple of the 7x7 windows: replies (150, 512, 683);
                zoo_serve_swin); UPerNet's slide inference (crop
@@ -1819,9 +1822,14 @@ ZOO_FAMILIES = ("ann", "apcnet", "ccnet", "danet", "deeplabv3",
                 "psanet", "pspnet", "sem_fpn", "upernet",
                 # the transformer families, then the cascade ones
                 "beit", "convnext", "dpt", "mae", "segformer", "segmenter",
-                "setr", "swin", "twins", "vit", "knet", "point_rend")
+                "setr", "swin", "twins", "vit", "knet", "point_rend",
+                # the light-CNN families
+                "bisenetv1", "bisenetv2", "cgnet", "erfnet", "fastscnn",
+                "hrnet", "icnet", "mobilenet_v2", "mobilenet_v3", "resnest",
+                "stdc", "unet")
 ZOO_SERVE = "configs/upernet/upernet_r50_512x1024_80k_cityscapes.py"
 ZOO_IMAGE = (1024, 2048)      # cityscapes' test_pipeline img_scale
+ZOO_SERVE_HRNET = "configs/hrnet/fcn_hr18_512x1024_80k_cityscapes.py"
 ZOO_SERVE_SWIN = "configs/swin/upernet_swin-t_512x512_160k_ade20k.py"
 # ADE20K's test scale (2048, 512), keep-ratio, on a 4:3 image
 ZOO_IMAGE_SWIN = (512, 683)
@@ -1845,12 +1853,13 @@ def zoo_config_path(family: str) -> str:
 @torch.no_grad()
 def zoo_weights(model, seed: int):
     """Random batch statistics, non-zero attention gates (at flax's
-    initial 0 a gate hides its attention branch) and layer scales of
-    order 1 (ConvNeXt's start at 1e-6, BEiT's at 0.1) on a seeded
+    initial 0 a gate hides its attention branch), layer scales of order 1
+    (ConvNeXt's start at 1e-6, BEiT's at 0.1) and PReLU slopes (CGNet's,
+    all 0.01 at init, so a dropped PReLU would hardly show) on a seeded
     model."""
     import re
 
-    from peanut_tpu_torch.models.layers import BatchNorm
+    from peanut_tpu_torch.models.layers import BatchNorm, PReLU
     g = torch.Generator().manual_seed(seed + 7)
     for m in model.modules():
         if isinstance(m, BatchNorm):
@@ -1861,6 +1870,10 @@ def zoo_weights(model, seed: int):
     for name, p in model.named_parameters():
         if re.search(r"gamma[12]?$", name):
             p.fill_(0.5 + float(torch.rand((), generator=g)))
+    for m in model.modules():
+        if isinstance(m, PReLU):
+            m.negative_slope.fill_(0.1 + 0.4 * float(torch.rand(
+                (), generator=g)))
     return model
 
 
@@ -1968,9 +1981,9 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
     """Phase 12: every family the port builds at its config's widths
     (card against CPU in float64 at 128x256; one 512x1024 forward timed
     in float32, TF32 off, and in bfloat16), cli/serve.py answering 5
-    /probs requests for UPerNet-R50 at 1024x2048 and for UPerNet-Swin-T
-    at 512x683, UPerNet's slide inference, and cli/benchmark.py at its
-    defaults in both types."""
+    /probs requests for UPerNet-R50 and FCN-HRNet-W18 at 1024x2048 and for
+    UPerNet-Swin-T at 512x683, UPerNet's slide inference, and
+    cli/benchmark.py at its defaults in both types."""
     import copy
     import io
 
@@ -2015,8 +2028,10 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
                  f"its output is wrong: {line}")
 
     # serving: cli/serve.py's handler in a thread on the card, UPerNet-R50
-    # (Cityscapes) at 1024x2048, then UPerNet-Swin-T (ADE20K) at 512x683
+    # and FCN-HRNet-W18 (Cityscapes) at 1024x2048, then UPerNet-Swin-T
+    # (ADE20K) at 512x683
     zoo_serve(args, dev, ZOO_SERVE, ZOO_IMAGE, "zoo_serve")
+    zoo_serve(args, dev, ZOO_SERVE_HRNET, ZOO_IMAGE, "zoo_serve_hrnet")
     zoo_serve(args, dev, ZOO_SERVE_SWIN, ZOO_IMAGE_SWIN, "zoo_serve_swin")
 
     # slide inference: UPerNet at 1024x2048 on the card, and the card

@@ -26,7 +26,8 @@ from torch import nn
 
 # the zoo's modules register their classes when imported
 from . import (backbones_zoo, convnext, fpn, heads,  # noqa: F401
-               heads_attention, heads_zoo, knet, mit, necks, resnet, vit)
+               heads_attention, heads_zoo, hrnet, knet, mit, mobilenet,
+               necks, resnet, unet, vit)
 from ..registry import BACKBONES, HEADS, NECKS, SEGMENTORS, Registry
 from .layers import init_flax_random
 from .ops import resize_nchw

@@ -5,11 +5,12 @@ Segmenter's mask transformer, DPT and PointRend's point head (with
 ``point_sample``).  The reference's CUDA ops for CC, PSA and PointRend
 (mmcv's ``CrissCrossAttention``, ``PSAMask`` and ``point_sample``) are
 dense products and gathers here, as in the JAX package (``torch.einsum``,
-``torch.gather``): no hand-written kernel.  Submodules and parameters are
-named after the flax modules, so ``mmseg_import.flax_to_torch_state``
-carries the JAX package's variables.  The other heads of that file
-(LRASPP, DepthwiseSeparableFCN, STDC) wait for their backbones (ROADMAP
-A13 part 4).
+``torch.gather``): no hand-written kernel.  Over the light CNNs,
+LRASPP (MobileNetV3), DepthwiseSeparableFCN (Fast-SCNN, with
+``SepConvModule``) and STDC's detail head (serving only).  Submodules and
+parameters are named after the flax modules, so
+``mmseg_import.flax_to_torch_state`` carries the JAX package's
+variables.
 """
 
 from __future__ import annotations
@@ -28,6 +29,27 @@ from .layers import (BatchNorm, ConvModule, InputShaped, LayerNorm,
                      MultiHeadAttention, gelu, lecun_normal_, ln_nchw,
                      normal_)
 from .ops import adaptive_avg_pool
+
+
+class SepConvModule(nn.Module):
+    """mmcv's DepthwiseSeparableConvModule: a depthwise conv
+    (``depthwise``), a BN (``dw_bn``: a bare flax ``nn.BatchNorm``, with
+    no inner ``bn`` level in its variable paths) and a ReLU, then a 1x1
+    ConvModule (``pointwise``)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        c = in_channels
+        self.depthwise = nn.Conv2d(c, c, kernel_size, stride=stride,
+                                   padding=padding, dilation=dilation,
+                                   groups=c, bias=False)
+        self.dw_bn = BatchNorm(c)
+        self.pointwise = ConvModule(c, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(F.relu(self.dw_bn(self.depthwise(x))))
 
 
 def _attend(q, k, v, scale=None):
@@ -803,3 +825,90 @@ class DPTHead(DecodeHead):
             out = self._residual(
                 self.resize(out, pyramid[i].shape[-2:]) + pyramid[i], i)
         return self.cls_seg(self.project(out), generator)
+
+
+@HEADS.register()
+class LRASPPHead(DecodeHead):
+    """Lite R-ASPP (lraspp_head.py, over MobileNetV3): the coarsest map's
+    1x1 ConvModule gated by the sigmoid of a 1x1 conv of its global mean
+    (``adaptive_avg_pool(x, 1)``, as the JAX package: not mmseg's 49x49
+    average pool), then, finest level last, resized to each finer level,
+    concatenated with its 1x1 projection (``low_proj{i}``) and fused by
+    a 1x1 ConvModule (``fuse{i}``)."""
+
+    def __init__(self, in_channels: Sequence[int] = (16, 24, 960),
+                 channels: int = 128, num_classes: int = 19,
+                 dropout_ratio: float = 0.1,
+                 in_index: Sequence[int] = (0, 1, 2),
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        top = in_channels[-1]
+        self.aspp_conv = ConvModule(top, channels, 1)
+        self.image_pool = nn.Conv2d(top, channels, 1)
+        for i, c in enumerate(tuple(in_channels[:-1])[::-1]):
+            self.add_module(f"low_proj{i}", nn.Conv2d(c, channels, 1))
+            self.add_module(f"fuse{i}", ConvModule(2 * channels, channels,
+                                                   1))
+        self.n_low = len(in_channels) - 1
+        self.classifier(channels)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        feats = [inputs[i] for i in self.in_index]
+        x = feats[-1]
+        gate = torch.sigmoid(self.image_pool(adaptive_avg_pool(x, 1)))
+        y = self.aspp_conv(x) * gate
+        for i, f in enumerate(feats[:-1][::-1]):
+            y = self.resize(y, f.shape[-2:])
+            y = getattr(self, f"fuse{i}")(torch.cat(
+                [y, getattr(self, f"low_proj{i}")(f)], dim=1))
+        return self.cls_seg(y, generator)
+
+
+@HEADS.register()
+class DepthwiseSeparableFCNHead(DecodeHead):
+    """Fast-SCNN's classifier (sep_fcn_head.py): ``num_convs``
+    depthwise-separable 3x3 units (``sep{i}``), the input concatenated
+    and fused by another (``conv_cat``) if ``concat_input``."""
+
+    def __init__(self, in_channels: int = 128, channels: int = 128,
+                 num_classes: int = 19, num_convs: int = 2,
+                 concat_input: bool = False, dropout_ratio: float = 0.1,
+                 in_index: int = -1, align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        self.num_convs = num_convs
+        for i in range(num_convs):
+            self.add_module(f"sep{i}", SepConvModule(
+                in_channels if i == 0 else channels, channels))
+        self.conv_cat = (SepConvModule(
+            in_channels + (channels if num_convs else in_channels),
+            channels) if concat_input else None)
+        self.classifier(channels if num_convs or concat_input
+                        else in_channels)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        x = inputs[self.in_index]
+        y = x
+        for i in range(self.num_convs):
+            y = getattr(self, f"sep{i}")(y)
+        if self.conv_cat is not None:
+            y = self.conv_cat(torch.cat([x, y], dim=1))
+        return self.cls_seg(y, generator)
+
+
+@HEADS.register()
+class STDCHead(DecodeHead):
+    """STDC's detail head (stdc_head.py), serving half: a 3x3 ConvModule
+    and the classifier of binary boundary logits.  ``boundary_threshold``
+    belongs to the detail target of training (ROADMAP A13 part 5)."""
+
+    def __init__(self, in_channels: int = 256, channels: int = 64,
+                 num_classes: int = 2, boundary_threshold: float = 0.1,
+                 dropout_ratio: float = 0.1, in_index: int = 0,
+                 align_corners: bool = False):
+        super().__init__(num_classes, dropout_ratio, in_index, align_corners)
+        self.boundary_threshold = boundary_threshold
+        self.conv0 = ConvModule(in_channels, channels, 3, padding=1)
+        self.classifier(channels)
+
+    def forward(self, inputs, generator=None) -> torch.Tensor:
+        return self.cls_seg(self.conv0(inputs[self.in_index]), generator)

@@ -11,6 +11,11 @@ frozen batch norm of inference, in train mode batch statistics and a
 running-average update.  ``remat`` runs a block under
 ``torch.utils.checkpoint`` as ``nn.remat`` does in the JAX package.
 
+The light CNNs' pieces, each in the JAX package's form: ``PReLU``
+(flax's: one 0-D slope, 0.01 at init), ``hswish``, ``hsigmoid`` and
+``relu6`` written as the JAX package writes them, and a ConvModule's
+``act``.
+
 The transformers' pieces: ``LayerNorm`` (flax's epsilon, 1e-6), ``gelu``
 (each call site names its form: flax's default is the tanh approximation,
 torch's the exact erf), ``MultiHeadAttention`` (flax's
@@ -153,12 +158,15 @@ class ConvModule(nn.Module):
     ``bn``), so an mmseg state dict loads through ``load_state_dict``.
     As the JAX package's: ``with_norm`` / ``with_act`` drop the BN / the
     ReLU, the conv has a bias exactly when there is no BN, and ``groups``
-    groups it."""
+    groups it.  ``act`` replaces the ReLU: a function (``hswish``,
+    ``relu6``), or a module with parameters of its own, held under the
+    name flax gives a module made inside the unit's call (its class name
+    and ``_0``: CGNet's ``PReLU_0``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
                  with_norm: bool = True, with_act: bool = True,
-                 groups: int = 1):
+                 groups: int = 1, act=None):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, padding=padding,
@@ -166,12 +174,55 @@ class ConvModule(nn.Module):
                               bias=not with_norm)
         self.bn = BatchNorm(out_channels) if with_norm else None
         self.with_act = with_act
+        self.act, self.act_module = F.relu, None
+        if isinstance(act, nn.Module):
+            self.act_module = f"{type(act).__name__}_0"
+            self.add_module(self.act_module, act)
+        elif act is not None:
+            self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
-        return F.relu(x) if self.with_act else x
+        if not self.with_act:
+            return x
+        if self.act_module is not None:
+            return self._modules[self.act_module](x)
+        return self.act(x)
+
+
+def hswish(x: torch.Tensor) -> torch.Tensor:
+    """x * clip(x + 3, 0, 6) / 6, as the JAX package writes it (not
+    ``F.hardswish``)."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def hsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """clip(x + 3, 0, 6) / 6, as the JAX package writes it (not
+    ``F.hardsigmoid``)."""
+    return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 6.0)
+
+
+class PReLU(nn.Module):
+    """flax's ``nn.PReLU``: one 0-D ``negative_slope`` shared by every
+    channel, 0.01 at init (torch's ``nn.PReLU`` holds a (1,) ``weight``
+    that starts at 0.25)."""
+
+    def __init__(self):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.tensor(0.01))
+
+    @torch.no_grad()
+    def flax_init_(self, generator) -> None:
+        self.negative_slope.fill_(0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
 
 
 @torch.no_grad()

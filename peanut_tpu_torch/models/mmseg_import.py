@@ -5,16 +5,17 @@ checkpoints into the port's EncoderDecoder.
 convert_encoder_decoder_state`` key for key, as the JAX package's
 ``export_encoder_decoder_to_torch`` does: flax conv kernels HWIO -> OIHW, BN
 ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` -> ``weight``/``bias``
-/``running_mean``/``running_var``.  It covers the ResNet/ResNetV1c
-backbones, PSPHead and FCNHead, takes numpy arrays (or anything
-``np.asarray`` reads; float64 stays float64, anything else becomes
-float32) and raises on any variable it does not convert.  It
-is how weights move between the two packages.  ``flax_to_torch_state``
-carries a whole zoo segmentor: those parts by their mmseg names, the
-zoo's necks and heads (named after their flax modules in the port) by one
-generic rule.  ``flax_train_state_to_torch``
-moves a whole training state: the variables into the model, optax Adam's
-moments and count into a ``torch.optim.Adam`` over it, and the step.
+/``running_mean``/``running_var``.  It covers the zoo's ResNet
+backbones (ResNet, ResNetV1c, ResNeXt), PSPHead and FCNHead, takes numpy
+arrays (or anything ``np.asarray`` reads; float64 stays float64,
+anything else becomes float32) and raises on any variable it does not
+convert.  It is how weights move between the two packages.
+``flax_to_torch_state`` carries a whole zoo segmentor: those parts by
+their mmseg names, the zoo's other backbones, necks and heads (named
+after their flax modules in the port) by one generic rule.
+``flax_train_state_to_torch`` moves a whole training state: the
+variables into the model, optax Adam's moments and count into a
+``torch.optim.Adam`` over it, and the step.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from .checkpoint import load_torch_state_dict
 from .heads import FCNHead, PSPHead
 from .heads_zoo import MaskConv
 from .layers import BatchNorm
-from .resnet import ResNetV1c
+from .resnet import BasicBlock, ZooBottleneck, ZooResNet
 
 _CONV_T = (3, 2, 0, 1)   # HWIO -> OIHW
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -145,17 +146,46 @@ def _kind(m: torch.nn.Module):
     return None
 
 
+def _resnet_name(mod: torch.nn.Module, rest: Tuple[str, ...]):
+    """The port's name, under ``mod`` (a zoo ResNet or one of its blocks),
+    of the flax variable path ``rest`` below it, or None.  The blocks keep
+    mmseg's names wherever they sit (``conv1``, ``bn1``,
+    ``downsample.0`` / ``.1`` for flax's ``downsample_conv`` /
+    ``downsample_bn``), so that a block is one module with one state-dict
+    layout, top-level or nested (BiSeNetV1's context path, HRNet's and
+    ICNet's blocks), and an mmseg checkpoint's blocks load into it; the
+    rest of the path goes through ``_mmseg_name``'s rule, as under a
+    top-level ResNet."""
+    if isinstance(mod, ZooResNet):
+        name, prefix = _mmseg_name(("backbone",) + rest), "backbone."
+    else:
+        name = _mmseg_name(("backbone", "layer1_0") + rest)
+        prefix = "backbone.layer1.0."
+    return None if name is None else name[len(prefix):]
+
+
 def _generic_name(model: torch.nn.Module, path: Tuple[str, ...]):
     """The port's name of one flax variable of a zoo module, or None.  The
     port names its submodules after the flax ones; flax's wrappers fold
     away: a ConvModule's ``conv_unit/conv`` is the port's ``conv`` and its
     ``norm/bn`` the port's ``bn``, and the inner ``conv`` of a ``Conv2d``
     (``bn`` of a ``BatchNorm``) is the port's conv (batch norm) itself.
-    The leaf maps by the port module's type (``_LEAF``); a bare parameter
-    (a gate, a codebook, a basis, a positional embedding) keeps its name.
-    Returns the name and the port module that holds it."""
+    Below a zoo ResNet or a block of one, the rest of the path takes
+    mmseg's names (``_resnet_name``).  The leaf maps by the port module's
+    type (``_LEAF``); a bare parameter (a gate, a codebook, a basis, a
+    positional embedding, a PReLU's slope) keeps its name.  Returns the
+    name and the port module that holds it."""
     mod, names = model, []
-    for c in path[:-1]:
+    for i, c in enumerate(path[:-1]):
+        if isinstance(mod, (ZooResNet, ZooBottleneck, BasicBlock)):
+            sub = _resnet_name(mod, path[i:])
+            if sub is None:
+                return None
+            owner, leaf = sub.rpartition(".")[::2]
+            mod = mod.get_submodule(owner)
+            if leaf not in mod._parameters and leaf not in mod._buffers:
+                return None
+            return ".".join(names + [sub]), mod
         child = mod._modules.get(c)
         if child is not None:
             mod = child
@@ -200,23 +230,24 @@ def flax_to_torch_state(variables: Mapping[str, Any],
                         model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The JAX package's variables of a zoo segmentor ({"params",
     "batch_stats"}, numpy or anything ``np.asarray`` reads) as a state
-    dict of the port's ``model`` built from the same config.  ResNetV1c,
-    PSPHead and FCNHead go by their mmseg names (``flax_to_mmseg_state``'s
-    rule); the rest by ``_generic_name``, in the layout of the port module
-    that receives each (``_port_layout``: conv kernels by the conv's rank,
-    dense kernels transposed, attention kernels reshaped, other
-    parameters as they are), batch and layer norms' ``scale`` ->
-    ``weight`` and the batch statistics ``mean`` / ``var`` ->
-    ``running_mean`` / ``running_var``.  float64 stays float64, anything
-    else becomes float32.  Raises KeyError on any flax variable it does
-    not place and on any parameter or buffer of ``model`` left unset."""
+    dict of the port's ``model`` built from the same config.  The zoo's
+    ResNets, PSPHead and FCNHead go by their mmseg names
+    (``flax_to_mmseg_state``'s rule); the rest by ``_generic_name``, in
+    the layout of the port module that receives each (``_port_layout``:
+    conv kernels by the conv's rank, dense kernels transposed, attention
+    kernels reshaped, other parameters as they are), batch and layer
+    norms' ``scale`` -> ``weight`` and the batch statistics ``mean`` /
+    ``var`` -> ``running_mean`` / ``running_var``.  float64 stays
+    float64, anything else becomes float32.  Raises KeyError on any flax
+    variable it does not place and on any parameter or buffer of
+    ``model`` left unset."""
     sd: Dict[str, np.ndarray] = {}
     left = []
     for col in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(col, {})):
             top = model._modules.get(path[0])
             arr = _array(value)
-            if isinstance(top, (ResNetV1c, PSPHead, FCNHead)):
+            if isinstance(top, (ZooResNet, PSPHead, FCNHead)):
                 name = _mmseg_name(path) if len(path) > 2 else None
                 if arr.ndim == 4:
                     arr = arr.transpose(_CONV_T)

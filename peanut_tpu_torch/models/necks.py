@@ -1,8 +1,8 @@
 """Zoo necks, NCHW (port of ``peanut_tpu.models.necks``): JPU,
 FastFCN's joint pyramid upsampling; MLANeck, MultiLevelNeck and
-Feature2Pyramid, which make a pyramid of a plain transformer's taps.
-(The FPN neck is ``fpn.FPN``; ICNeck waits for ICNet, ROADMAP A13 part
-4.)  Submodules are named after the flax modules.  flax infers a layer's
+Feature2Pyramid, which make a pyramid of a plain transformer's taps;
+ICNeck, ICNet's cascade feature fusion.  (The FPN neck is ``fpn.FPN``.)
+Submodules are named after the flax modules.  flax infers a layer's
 input channels; the port takes them from ``in_channels``, which the
 segmentor fills with the backbone's ``out_channels`` when the config
 leaves it out."""
@@ -143,3 +143,47 @@ class Feature2Pyramid(nn.Module):
                                 max(int(round(x.shape[-1] * s)), 1)))
             outs.append(getattr(self, f"rescale{i}")(y) if s != 1 else y)
         return tuple(outs)
+
+
+class _CascadeFeatureFusion(nn.Module):
+    """ICNet's CFF unit (ic_neck.py): the low branch resized to the high
+    one's size through a dilated 3x3 conv + BN, the high one through a
+    1x1 conv + BN, summed, ReLU."""
+
+    def __init__(self, low_channels: int, high_channels: int,
+                 out_channels: int, align_corners: bool = False):
+        super().__init__()
+        self.align_corners = align_corners
+        self.conv_low = ConvModule(low_channels, out_channels, 3, padding=2,
+                                   dilation=2, with_act=False)
+        self.conv_high = ConvModule(high_channels, out_channels, 1,
+                                    with_act=False)
+
+    def forward(self, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
+        low = resize_like(low, high.shape[-2:], self.align_corners)
+        return F.relu(self.conv_low(low) + self.conv_high(high))
+
+
+@NECKS.register()
+class ICNeck(nn.Module):
+    """ICNet's fusion neck (ic_neck.py): sub4 fused into sub2
+    (``cff42``), that into sub1 (``cff21``); returns both and the latter
+    resized 2x."""
+
+    def __init__(self, in_channels: Sequence[int] = (64, 256, 256),
+                 out_channels: int = 128, align_corners: bool = False):
+        super().__init__()
+        self.align_corners = align_corners
+        c1, c2, c4 = in_channels[-3:]
+        self.cff42 = _CascadeFeatureFusion(c4, c2, out_channels,
+                                           align_corners)
+        self.cff21 = _CascadeFeatureFusion(out_channels, c1, out_channels,
+                                           align_corners)
+
+    def forward(self, inputs):
+        sub1, sub2, sub4 = inputs[-3], inputs[-2], inputs[-1]
+        cff42 = self.cff42(sub4, sub2)
+        cff21 = self.cff21(cff42, sub1)
+        h, w = cff21.shape[-2:]
+        return (cff42, cff21,
+                resize_like(cff21, (h * 2, w * 2), self.align_corners))

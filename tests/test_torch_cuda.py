@@ -888,3 +888,27 @@ def test_swin_on_the_card_matches_the_cpu(cuda):
     assert got.shape == (1, 150, 96, 160)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-8 * float(want.abs().max())
+
+
+def test_hrnet_on_the_card_matches_the_cpu(cuda):
+    """FCN over HRNet-W18 at its config's widths (19 classes, all four
+    branches upsampled and concatenated into the head), seeded, in
+    float64 on the card and the CPU on a 128x256 input: within 1e-8 of
+    the largest |logit|."""
+    import copy
+    import os
+
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        root, "configs/hrnet/fcn_hr18_512x1024_80k_cityscapes.py"))
+    model = build_segmentor(cfg["model"], seed=0).double()
+    x = torch.as_tensor(np.random.RandomState(12).rand(1, 3, 128, 256))
+    with torch.no_grad():
+        want = model(x)
+        got = copy.deepcopy(model).to(cuda)(x.to(cuda)).cpu()
+    assert got.shape == (1, 19, 128, 256)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-8 * float(want.abs().max())

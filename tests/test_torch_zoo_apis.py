@@ -18,7 +18,12 @@
   BEiT's relative-position tables: MAE then serves its bound size (the
   JAX package's variables carried in as a ``.pth`` answer as the JAX
   APIs do) and raises ValueError at another.
-* ``cli.benchmark`` runs UPerNet-Swin-T (ADE20K) at ``--size 64``.
+* ``cli.benchmark`` runs UPerNet-Swin-T (ADE20K) at ``--size 64``, and
+  FCN-HRNet-W18 (Cityscapes) there too.
+* ``init_segmentor`` + ``inference_segmentor`` serve LR-ASPP over
+  MobileNetV3-large (the config as written, random weights) on the CPU:
+  its 19 classes' logits equal to the model's own inference, and their
+  sigmoid.
 """
 
 import contextlib
@@ -50,6 +55,9 @@ from torch_zoo_support import one_thread  # noqa: F401  (autouse)
 UPERNET = os.path.join(REPO, "configs/upernet/"
                        "upernet_r50_512x1024_80k_cityscapes.py")
 SWIN = os.path.join(REPO, "configs/swin/upernet_swin-t_512x512_160k_ade20k.py")
+HRNET = os.path.join(REPO, "configs/hrnet/fcn_hr18_512x1024_80k_cityscapes.py")
+LRASPP = os.path.join(REPO, "configs/mobilenet_v3/"
+                      "lraspp_m-v3_512x1024_80k_cityscapes.py")
 
 
 @pytest.fixture(scope="module")
@@ -245,3 +253,24 @@ def test_benchmark_runs_swin(capsys):
     out = benchmark.main([SWIN, "--size", "64", "--batch", "1",
                           "--device", "cpu"])
     assert out["maps_per_sec"] > 0 and out["dtype"] == "bfloat16"
+
+
+def test_benchmark_runs_hrnet(capsys):
+    out = benchmark.main([HRNET, "--size", "64", "--batch", "1",
+                          "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out and out["maps_per_sec"] > 0 and out["size"] == 64
+
+
+def test_lraspp_serves_on_the_cpu():
+    bundle = apis.init_segmentor(LRASPP, seed=0, device="cpu")
+    img = np.random.RandomState(12).rand(48, 80, 3).astype(np.float32) * 255
+    probs = apis.inference_segmentor(bundle, img)
+    logits = apis.inference_segmentor(bundle, img, logits=True)
+    assert probs.shape == logits.shape == (19, 48, 80)
+    assert np.isfinite(probs).all() and np.ptp(logits) > 0
+    with torch.no_grad():
+        direct = bundle.model.inference(torch.as_tensor(img[None]))[0]
+    np.testing.assert_array_equal(logits, direct.permute(2, 0, 1).numpy())
+    np.testing.assert_array_equal(
+        probs, torch.sigmoid(torch.as_tensor(logits)).numpy())

@@ -26,7 +26,11 @@ FAMILIES = ("ann", "apcnet", "ccnet", "danet", "deeplabv3", "deeplabv3plus",
 TRANSFORMER_FAMILIES = ("beit", "convnext", "dpt", "mae", "segformer",
                         "segmenter", "setr", "swin", "twins", "vit")
 CASCADE_FAMILIES = ("knet", "point_rend")
-PORTED = FAMILIES + TRANSFORMER_FAMILIES + CASCADE_FAMILIES
+# the light-CNN families (ROADMAP A13 part 4)
+LIGHT_FAMILIES = ("bisenetv1", "bisenetv2", "cgnet", "erfnet", "fastscnn",
+                  "hrnet", "icnet", "mobilenet_v2", "mobilenet_v3",
+                  "resnest", "stdc", "unet")
+PORTED = FAMILIES + TRANSFORMER_FAMILIES + CASCADE_FAMILIES + LIGHT_FAMILIES
 # depth cuts of the published widths in the CPU parity tests, which keep a
 # file near a minute on one core (the card runs the configs as they are):
 # ViT-B/16 keeps its width and four of its twelve blocks, a tap after
