@@ -1,14 +1,14 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
     python3 chip_smoke.py [--seed N] [--ticks N]
-                          [--only b3|b1|wide|paths|train|zoo]
+                          [--only b3|b1|wide|paths|train|zoo|zoo_train]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
 phase 3's lines over 1024 cells (run from a copy of another tree, it times
 that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
 and B4 lines at the paths' shapes (to time another tree's beside these),
-"train" phase 11, "zoo" phase 12.
+"train" phase 11, "zoo" phase 12, "zoo_train" phase 13.
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -152,6 +152,30 @@ Phases (each prints one JSON line):
                (--size 720 --batch 4) in bfloat16 and float32
                (zoo_benchmark: maps/s).  The zoo launches no kernel of
                csrc/.
+ 13. zoo_train — the zoo's training half at published width:
+               configs/convnext/upernet_convnext_512x512_160k_ade20k.py
+               (UPerNet over ConvNeXt-T, UPerHead 512 channels, FCN
+               auxiliary head 256) with 6 classes in both heads and 14
+               input channels, written out with dump_config, trained by
+               cli.train_prediction_model --config at batch 8, crop 512
+               (the config's own) on synthetic 640^2 maps for 6
+               iterations (checkpoints every 3), then again to 9, which
+               must resume from iter 6 with the logged loss falling
+               (the last three iterations' mean below the first three's);
+               iter_9 loaded by apis.init_segmentor serves what the
+               trained model computes (1e-5 of the largest |logit|);
+               one batch from the loader (host, one worker), then 10
+               steps after 2 warm-up ones on it, float32 with TF32 off and
+               then on: median step ms split into forward + backward and
+               Adam, maps/s, peak memory; then card against CPU, one train
+               step (dropout 0, batch 2 at 64x64) in float64 (loss 1e-5
+               relative, gradients 1e-4 of the largest) and float32
+               (reported) for UPerNet-ConvNeXt-T, UPerNet-ViT-B,
+               PSPNet-MobileNetV2-d8 and Fast-SCNN at their published
+               backbones with narrow heads, PointRend's training forward
+               (stage and point logits within 1e-8, the points equal) and
+               one layer-decay AdamW step of UPerNet-ViT-B (1e-8 of the
+               largest update).  No kernel of csrc/ either.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -2082,18 +2106,306 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
     return readings
 
 
+ZOO_TRAIN = "configs/convnext/upernet_convnext_512x512_160k_ade20k.py"
+ZOO_TRAIN_MAP = 640       # the synthetic maps' side: enough for the crop
+ZOO_TRAIN_CROP = 512      # the config's own training crop
+ZOO_TRAIN_ITERS = (6, 9)  # the first run, then the resumed one
+ZOO_TRAIN_CHECK = (64, 64)    # card against CPU, batch 2
+# the card-against-CPU configs: each family's config with 14 channels, 6
+# classes, dropout 0 and narrow heads over its published backbone
+ZOO_TRAIN_PARITY = {
+    "upernet_convnext": ("configs/convnext/upernet_convnext_512x512_160k_"
+                         "ade20k.py", dict(channels=64), dict(channels=32)),
+    "upernet_vit": ("configs/vit/upernet_vit-b16_512x512_80k_ade20k.py",
+                    dict(channels=64), dict(channels=32)),
+    "pspnet_m-v2-d8": ("configs/mobilenet_v2/pspnet_m-v2-d8_512x1024_80k_"
+                       "cityscapes.py", dict(channels=64),
+                       dict(channels=32)),
+    "fast_scnn": ("configs/fastscnn/fast_scnn_512x1024_80k_cityscapes.py",
+                  dict(channels=32), dict(channels=16)),
+}
+
+
+def zoo_train_config(path: str, decode=None, aux=None,
+                     dropout=None) -> dict:
+    """A zoo config's model for PEANUT's training: 14 input channels and
+    6 classes in both heads (the overrides beside; ``dropout`` the heads'
+    ratio where given)."""
+    from peanut_tpu_torch.core.config_file import load_config
+    cfg = load_config(path)["model"]
+    cfg["backbone"]["in_channels"] = 14
+    for key, over in (("decode_head", decode), ("auxiliary_head", aux)):
+        cfg[key].update(over or {}, num_classes=6)
+        if dropout is not None:
+            cfg[key]["dropout_ratio"] = dropout
+    return cfg
+
+
+def zoo_train_card_vs_cpu(dev, seed: int) -> dict:
+    """One train step (loss and gradients, dropout 0) of each
+    ZOO_TRAIN_PARITY config from the same seeded weights (zoo_weights) on
+    the card and on the CPU, batch 2 at ZOO_TRAIN_CHECK: float64 (the
+    gate: loss 1e-5 relative, gradients 1e-4 of the largest) and float32
+    with TF32 off (reported).  Then PointRend's training forward with its
+    point logits in float64, and one layer-decay AdamW step of UPerNet-ViT
+    fed the CPU's float64 gradients on both."""
+    import copy
+
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.prediction.optimizers import (
+        make_layer_decay_optimizer)
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads)
+    rng = np.random.RandomState(seed)
+    img = rng.rand(2, 14, *ZOO_TRAIN_CHECK)
+    gt = (rng.rand(2, 6, *ZOO_TRAIN_CHECK) > 0.9) * 255.0
+    tcfg = TrainConfig(lr=1e-3, max_iters=50, seed=seed)
+    out, vit_grads = {}, None
+    for fam, (path, dec, aux) in ZOO_TRAIN_PARITY.items():
+        cfg = zoo_train_config(path, dec, aux, dropout=0.0)
+        base = zoo_weights(build_segmentor(cfg, seed=seed), seed)
+        out[fam] = {}
+        for dtype in (torch.float64, torch.float32):
+            res = {}
+            for where in ("cpu", dev):
+                state = create_train_state(copy.deepcopy(base).to(dtype),
+                                           tcfg, device=where)
+                batch = {"img": torch.as_tensor(img, dtype=dtype,
+                                                device=where),
+                         "gt": torch.as_tensor(gt, dtype=dtype,
+                                               device=where)}
+                loss = loss_and_grads(state, batch, tcfg)["loss"]
+                res[str(where)] = (float(loss), {
+                    n: p.grad.detach().double().cpu()
+                    for n, p in state.model.named_parameters()})
+            (lc, gc), (lg, gg) = res["cpu"], res[str(dev)]
+            top = max(float(g.abs().max()) for g in gc.values())
+            err = max(float((gg[n] - gc[n]).abs().max()) for n in gc)
+            out[fam][str(dtype).replace("torch.", "")] = {
+                "loss_cpu": lc, "loss_card": lg,
+                "loss_rel_err": abs(lg - lc) / abs(lc),
+                "grad_err_of_largest": err / top,
+                "finite": bool(np.isfinite(lg))}
+            if fam == "upernet_vit" and dtype == torch.float64:
+                vit_base, vit_grads = base, gc
+    # PointRend's training pass: the stage logits and the point logits
+    cfg = load_config(zoo_config_path("point_rend"))["model"]
+    x = torch.as_tensor(np.random.RandomState(seed).rand(1, 3, 128, 256))
+    model = zoo_weights(build_segmentor(cfg, seed=seed), seed).double()
+    card = copy.deepcopy(model).to(dev)
+    with torch.no_grad():
+        want, wx = model(x, train=True, with_points=True)
+        got, gx = card(x.to(dev), train=True, with_points=True)
+    top = float(want.abs().max())
+    out["point_rend"] = {
+        "err_of_largest": float((got.cpu() - want).abs().max()) / top,
+        "point_logits_err_of_largest": float(
+            (gx["point_logits"].cpu() - wx["point_logits"]).abs().max())
+        / float(wx["point_logits"].abs().max()),
+        "points_equal": bool(torch.equal(gx["points"].cpu(),
+                                         wx["points"])),
+        "points": list(wx["points"].shape)}
+    # the layer-decay AdamW: one step of each from the same gradients
+    stepped = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(vit_base).double().to(where).requires_grad_(True)
+        opt = make_layer_decay_optimizer(m, 1e-3, decay_rate=0.65,
+                                         num_layers=12)
+        before = {n: p.detach().clone() for n, p in m.named_parameters()}
+        for n, p in m.named_parameters():
+            p.grad = vit_grads[n].to(where)
+        opt.step()
+        stepped[str(where)] = {n: (p.detach() - before[n]).cpu()
+                               for n, p in m.named_parameters()}
+    a, b = stepped["cpu"], stepped[str(dev)]
+    top = max(float(u.abs().max()) for u in a.values())
+    out["layer_decay_adamw"] = {
+        "update_err_of_largest": max(float((b[n] - a[n]).abs().max())
+                                     for n in a) / top,
+        "groups": len(opt.param_groups)}
+    return out
+
+
+def zoo_train_phase(args, dev, smi_line: str) -> dict:
+    """Phase 13: the zoo's training half at published width
+    (module docstring); returns its reading."""
+    import copy
+    import tempfile
+
+    from peanut_tpu_torch import apis
+    from peanut_tpu_torch.cli import train_prediction_model
+    from peanut_tpu_torch.core.config_file import dump_config
+    from peanut_tpu_torch.prediction.dataset import (PrefetchLoader,
+                                                     SemMapDataset,
+                                                     training_pipeline)
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads,
+                                                   upload_batch)
+    from peanut_tpu_torch.utils.loggers import read_train_log
+
+    t_phase = time.perf_counter()
+    reading = {"phase": "zoo_train", "nvidia_smi": smi_line,
+               "config": ZOO_TRAIN, "model": "UPerNet-ConvNeXt-T",
+               "batch": TRAIN_BATCH, "crop": ZOO_TRAIN_CROP, "channels": 14,
+               "classes": 6}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_file = os.path.join(tmp, "upernet_convnext_peanut.py")
+        dump_config({"model": zoo_train_config(ZOO_TRAIN)}, cfg_file)
+        write_train_maps(os.path.join(tmp, "train_80"), args.seed,
+                         size=ZOO_TRAIN_MAP)
+        work = os.path.join(tmp, "work")
+        argv = ["--config", cfg_file, "--data_root", tmp, "--img_dir",
+                "train_80", "--work_dir", work, "--batch_size",
+                str(TRAIN_BATCH), "--crop_size", str(ZOO_TRAIN_CROP),
+                "--checkpoint_interval", "3", "--num_workers", "1",
+                "--log_interval", "1", "--seed", str(args.seed)]
+        # the CLI at full width, then resumed to 9
+        runs = []
+        for iters in ZOO_TRAIN_ITERS:
+            t0 = time.perf_counter()
+            state = train_prediction_model.main(
+                argv + ["--max_iters", str(iters)], device=dev)
+            torch.cuda.synchronize()
+            runs.append({"max_iters": iters, "step": state.step,
+                         "wall_s": time.perf_counter() - t0})
+        log = read_train_log(os.path.join(work, "train_log.jsonl"))
+        reading["cli_runs"] = runs
+        reading["log_iters"] = [r["iter"] for r in log]
+        reading["log_loss"] = [r["loss"] for r in log]
+        reading["checkpoints"] = sorted(os.listdir(work))
+        losses = reading["log_loss"]
+        if (state.step != ZOO_TRAIN_ITERS[1]
+                or reading["log_iters"] != list(range(1, 10))
+                or not all(np.isfinite(losses))
+                or "iter_9" not in reading["checkpoints"]):
+            emit(reading)
+            fail("zoo_train: the CLI did not resume from iter 6 to 9")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            emit(reading)
+            fail("zoo_train: the logged loss did not fall")
+
+        # the checkpoint served through apis against the trained model
+        ds = SemMapDataset(tmp, "train_80")
+        img = ds[7]["img"][:ZOO_TRAIN_CROP, :ZOO_TRAIN_CROP]
+        bundle = apis.init_segmentor(cfg_file, os.path.join(work, "iter_9"),
+                                     device=dev)
+        got = apis.inference_segmentor(bundle, img, logits=True)
+        with torch.no_grad():
+            want = state.model(torch.as_tensor(
+                img.transpose(2, 0, 1)[None].copy(), device=dev),
+                train=False)[0].cpu().numpy()
+        reading["serve_err_of_largest"] = float(
+            np.abs(got - want).max() / np.abs(want).max())
+        reading["serve_bit_equal"] = bool(np.array_equal(got, want))
+        del bundle
+        if (got.shape != (6, ZOO_TRAIN_CROP, ZOO_TRAIN_CROP)
+                or reading["serve_err_of_largest"] > SERVE_TOL):
+            emit(reading)
+            fail("zoo_train: iter_9 through apis does not serve what was "
+                 "trained")
+
+        # timed: one batch through the loader (host, one worker), then
+        # steps on it split into forward + backward and Adam
+        t0 = time.perf_counter()
+        loader = iter(PrefetchLoader(SemMapDataset(
+            tmp, "train_80", pipeline=training_pipeline(
+                ZOO_TRAIN_CROP, rng=np.random.RandomState(args.seed))),
+            TRAIN_BATCH, seed=args.seed, num_workers=1))
+        host = next(loader)
+        data_s = [time.perf_counter() - t0]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            host = next(loader)
+            data_s.append(time.perf_counter() - t0)
+        loader.close()
+        reading["data_ms_per_batch_one_worker"] = [s * 1e3 for s in data_s]
+        batch = upload_batch(host, dev)
+        tcfg = TrainConfig(seed=args.seed)
+        model = copy.deepcopy(state.model)
+        del state
+        torch.cuda.empty_cache()
+        for tf32 in (False, True):
+            saved = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                st = create_train_state(copy.deepcopy(model), tcfg,
+                                        device=dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                losses_t, fb_ms, opt_ms = [], [], []
+                for i in range(TIMED_FROM + OVERFIT_STEPS):
+                    e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(3))
+                    e0.record()
+                    loss = loss_and_grads(st, batch, tcfg)["loss"]
+                    e1.record()
+                    st.optimizer.step()
+                    st.step += 1
+                    e2.record()
+                    torch.cuda.synchronize()
+                    losses_t.append(float(loss))
+                    fb_ms.append(e0.elapsed_time(e1))
+                    opt_ms.append(e1.elapsed_time(e2))
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = saved
+            step_ms = [a + b for a, b in
+                       zip(fb_ms, opt_ms)][TIMED_FROM:]
+            reading["tf32" if tf32 else "float32"] = {
+                "losses": losses_t,
+                "step_ms_median": float(np.median(step_ms)),
+                "fwd_bwd_ms_median": float(np.median(fb_ms[TIMED_FROM:])),
+                "adam_ms_median": float(np.median(opt_ms[TIMED_FROM:])),
+                "maps_per_s": TRAIN_BATCH / (np.median(step_ms) / 1e3),
+                "timed_steps": len(step_ms),
+                "peak_memory_gib": peak / 2 ** 30}
+            del st
+            torch.cuda.empty_cache()
+        del model
+        torch.cuda.empty_cache()
+    f32 = reading["float32"]
+    if not all(np.isfinite(f32["losses"])):
+        emit(reading)
+        fail("zoo_train: the timed steps' losses are not finite")
+
+    # the card against the CPU
+    reading["card_vs_cpu"] = zoo_train_card_vs_cpu(dev, args.seed)
+    reading["seconds"] = time.perf_counter() - t_phase
+    emit(reading)
+    bad = [f for f, r in reading["card_vs_cpu"].items()
+           if f in ZOO_TRAIN_PARITY and (
+               r["float64"]["loss_rel_err"] > PARITY_LOSS_TOL
+               or r["float64"]["grad_err_of_largest"] > PARITY_GRAD_TOL
+               or not r["float32"]["finite"])]
+    pr = reading["card_vs_cpu"]["point_rend"]
+    ld = reading["card_vs_cpu"]["layer_decay_adamw"]
+    if (bad or pr["err_of_largest"] > 1e-8
+            or pr["point_logits_err_of_largest"] > 1e-8
+            or not pr["points_equal"]
+            or ld["update_err_of_largest"] > 1e-8):
+        fail(f"zoo_train: the card disagrees with the CPU: {bad} "
+             f"{pr} {ld}")
+    return reading
+
+
 def only_phase(args, dev) -> int:
     """``--only``: one phase alone, to compare trees (the parent's, a
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
     the lines over 1024 cells, "paths" phase 3's B1, B2 and B4 lines at
-    the paths' shapes, "train" the train phase, "zoo" the zoo phase.
-    Prints no result line."""
+    the paths' shapes, "train" the train phase, "zoo" the zoo phase,
+    "zoo_train" the zoo's training phase.  Prints no result line."""
     from peanut_tpu_torch.kernels import _build
     for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
                  "wide": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
                           "fmm_long"),
                  "paths": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
-                 "train": (), "zoo": ()}[args.only]:
+                 "train": (), "zoo": (), "zoo_train": ()}[args.only]:
         _build.library(stem)
     if args.only == "paths":
         path_kernels(np.random.RandomState(args.seed), dev, {})
@@ -2101,6 +2413,8 @@ def only_phase(args, dev) -> int:
         training_phase(args, dev, nvidia_smi_line())
     elif args.only == "zoo":
         zoo_phase(args, dev, nvidia_smi_line())
+    elif args.only == "zoo_train":
+        zoo_train_phase(args, dev, nvidia_smi_line())
     elif args.only == "b3":
         mask_rcnn_phases(args, dev)
     elif args.only == "b1":
@@ -2115,7 +2429,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
-                                       "train", "zoo"),
+                                       "train", "zoo", "zoo_train"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -2360,6 +2674,9 @@ def main() -> int:
 
     # ---- 12. the model zoo's serving path (no kernel of csrc/) ----------
     zoo_phase(args, dev, smi_line)
+
+    # ---- 13. the model zoo's training half (no kernel of csrc/) ---------
+    zoo_train_phase(args, dev, smi_line)
 
     kernels = []
     for name_, src_file, replaces, keys, count_key in (

@@ -9,8 +9,8 @@ ports directly:
     probs = apis.inference_segmentor(bundle, hwc_image)   # (19, H, W)
 
 The model runs on the card unless ``device`` says otherwise (no card and
-no ``device`` raises).  Training from a config is the zoo's training half,
-ROADMAP A13.
+no ``device`` raises).  ``train_segmentor`` wraps the training CLI as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -115,9 +115,17 @@ def inference_segmentor(bundle: SegmentorBundle, img, logits: bool = False):
 
 
 def train_segmentor(config: Union[str, Dict], data_root: str,
-                    work_dir: str, **overrides):
-    """Config-driven training (mmseg apis/train.py:71's shape): the zoo's
-    training half, not ported."""
-    raise NotImplementedError(
-        "train_segmentor: training from a zoo config is the zoo's training "
-        "half, ROADMAP A13")
+                    work_dir: str, device=None, **overrides):
+    """Config-driven training (mmseg apis/train.py:71's shape), as the JAX
+    package's: ``cli.train_prediction_model.main`` on ``--data_root``,
+    ``--work_dir`` and one ``--key value`` an override, on ``device``
+    (the card unless ``"cpu"``); returns its ``TrainState``.  Like the
+    reference, it does not pass ``config`` on, so it trains PEANUT's
+    PSPNet whatever the config names (give ``config=...`` among the
+    overrides to train a zoo config)."""
+    from .cli.train_prediction_model import main as train_main
+
+    argv = ["--data_root", data_root, "--work_dir", work_dir]
+    for k, v in overrides.items():
+        argv += [f"--{k}", str(v)]
+    return train_main(argv, device=device)

@@ -12,9 +12,18 @@ Samples go through the native fused augment (``native/map_pipeline.cc``).
     python -m peanut_tpu_torch.cli.train_prediction_model \
         --data_root DIR --img_dir train_80 --work_dir W
 
+With ``--config FILE`` the model is the ``model`` entry of a zoo config
+file (``core/config_file.py``) in place of PEANUT's PSPNet, trained by the
+same recipe on the same 14-channel maps, as the reference's: its
+backbone takes ``in_channels`` from the config, 14 when the config names
+none; parameters shaped by the input (``layers.InputShaped``: BEiT's
+tables, MAE's positional embedding) are bound by one forward at (1,
+in_channels, crop, crop) before Adam is built, the shape the reference
+initialises at; ``--remat`` is ignored, as in the reference.  The config
+needs one auxiliary head (``prediction.train.check_heads``).
+
 ``main(argv, device=)`` runs on ``device`` (the card unless ``"cpu"``).
-``--distributed 1`` (DDP) is ROADMAP A14; ``--config`` (the zoo's config
-files) ROADMAP A13.
+``--distributed 1`` (DDP) is ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -41,13 +50,37 @@ def parse_args(argv=None):
     ap.add_argument("--num_workers", type=int, default=8)
     ap.add_argument("--no_resume", action="store_true")
     ap.add_argument("--config", type=str, default=None,
-                    help="model config file (the model zoo's; not ported)")
+                    help="model config file (the model zoo's); PEANUT's "
+                         "PSPNet when unset")
     ap.add_argument("--remat", type=int, default=1,
                     help="recompute the backbone's blocks in backward")
     ap.add_argument("--distributed", type=int, default=0,
                     help="data parallelism over processes (not ported)")
     ns, _ = ap.parse_known_args(argv)
     return ns
+
+
+def config_model(path: str, crop: int, seed: int, device):
+    """The ``model`` entry of the config file at ``path`` (or the file's
+    dict when it has none), its backbone at ``in_channels`` (14 unless the
+    config names it), random weights from ``seed``, on ``device``, with
+    its input-shaped parameters bound at (1, in_channels, crop, crop)."""
+    import torch
+
+    from ..core.config_file import load_config
+    from ..models.builder import build_segmentor
+    from ..models.layers import needs_binding
+
+    cfg = load_config(path)
+    cfg = dict(cfg.get("model", cfg))
+    cfg["backbone"] = dict(cfg["backbone"])
+    in_ch = cfg["backbone"].setdefault("in_channels", 14)
+    model = build_segmentor(cfg, seed=seed).to(device)
+    if needs_binding(model):
+        with torch.no_grad():
+            model(torch.zeros(1, in_ch, crop, crop, device=device),
+                  train=False)
+    return model
 
 
 def main(argv=None, device=None):
@@ -58,9 +91,6 @@ def main(argv=None, device=None):
     if ns.distributed:
         raise NotImplementedError("--distributed: data parallelism over "
                                   "processes (DDP) is ROADMAP A14")
-    if ns.config:
-        raise NotImplementedError("--config: model config files are the "
-                                  "zoo's (core/config_file.py), ROADMAP A13")
 
     from .. import resolve_device
     from ..models.pspnet import build_segmentor, peanut_prediction_config
@@ -81,8 +111,11 @@ def main(argv=None, device=None):
     loader = PrefetchLoader(dataset, ns.batch_size, seed=ns.seed,
                             num_workers=ns.num_workers)
     logging.info("Loaded %d samples (batch %d)", len(dataset), ns.batch_size)
-    model = build_segmentor(peanut_prediction_config(remat=bool(ns.remat)),
-                            seed=ns.seed)
+    if ns.config:
+        model = config_model(ns.config, ns.crop_size, ns.seed, device)
+    else:
+        model = build_segmentor(
+            peanut_prediction_config(remat=bool(ns.remat)), seed=ns.seed)
     state = create_train_state(model, tcfg, device=device)
     runner = IterRunner(make_train_step(tcfg), state, loader, tcfg,
                         ns.work_dir, auto_resume=not ns.no_resume)

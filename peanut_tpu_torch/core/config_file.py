@@ -55,3 +55,14 @@ def load_config(path: str) -> Dict[str, Any]:
             os.path.join(os.path.dirname(path), b)))
     return merge_dict(merged, cfg)
 
+
+
+def dump_config(cfg: Dict[str, Any], path: str) -> None:
+    """Write a config dict out as a python file that ``load_config``
+    reads back into the same dict (one ``key = value`` line a top-level
+    key, the value as ``pprint`` writes it)."""
+    import pprint
+
+    with open(path, "w") as f:
+        for k, v in cfg.items():
+            f.write(f"{k} = {pprint.pformat(v, width=88)}\n")

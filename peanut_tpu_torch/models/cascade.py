@@ -9,7 +9,10 @@ upsampled ``scale_factor`` times, the ``subdivision_num_points`` most
 uncertain cells chosen by ``boxes.top_k`` (stable: ``torch.topk`` does
 not order ties as ``jax.lax.top_k`` does), re-classified from the fine
 features and the upsampled logits, and written back; ``subdivision_steps``
-rounds.  Training (the PointRend training pass) is ROADMAP A13 part 5.
+rounds.  In train mode the forward is the JAX package's ``__call__``:
+every stage's logits resized to the input (the train step puts a loss
+on each), and PointRend's training pass, the point head on the
+``train_cfg.num_points`` most uncertain cells of the coarse logits.
 """
 
 from __future__ import annotations
@@ -51,17 +54,6 @@ class CascadeEncoderDecoder(EncoderDecoder):
         return [getattr(self, f"decode_head{i}")
                 for i in range(self.num_stages)]
 
-    def _run_stages(self, feats):
-        """Every stage before a point head: the last one's logits, at the
-        head's resolution."""
-        prev = None
-        for head in self.heads():
-            if isinstance(head, PointHead):
-                break
-            prev = (head(feats) if prev is None
-                    else head(feats, prev_logits=prev))
-        return prev
-
     def subdivide(self, feats, logits: torch.Tensor):
         """The point head's rounds over the coarse logits: the refined
         logits and the flat indices of the cells each round re-classified
@@ -93,17 +85,66 @@ class CascadeEncoderDecoder(EncoderDecoder):
         """(B, C, H, W) -> logits resized to the input, after the point
         head's subdivision where the last stage is one."""
         feats = self.extract_feat(img)
-        logits = self._run_stages(feats)
+        logits = self._stage_outputs(feats)[-1]
         if isinstance(self.heads()[-1], PointHead):
             logits = self.subdivide(feats, logits)[0]
         return self._resize(logits, img.shape[-2:])
 
+    def _stage_outputs(self, feats, generator=None):
+        """Every stage before a point head, in the module's mode: their
+        logits at the heads' resolution."""
+        outs, prev = [], None
+        for head in self.heads():
+            if isinstance(head, PointHead):
+                break
+            prev = (head(feats, generator) if prev is None
+                    else head(feats, generator, prev_logits=prev))
+            outs.append(prev)
+        return outs
+
+    def point_pass(self, feats, coarse: torch.Tensor):
+        """PointRend's training pass (point_head.py forward_train, with a
+        deterministic top-k in place of its importance sampling, as in
+        the JAX package): the point head's logits (B, K, P) at the
+        ``train_cfg.num_points`` (256) most uncertain cells of the coarse
+        logits, and those cells' normalised centres (B, P, 2), most
+        uncertain first (``boxes.top_k``, stable as inference's)."""
+        b, _, ch, cw = coarse.shape
+        k = min(int(self.train_cfg.get("num_points", 256)), ch * cw)
+        unc = PointHead.uncertainty(coarse).reshape(b, ch * cw)
+        _, idx = top_k(unc, k)
+        ys = torch.div(idx, cw, rounding_mode="floor").float()
+        xs = (idx % cw).float()
+        pts = torch.stack([(xs + 0.5) / cw, (ys + 0.5) / ch], dim=-1)
+        return self.heads()[-1](feats, coarse, pts), pts
+
     def forward(self, img: torch.Tensor, train: Optional[bool] = None,
-                with_aux: bool = False, generator=None) -> torch.Tensor:
-        """The serving forward: ``encode_decode`` in eval mode.  Training
-        a cascade is ROADMAP A13 part 5."""
-        if train:
-            raise NotImplementedError(
-                "training a CascadeEncoderDecoder (the PointRend training "
-                "pass) is the zoo's training half, ROADMAP A13 part 5")
-        return self.encode_decode(img)
+                with_aux: bool = False, generator=None,
+                with_points: bool = False):
+        """``train`` switches the mode first, as ``EncoderDecoder``'s.  In
+        eval mode: the serving forward, ``encode_decode``.  In train mode
+        (the JAX package's ``__call__``): the logits of every stage before
+        a point head resized to the input, then the auxiliary head's with
+        ``with_aux``, as a tuple, or the one tensor when there is one.
+        With ``with_points`` (PointRend), the pair (that, {"point_logits":
+        (B, K, P), "points": (B, P, 2)}) of ``point_pass``: what flax
+        sows into ``intermediates``."""
+        if train is not None:
+            self.train(train)
+        if not self.training:
+            return self.encode_decode(img)
+        feats = self.extract_feat(img)
+        stages = self._stage_outputs(feats, generator)
+        hw = img.shape[-2:]
+        outs = [self._resize(o, hw) for o in stages]
+        if with_aux and self.auxiliary_head is not None:
+            outs.append(self._resize(self.auxiliary_head(feats, generator),
+                                     hw))
+        out = tuple(outs) if len(outs) > 1 else outs[0]
+        if not with_points:
+            return out
+        if not isinstance(self.heads()[-1], PointHead):
+            raise ValueError("with_points: the last stage is not a "
+                             "PointHead")
+        point_logits, points = self.point_pass(feats, stages[-1])
+        return out, {"point_logits": point_logits, "points": points}

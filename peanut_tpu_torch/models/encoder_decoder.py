@@ -5,12 +5,14 @@ PEANUT's in-tree change to mmseg's EncoderDecoder (encoder_decoder.py:248,
 262-271) returns **raw logits** resized to the input instead of an argmax;
 the agent applies the sigmoid itself for multi-label probability maps, and
 ``predict_labels`` gives the stock argmax for zoo use.  ``forward`` runs
-NCHW, in eval or (``train=True``, the train step) train mode, with the
-auxiliary head's logits on request; ``inference`` and ``predict_labels``
-keep the JAX package's NHWC layout at their boundary.
+NCHW, in eval or (``train=True``, the train step of any zoo config with
+one auxiliary head) train mode: batch-statistics batch norms and the
+heads' dropout, flax's ``train=True``.  ``inference`` and
+``predict_labels`` keep the JAX package's NHWC layout at their boundary.
 
 The backbone, the neck and the heads come from the registries; a type the
-port does not have raises NotImplementedError naming ROADMAP A13.  As in
+port does not have (the timm adapter's, ROADMAP A13 part 6) raises
+NotImplementedError naming it.  As in
 the JAX package's ``setup``, ``pretrained`` and ``norm_cfg`` are dropped
 from the backbone's config and ``norm_cfg`` and ``loss_decode`` from the
 heads'.  A neck without ``in_channels`` is given the backbone's
@@ -36,12 +38,13 @@ from .ops import resize_nchw
 def build_component(registry: Registry, cfg: Dict[str, Any],
                     drop=()) -> nn.Module:
     """``registry.build(cfg)`` without the keys ``drop``; a type that is
-    not registered raises NotImplementedError naming ROADMAP A13."""
+    not registered raises NotImplementedError naming ROADMAP A13 part 6
+    (the timm adapter's, the one type of the JAX package's not ported)."""
     kind = cfg["type"]
     if not isinstance(kind, str) or kind not in registry:
         raise NotImplementedError(
-            f"{kind} ({registry.name}) is not ported (the model zoo is "
-            "ROADMAP A13)")
+            f"{kind} ({registry.name}) is not ported (the timm adapter is "
+            "ROADMAP A13 part 6)")
     return registry.build({k: v for k, v in cfg.items() if k not in drop})
 
 
@@ -62,6 +65,7 @@ class EncoderDecoder(nn.Module):
         flax model's initialisers; unset, the weights are left for a state
         dict."""
         super().__init__()
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         self.head_cfg = dict(decode_head if isinstance(decode_head, dict)
                              else decode_head[-1])

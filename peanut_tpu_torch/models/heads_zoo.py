@@ -897,9 +897,10 @@ class DepthwiseSeparableFCNHead(DecodeHead):
 
 @HEADS.register()
 class STDCHead(DecodeHead):
-    """STDC's detail head (stdc_head.py), serving half: a 3x3 ConvModule
-    and the classifier of binary boundary logits.  ``boundary_threshold``
-    belongs to the detail target of training (ROADMAP A13 part 5)."""
+    """STDC's detail head (stdc_head.py): a 3x3 ConvModule and the
+    classifier of binary boundary logits, trained against the Laplacian
+    boundaries of the label map (``detail_target``; its
+    ``boundary_threshold``)."""
 
     def __init__(self, in_channels: int = 256, channels: int = 64,
                  num_classes: int = 2, boundary_threshold: float = 0.1,
@@ -912,3 +913,14 @@ class STDCHead(DecodeHead):
 
     def forward(self, inputs, generator=None) -> torch.Tensor:
         return self.cls_seg(self.conv0(inputs[self.in_index]), generator)
+
+    @staticmethod
+    def detail_target(gt_sem: torch.Tensor,
+                      threshold: float = 0.1) -> torch.Tensor:
+        """(B, H, W) labels -> (B, H, W) int32 boundaries: |Laplacian|
+        (3x3, zero padding) above ``threshold`` (stdc_head.py's fixed
+        Laplacian, one convolution as in the JAX package)."""
+        lap = torch.full((3, 3), -1.0, device=gt_sem.device)
+        lap[1, 1] = 8.0
+        y = F.conv2d(gt_sem[:, None].float(), lap[None, None], padding=1)
+        return (y[:, 0].abs() > threshold).to(torch.int32)

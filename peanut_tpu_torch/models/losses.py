@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..registry import LOSSES
+
 
 def _reduce(loss, weight, reduction: str, avg_factor=None):
     """mmseg weight_reduce_loss semantics (losses/utils.py)."""
@@ -46,10 +48,12 @@ def bce_with_logits(pred: torch.Tensor, target: torch.Tensor,
                     ) -> torch.Tensor:
     """Numerically stable sigmoid BCE, elementwise:
     log(1 + exp(-|x|)) + max(-x, 0) for the positive term, + max(x, 0) for
-    the negative one (``torch.maximum`` splits the gradient at a tie as
-    ``jnp.maximum`` does)."""
+    the negative one.  The gradients at x = 0 are JAX's: ``torch.maximum``
+    splits the gradient at a tie as ``jnp.maximum`` does, and |x| is
+    written as x where x >= 0, else -x, whose slope at 0 is +1 as
+    ``jnp.abs``'s (``torch.abs``'s is 0)."""
     zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
-    softplus = torch.log1p(torch.exp(-torch.abs(pred)))
+    softplus = torch.log1p(torch.exp(-torch.where(pred >= 0, pred, -pred)))
     loss_pos = softplus + torch.maximum(-pred, zero)
     loss_neg = softplus + torch.maximum(pred, zero)
     if pos_weight is not None:
@@ -57,6 +61,7 @@ def bce_with_logits(pred: torch.Tensor, target: torch.Tensor,
     return target * loss_pos + (1 - target) * loss_neg
 
 
+@LOSSES.register()
 class MultiLabelBCELoss:
     """Reference MyLoss: BCE(pred_logits, uint8_target / 255)."""
 
@@ -84,6 +89,10 @@ class MultiLabelBCELoss:
         return self.loss_weight * _reduce(loss, weight, reduction, avg_factor)
 
 
+LOSSES.register(MultiLabelBCELoss, name="MyLoss")
+
+
+@LOSSES.register()
 class CrossEntropyLoss:
     """Per-pixel softmax CE with ignore_index (stock zoo loss)."""
 
@@ -121,6 +130,7 @@ class CrossEntropyLoss:
         return self.loss_weight * _reduce(loss, weight, reduction, avg_factor)
 
 
+@LOSSES.register()
 class DiceLoss:
     """Soft dice loss (zoo; dice_loss.py)."""
 

@@ -269,6 +269,126 @@ def flax_to_torch_state(variables: Mapping[str, Any],
     return sd
 
 
+_BN_FLAX = {v: k for k, v in _BN.items()}
+
+
+def _block_path(name: str):
+    """The flax path below a residual block of an mmseg-named block
+    parameter (``_mmseg_name``'s rule read backwards), or None."""
+    m = re.fullmatch(r"(conv\d)\.weight", name)
+    if m:
+        return (m.group(1), "conv", "kernel")
+    m = re.fullmatch(r"(bn\d)\.(\w+)", name)
+    if m:
+        return (m.group(1), "bn", _BN_FLAX[m.group(2)])
+    if name == "downsample.0.weight":
+        return ("downsample_conv", "conv", "kernel")
+    m = re.fullmatch(r"downsample\.1\.(\w+)", name)
+    if m:
+        return ("downsample_bn", "bn", _BN_FLAX[m.group(1)])
+    return None
+
+
+def _resnet_path(name: str):
+    """The flax path below a zoo ResNet of one of its mmseg-named
+    parameters, or None."""
+    m = re.fullmatch(r"stem\.(\d+)\.(\w+)", name)
+    if m:
+        k, r = divmod(int(m.group(1)), 3)
+        return ((f"stem{k}", "conv_unit", "conv", "kernel") if r == 0
+                else (f"stem{k}", "norm", "bn", _BN_FLAX[m.group(2)]))
+    if name == "conv1.weight":
+        return ("conv1", "conv", "kernel")
+    m = re.fullmatch(r"bn1\.(\w+)", name)
+    if m:
+        return ("bn1", "bn", _BN_FLAX[m.group(1)])
+    m = re.fullmatch(r"layer(\d+)\.(\d+)\.(.+)", name)
+    if m:
+        rest = _block_path(m.group(3))
+        return None if rest is None else (
+            f"layer{m.group(1)}_{m.group(2)}",) + rest
+    return None
+
+
+def _head_path(name: str):
+    """The flax path below PSPHead or FCNHead of an mmseg-named
+    parameter, or None."""
+    m = re.fullmatch(r"conv_seg\.(weight|bias)", name)
+    if m:
+        return ("conv_seg", "conv",
+                "kernel" if m.group(1) == "weight" else "bias")
+    m = re.fullmatch(r"(psp_modules\.(\d+)\.1|convs\.(\d+)|bottleneck"
+                     r"|conv_cat)\.(conv|bn)\.(\w+)", name)
+    if not m:
+        return None
+    unit = (f"ppm{m.group(2)}" if m.group(2) is not None else
+            f"convs{m.group(3)}" if m.group(3) is not None else m.group(1))
+    if m.group(4) == "conv":
+        return (unit, "conv_unit", "conv", "kernel")
+    return (unit, "norm", "bn", _BN_FLAX[m.group(5)])
+
+
+def flax_param_paths(model: torch.nn.Module
+                     ) -> Dict[str, Tuple[str, ...]]:
+    """The JAX package's variable path of every parameter of the zoo
+    segmentor ``model``: {port name: flax path}, ``flax_to_torch_state``'s
+    name map read backwards, so that rules written over flax paths
+    (the layer-decay optimizer's) read the names the JAX package reads.
+    The zoo's ResNets, their blocks wherever they sit, PSPHead and
+    FCNHead go back from mmseg's names; elsewhere a ConvModule's ``conv``
+    / ``bn`` are flax's ``conv_unit/conv`` / ``norm/bn``, and the leaf
+    takes flax's name by the module that holds it (a kernel, a norm's
+    ``scale``).  Where flax wraps a bare layer in a module of its own
+    name (a ``conv`` in a ``conv``), the path leaves the wrapper out: the
+    map sends it to the same parameter.  Every path is checked by
+    sending it forward through the map; one that does not come back to
+    its parameter raises KeyError.  Parameters still unbound
+    (``layers.InputShaped``) are not listed."""
+    from .layers import ConvModule
+
+    out: Dict[str, Tuple[str, ...]] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        path = None
+        top = model._modules.get(parts[0])
+        if isinstance(top, (PSPHead, FCNHead)):
+            rest = _head_path(".".join(parts[1:]))
+            path = None if rest is None else (parts[0],) + rest
+        else:
+            mod, names = model, []
+            for i, c in enumerate(parts[:-1]):
+                if isinstance(mod, (ZooResNet, ZooBottleneck, BasicBlock)):
+                    below = ".".join(parts[i:])
+                    rest = (_resnet_path(below) if isinstance(mod, ZooResNet)
+                            else _block_path(below))
+                    path = None if rest is None else tuple(names) + rest
+                    break
+                if isinstance(mod, ConvModule) and c in ("conv", "bn"):
+                    names += {"conv": ["conv_unit", "conv"],
+                              "bn": ["norm", "bn"]}[c]
+                else:
+                    names.append(c)
+                mod = mod._modules[c]
+            else:
+                kind = _kind(mod)
+                leaf = parts[-1]
+                if kind is not None:
+                    leaf = {v: k for k, v in _LEAF[kind].items()}[leaf]
+                path = tuple(names) + (leaf,)
+        back = None
+        if path is not None:
+            if isinstance(top, (ZooResNet, PSPHead, FCNHead)):
+                back = _mmseg_name(path)
+            else:
+                found = _generic_name(model, path)
+                back = found[0] if found is not None else None
+        if back != name:
+            raise KeyError(f"no flax path of {name!r} maps back to it "
+                           f"({path})")
+        out[name] = path
+    return out
+
+
 def flax_train_state_to_torch(tree: Mapping[str, Any],
                               model: torch.nn.Module,
                               optimizer: torch.optim.Adam) -> int:

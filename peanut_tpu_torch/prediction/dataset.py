@@ -29,6 +29,8 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from ..registry import DATASETS
+
 NUM_TARGET_CATEGORIES = 6
 GOAL_CHANNELS = slice(4, 4 + NUM_TARGET_CATEGORIES)
 NUM_INPUT_TIMESTEPS = 10
@@ -56,6 +58,7 @@ def load_map_sample(path: str, t_idx: int, maps=None,
     return {"img": img, "gt": gt.astype(np.float32)}
 
 
+@DATASETS.register()
 class SemMapDataset:
     """(file, t_idx) pairs, 10 samples an episode file, with a small LRU
     cache of decompressed episodes (grouped access decodes a file once)."""

@@ -4,8 +4,10 @@
 The reference recipe (pred_model_cfg.py:137-142,
 train_prediction_model.py:214-319): Adam 5e-4 with poly decay (power 0.9,
 down to 1e-5), per-pixel multi-label BCE on the decode head plus 0.4 x the
-FCN auxiliary head, batch 8, crop 960.  One process on one card; data
-parallelism (DDP) is ROADMAP A14.
+FCN auxiliary head, batch 8, crop 960.  The step takes PEANUT's PSPNet
+or any model the zoo's config files build with one auxiliary head
+(``check_heads``).  One process on one card; data parallelism (DDP) is
+ROADMAP A14.
 
 The train state is the model, a ``torch.optim.Adam`` over all its
 parameters (the batch norms' weight and bias included, as in flax) and the
@@ -28,9 +30,9 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import resolve_device, upload
-from ..models.encoder_decoder import EncoderDecoder
 from ..models.losses import bce_with_logits
 
 ADAM_BETAS = (0.9, 0.999)     # optax.adam's defaults
@@ -63,15 +65,50 @@ def poly_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 @dataclasses.dataclass
 class TrainState:
-    model: EncoderDecoder
+    model: nn.Module
     optimizer: torch.optim.Adam
     step: int = 0
 
 
-def create_train_state(model: EncoderDecoder, cfg: TrainConfig,
+def check_heads(model: nn.Module) -> None:
+    """ValueError unless ``model``'s train forward gives the pair the
+    step takes: the decode head's logits and one auxiliary head's.  A
+    cascade qualifies with one stage before its point head.  (The JAX
+    package's step unpacks whatever the model returns as that pair: it
+    raises on most other configs, but at batch 2 it splits one output's
+    batch into "logits" and "aux".)"""
+    from ..models.cascade import CascadeEncoderDecoder
+    from ..models.heads_zoo import PointHead
+    if isinstance(model, CascadeEncoderDecoder):
+        decode = [type(h).__name__ for h in model.heads()]
+        stages = sum(not isinstance(h, PointHead) for h in model.heads())
+    else:
+        decode = [type(model.decode_head).__name__]
+        stages = 1
+    aux = model.auxiliary_head
+    if aux is None or stages != 1:
+        raise ValueError(
+            f"the train step takes the decode head's logits and one "
+            f"auxiliary head's (BCE + {TrainConfig.aux_weight} x the "
+            f"auxiliary loss); this model has decode head(s) {decode} "
+            f"and auxiliary head "
+            f"{type(aux).__name__ if aux is not None else None}")
+
+
+def create_train_state(model: nn.Module, cfg: TrainConfig,
                        device=None) -> TrainState:
     """The model on ``device`` (``resolve_device``: the card unless
-    ``"cpu"``), every parameter trainable, and a fresh Adam at step 0."""
+    ``"cpu"``), every parameter trainable, and a fresh Adam at step 0.
+    ValueError from ``check_heads`` for a model the step cannot train, and
+    for one with an unbound ``layers.InputShaped`` parameter, which
+    ``parameters()`` would leave out of Adam."""
+    from ..models.layers import needs_binding
+    check_heads(model)
+    if needs_binding(model):
+        raise ValueError("a parameter shaped by the input "
+                         "(layers.InputShaped) is unbound: run one forward "
+                         "at the training input's size first, or the "
+                         "optimizer would not hold it")
     model = model.to(resolve_device(device)).requires_grad_(True)
     opt = torch.optim.Adam(model.parameters(), lr=poly_schedule(cfg)(0),
                            betas=ADAM_BETAS, eps=ADAM_EPS)

@@ -506,8 +506,13 @@ def test_cli_refuses_what_is_not_ported(maps_dir):
     with pytest.raises(NotImplementedError, match="A14"):
         train_prediction_model.main(base + ["--distributed", "1"],
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        train_prediction_model.main(base + ["--config", "x.py"],
+    # a zoo config the step cannot train: no auxiliary head
+    from peanut_tpu_torch.core.config_file import dump_config
+    from torch_zoo_support import family_config
+    path = os.path.join(maps_dir, "segformer.py")
+    dump_config({"model": family_config("segformer")}, path)
+    with pytest.raises(ValueError, match="SegFormerHead"):
+        train_prediction_model.main(base + ["--config", path],
                                     device="cpu")
 
 

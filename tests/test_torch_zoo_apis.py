@@ -10,8 +10,8 @@
   ``/predictions/x`` (the argmax) and ``/probs`` (the ``.npy``) with what
   ``inference_segmentor`` returns; a bad request answers 500.
 * ``cli.benchmark`` at ``--size 64 --batch 1`` prints its JSON keys.
-* Without a card and without ``device``, the entry points raise;
-  ``train_segmentor`` raises naming ROADMAP A13.
+* Without a card and without ``device``, the entry points raise,
+  ``train_segmentor`` among them.
 * PSAHead's masks take their shape from the first feature map, as flax's
   kernel from init, and another size raises; ``init_segmentor`` binds
   them before any request.  So it binds MAE's positional embedding and
@@ -181,7 +181,7 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, carried):
                  lambda: benchmark.main([UPERNET, "--size", "32"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         apis.train_segmentor(UPERNET, "data", "work")
 
 
