@@ -1,14 +1,16 @@
 """Drive the PyTorch port on one CUDA card and check it end to end.
 
     python3 chip_smoke.py [--seed N] [--ticks N]
-                          [--only b3|b1|wide|paths|train|zoo|zoo_train]
+                          [--only b3|b1|wide|paths|train|zoo|zoo_train|
+                                  zoo_tools]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
 phase 3's lines over 1024 cells (run from a copy of another tree, it times
 that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
 and B4 lines at the paths' shapes (to time another tree's beside these),
-"train" phase 11, "zoo" phase 12, "zoo_train" phase 13.
+"train" phase 11, "zoo" phase 12, "zoo_train" phase 13, "zoo_tools" phase
+14.
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -176,6 +178,28 @@ Phases (each prints one JSON line):
                (stage and point logits within 1e-8, the points equal) and
                one layer-decay AdamW step of UPerNet-ViT-B (1e-8 of the
                largest update).  No kernel of csrc/ either.
+ 14. zoo_tools — the zoo's tools and converters, data from --seed: an
+               mmcls ConvNeXt-T state dict (dims 96-768, depths 3/3/9/3,
+               ~28 M parameters) through cli.convert model convnext into
+               UPerNet-ConvNeXt-T's backbone (the zoo_train config), and a
+               Microsoft Swin-T one (with mmseg's per-stage norms) through
+               cli.convert model swin into
+               configs/swin/upernet_swin-t_512x512_160k_ade20k.py's (its
+               patch merging's biases, which the checkpoint lacks, kept):
+               arrays, leftovers (none), and the backbone's features on
+               the card against the CPU in float64 at 224x224 (1e-9 of
+               the largest); cli.export of that UPerNet-ConvNeXt-T at
+               (1, 512, 512, 3) and of configs/pspnet/peanut_prediction.py
+               at (1, 720, 720, 14), float32 with TF32 off: export
+               seconds, artifact MB, the reloaded program against the
+               eager model (rtol = atol = 1e-5) and both forwards' median
+               ms of 10 (CUDA events); cli.tools confusion_matrix with the
+               converted UPerNet-ConvNeXt-T over eight seeded 512x512
+               images of a CustomDataset on the card and on the CPU: both
+               overall accuracies, the pixels whose predictions differ,
+               each a near-tie (the two largest logits within 1e-4);
+               cli.tools collect_env on the card as one JSON line
+               (zoo_tools_env).  No kernel of csrc/.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -2394,18 +2418,331 @@ def zoo_train_phase(args, dev, smi_line: str) -> dict:
     return reading
 
 
+ZOO_TOOLS_SWIN = "configs/swin/upernet_swin-t_512x512_160k_ade20k.py"
+ZOO_TOOLS_PSPNET = "configs/pspnet/peanut_prediction.py"
+# the pieces of a Swin-T that an official checkpoint has no array for: its
+# patch merging carries no bias (the port's, as flax's Dense, has one)
+SWIN_KEEP = (r"merge\d+\.bias",)
+EXPORT_TOL = 1e-5          # cli/export.py's bar, the JAX package's
+CONVERT_TOL = 1e-9         # card against CPU, float64, of the largest
+TIE_TOL = 1e-4             # a pixel whose two largest logits are this near
+
+
+def _init(rng, *shape):
+    fan = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+    return rng.randn(*shape) / np.sqrt(fan)
+
+
+def mmcls_convnext_t(seed: int) -> dict:
+    """An mmcls ConvNeXt-T state dict (the reference configs' pretrained
+    format: dims 96-768, depths 3/3/9/3, ~28 M parameters, its classifier
+    head too) of seeded values: kernels scaled by 1 / sqrt(fan-in), norm
+    scales near 1, layer scales of order 1."""
+    rng = np.random.RandomState(seed)
+    sd, in_c = {}, 3
+    for i, (nd, d) in enumerate(zip((3, 3, 9, 3), (96, 192, 384, 768))):
+        t = f"backbone.downsample_layers.{i}"
+        conv, norm = (0, 1) if i == 0 else (1, 0)
+        k = 4 if i == 0 else 2
+        sd[f"{t}.{conv}.weight"] = _init(rng, d, in_c, k, k)
+        sd[f"{t}.{conv}.bias"] = 0.1 * rng.randn(d)
+        nc = d if i == 0 else in_c
+        sd[f"{t}.{norm}.weight"] = 1 + 0.1 * rng.randn(nc)
+        sd[f"{t}.{norm}.bias"] = 0.1 * rng.randn(nc)
+        for j in range(nd):
+            b = f"backbone.stages.{i}.{j}"
+            sd[f"{b}.depthwise_conv.weight"] = _init(rng, d, 1, 7, 7)
+            sd[f"{b}.depthwise_conv.bias"] = 0.1 * rng.randn(d)
+            sd[f"{b}.norm.weight"] = 1 + 0.1 * rng.randn(d)
+            sd[f"{b}.norm.bias"] = 0.1 * rng.randn(d)
+            sd[f"{b}.pointwise_conv1.weight"] = _init(rng, 4 * d, d)
+            sd[f"{b}.pointwise_conv1.bias"] = 0.1 * rng.randn(4 * d)
+            sd[f"{b}.pointwise_conv2.weight"] = _init(rng, d, 4 * d)
+            sd[f"{b}.pointwise_conv2.bias"] = 0.1 * rng.randn(d)
+            sd[f"{b}.gamma"] = 0.5 + rng.rand(d)
+        sd[f"backbone.norm{i}.weight"] = 1 + 0.1 * rng.randn(d)
+        sd[f"backbone.norm{i}.bias"] = 0.1 * rng.randn(d)
+        in_c = d
+    sd["head.fc.weight"] = _init(rng, 1000, 768)
+    sd["head.fc.bias"] = np.zeros(1000)
+    return {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+
+def official_swin_t(seed: int) -> dict:
+    """A Microsoft Swin-T state dict (embed 96, depths 2/2/6/2, heads
+    3/6/12/24, window 7, ~28 M parameters) of seeded values, with the
+    per-stage output norms ``norm{s}`` of mmseg's Swin (the segmentation
+    configs' out_indices 0-3), the relative-position index and
+    shifted-window mask buffers, and its classifier head."""
+    rng = np.random.RandomState(seed)
+    sd = {"patch_embed.proj.weight": _init(rng, 96, 3, 4, 4),
+          "patch_embed.proj.bias": 0.1 * rng.randn(96),
+          "patch_embed.norm.weight": 1 + 0.1 * rng.randn(96),
+          "patch_embed.norm.bias": 0.1 * rng.randn(96)}
+    for s, (depth, heads) in enumerate(zip((2, 2, 6, 2), (3, 6, 12, 24))):
+        c = 96 * 2 ** s
+        for b in range(depth):
+            t = f"layers.{s}.blocks.{b}"
+            for n in ("norm1", "norm2"):
+                sd[f"{t}.{n}.weight"] = 1 + 0.1 * rng.randn(c)
+                sd[f"{t}.{n}.bias"] = 0.1 * rng.randn(c)
+            for n, (o, i) in (("attn.qkv", (3 * c, c)), ("attn.proj", (c, c)),
+                              ("mlp.fc1", (4 * c, c)),
+                              ("mlp.fc2", (c, 4 * c))):
+                sd[f"{t}.{n}.weight"] = _init(rng, o, i)
+                sd[f"{t}.{n}.bias"] = 0.1 * rng.randn(o)
+            sd[f"{t}.attn.relative_position_bias_table"] = \
+                0.5 * rng.randn(13 * 13, heads)
+            sd[f"{t}.attn.relative_position_index"] = np.zeros((49, 49),
+                                                               np.int64)
+            if b % 2:
+                sd[f"{t}.attn_mask"] = np.zeros((64, 49, 49))
+        if s < 3:
+            d = f"layers.{s}.downsample"
+            sd[f"{d}.reduction.weight"] = _init(rng, 2 * c, 4 * c)
+            sd[f"{d}.norm.weight"] = 1 + 0.1 * rng.randn(4 * c)
+            sd[f"{d}.norm.bias"] = 0.1 * rng.randn(4 * c)
+        sd[f"norm{s}.weight"] = 1 + 0.1 * rng.randn(c)
+        sd[f"norm{s}.bias"] = 0.1 * rng.randn(c)
+    sd["head.weight"] = _init(rng, 1000, 768)
+    sd["head.bias"] = np.zeros(1000)
+    return {k: torch.as_tensor(v) if v.dtype == np.int64
+            else torch.as_tensor(v, dtype=torch.float32)
+            for k, v in sd.items()}
+
+
+def convert_into(kind: str, sd: dict, config: str, tmp: str, seed: int,
+                 dev, keep=()) -> tuple:
+    """``sd`` saved as an mmcls-style ``.pth``, converted by ``cli.convert
+    model KIND`` and laid into the backbone of ``config``'s model (seeded):
+    (the model, its reading).  The backbone's features on the card
+    against the CPU's in float64 on a seeded 224x224 input."""
+    import copy
+    import io
+
+    from peanut_tpu_torch.cli import convert
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.mmseg_import import load_mmseg_state
+    from peanut_tpu_torch.models.zoo_import import converted_backbone_state
+
+    src, out = (os.path.join(tmp, f"{kind}.pth"),
+                os.path.join(tmp, f"{kind}_converted.pt"))
+    torch.save({"state_dict": sd, "meta": {"seed": seed}}, src)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        convert.main(["model", kind, src, out])
+    convert_s = time.perf_counter() - t0
+    _, leftovers = convert.convert_model(kind, src)
+    tree = convert.load_converted(out)
+    model = build_segmentor(load_config(config)["model"], seed=seed)
+    load_mmseg_state(model.backbone,
+                     converted_backbone_state(tree, model.backbone, keep))
+    x = torch.as_tensor(np.random.RandomState(seed).rand(1, 3, 224, 224))
+    cpu = copy.deepcopy(model.backbone).double()
+    with torch.no_grad():
+        want = cpu(x)
+        got = [g.cpu() for g in cpu.to(dev)(x.to(dev))]
+    top = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    lines = printed.getvalue().splitlines()
+    return model, {
+        "config": config, "source_keys": len(sd),
+        "arrays": int(lines[0].split(": ")[1].split()[0]),
+        "printed": lines[0], "leftovers": leftovers, "kept": list(keep),
+        "convert_s": convert_s,
+        "backbone_card_vs_cpu_float64": {
+            "err_of_largest": err / top, "largest_abs": top,
+            "features": [list(g.shape) for g in got],
+            "finite": all(bool(torch.isfinite(g).all()) for g in got)}}
+
+
+def median_ms(fn, reps: int = 10) -> float:
+    """The median of ``reps`` CUDA-event timings of ``fn()``, each after
+    the one before has finished, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times))
+
+
+def export_reading(config: str, shape, tmp: str, dev,
+                   checkpoint=None) -> dict:
+    """``cli.export`` of ``config`` at ``shape`` on the card: seconds, the
+    artifact's MB, the reloaded program against the eager model on
+    ``RandomState(0).rand(*shape)`` (largest deviation; within the
+    export's rtol = atol = 1e-5), and both forwards' median ms."""
+    from peanut_tpu_torch import apis
+    from peanut_tpu_torch.cli import export
+
+    out = os.path.join(tmp, os.path.basename(config)[:-3] + ".pt2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export.export_segmentor(config, out, shape, checkpoint=checkpoint,
+                            device=dev)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = torch.export.load(out).module()
+    load_s = time.perf_counter() - t0
+    model = apis.init_segmentor(config, checkpoint=checkpoint,
+                                input_size=shape[1], device=dev).model
+    x = torch.as_tensor(np.random.RandomState(0).rand(*shape)
+                        .astype(np.float32), device=dev)
+    with torch.no_grad():
+        got, want = program(x), model.inference(x)
+        eager_ms = median_ms(lambda: model.inference(x))
+        exported_ms = median_ms(lambda: program(x))
+    dev_ = (got - want).abs()
+    return {"config": config, "shape": list(shape), "dtype": "float32",
+            "tf32": False, "export_s": export_s, "load_s": load_s,
+            "artifact_mb": os.path.getsize(out) / 2 ** 20,
+            "max_abs_dev": float(dev_.max()),
+            "largest_abs_logit": float(want.abs().max()),
+            "within_1e-5": bool(torch.allclose(got, want, rtol=EXPORT_TOL,
+                                               atol=EXPORT_TOL)),
+            "bit_equal": bool(torch.equal(got, want)),
+            "out_shape": list(got.shape),
+            "finite": bool(torch.isfinite(got).all()),
+            "eager_ms": eager_ms, "exported_ms": exported_ms}
+
+
+def write_image_dataset(root: str, seed: int, n: int = 8, hw=(512, 512),
+                        classes: int = 150) -> None:
+    """``n`` seeded images (jpg) and label maps (png) of ``hw`` in
+    CustomDataset's layout (img_dir/, ann_dir/)."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    for sub in ("img_dir", "ann_dir"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        img = (rng.rand(*hw, 3) * 255).astype(np.uint8)
+        gt = rng.randint(0, classes, hw).astype(np.uint8)
+        cv2.imwrite(os.path.join(root, "img_dir", f"s{i}.jpg"), img)
+        cv2.imwrite(os.path.join(root, "ann_dir", f"s{i}.png"), gt)
+
+
+def confusion_reading(config: str, checkpoint: str, root: str, dev) -> dict:
+    """``cli.tools confusion_matrix`` on the card and on the CPU over the
+    dataset at ``root``: both overall accuracies, the pixels whose
+    predictions differ, and whether each is a near-tie (the CPU's two
+    largest logits within 1e-4)."""
+    import io
+
+    from peanut_tpu_torch import apis
+    from peanut_tpu_torch.cli import tools
+    from peanut_tpu_torch.prediction.image_dataset import CustomDataset
+
+    out, cms, secs = {}, {}, {}
+    for where in ("card", "cpu"):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cms[where] = tools.main(
+                ["confusion_matrix", config, checkpoint, root],
+                device=dev if where == "card" else "cpu")
+        secs[where] = time.perf_counter() - t0
+        out[f"overall_acc_{where}"] = json.loads(
+            printed.getvalue().splitlines()[-1])["overall_acc"]
+    bundles = {w: apis.init_segmentor(config, checkpoint=checkpoint,
+                                      device=dev if w == "card" else "cpu")
+               for w in ("card", "cpu")}
+    ds = CustomDataset(data_root=root)
+    differ = ties = 0
+    for i in range(len(ds)):
+        img = ds[i]["img"]
+        logits = apis.inference_segmentor(bundles["cpu"], img, logits=True)
+        cpu = np.argmax(torch.sigmoid(torch.as_tensor(logits)).numpy(), 0)
+        card = np.argmax(apis.inference_segmentor(bundles["card"], img), 0)
+        top2 = np.sort(logits, axis=0)[-2:]
+        d = card != cpu
+        differ += int(d.sum())
+        ties += int((d & (top2[1] - top2[0] <= TIE_TOL)).sum())
+    return {**out, "images": len(ds), "pixels": int(cms["cpu"].sum()),
+            "cm_equal": bool((cms["card"] == cms["cpu"]).all()),
+            "pixels_differing": differ, "differing_near_ties": ties,
+            "all_differences_near_ties": ties == differ,
+            "tools_s_card": secs["card"], "tools_s_cpu": secs["cpu"]}
+
+
+def zoo_tools_phase(args, dev, smi_line: str) -> dict:
+    """Phase 14: the zoo's tools and converters (module docstring);
+    returns its reading."""
+    import io
+    import tempfile
+
+    from peanut_tpu_torch.cli import tools
+
+    t_phase = time.perf_counter()
+    reading = {"phase": "zoo_tools", "nvidia_smi": smi_line}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, reading["convert_convnext"] = convert_into(
+            "convnext", mmcls_convnext_t(args.seed), ZOO_TRAIN, tmp,
+            args.seed, dev)
+        ckpt = os.path.join(tmp, "upernet_convnext_t.pth")
+        torch.save(model.state_dict(), ckpt)
+        del model
+        _, reading["convert_swin"] = convert_into(
+            "swin", official_swin_t(args.seed + 1), ZOO_TOOLS_SWIN, tmp,
+            args.seed + 1, dev, keep=SWIN_KEEP)
+        reading["export_upernet_convnext"] = export_reading(
+            ZOO_TRAIN, (1, 512, 512, 3), tmp, dev, checkpoint=ckpt)
+        reading["export_peanut_pspnet"] = export_reading(
+            ZOO_TOOLS_PSPNET, (1, 720, 720, 14), tmp, dev)
+        data = os.path.join(tmp, "images")
+        write_image_dataset(data, args.seed)
+        reading["confusion_matrix"] = confusion_reading(ZOO_TRAIN, ckpt,
+                                                        data, dev)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        tools.main(["collect_env"])
+    env = dict(ln.split(": ", 1) for ln in printed.getvalue().splitlines())
+    emit({"phase": "zoo_tools_env", **env})
+    reading["phase_s"] = time.perf_counter() - t_phase
+    emit(reading)
+    bad = []
+    for k in ("convert_convnext", "convert_swin"):
+        r = reading[k]
+        c = r["backbone_card_vs_cpu_float64"]
+        if r["leftovers"] or c["err_of_largest"] > CONVERT_TOL \
+                or not c["finite"]:
+            bad.append(k)
+    for k in ("export_upernet_convnext", "export_peanut_pspnet"):
+        r = reading[k]
+        if not (r["within_1e-5"] and r["finite"]):
+            bad.append(k)
+    cm = reading["confusion_matrix"]
+    if not cm["all_differences_near_ties"]:
+        bad.append("confusion_matrix")
+    if "cuda" not in env.get("device", "") or "jax" in sys.modules:
+        bad.append("collect_env")
+    if bad:
+        fail(f"zoo_tools: {bad}")
+    return reading
+
+
 def only_phase(args, dev) -> int:
     """``--only``: one phase alone, to compare trees (the parent's, a
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
     the lines over 1024 cells, "paths" phase 3's B1, B2 and B4 lines at
     the paths' shapes, "train" the train phase, "zoo" the zoo phase,
-    "zoo_train" the zoo's training phase.  Prints no result line."""
+    "zoo_train" the zoo's training phase, "zoo_tools" its tools and
+    converters.  Prints no result line."""
     from peanut_tpu_torch.kernels import _build
     for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
                  "wide": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
                           "fmm_long"),
                  "paths": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
-                 "train": (), "zoo": (), "zoo_train": ()}[args.only]:
+                 "train": (), "zoo": (), "zoo_train": (),
+                 "zoo_tools": ()}[args.only]:
         _build.library(stem)
     if args.only == "paths":
         path_kernels(np.random.RandomState(args.seed), dev, {})
@@ -2415,6 +2752,8 @@ def only_phase(args, dev) -> int:
         zoo_phase(args, dev, nvidia_smi_line())
     elif args.only == "zoo_train":
         zoo_train_phase(args, dev, nvidia_smi_line())
+    elif args.only == "zoo_tools":
+        zoo_tools_phase(args, dev, nvidia_smi_line())
     elif args.only == "b3":
         mask_rcnn_phases(args, dev)
     elif args.only == "b1":
@@ -2429,7 +2768,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
-                                       "train", "zoo", "zoo_train"),
+                                       "train", "zoo", "zoo_train",
+                                       "zoo_tools"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -2677,6 +3017,9 @@ def main() -> int:
 
     # ---- 13. the model zoo's training half (no kernel of csrc/) ---------
     zoo_train_phase(args, dev, smi_line)
+
+    # ---- 14. the zoo's tools and converters (no kernel of csrc/) ---------
+    zoo_tools_phase(args, dev, smi_line)
 
     kernels = []
     for name_, src_file, replaces, keys, count_key in (

@@ -16,7 +16,8 @@ Layering (bottom-up), as in the JAX package:
               ConvNeXt, Twins, BEiT, MAE), cascade (K-Net, PointRend) and
               light-CNN (HRNet, UNet, MobileNetV2/V3, ResNeSt, BiSeNet,
               STDC, ICNet, Fast-SCNN, CGNet, ERFNet) families (heads,
-              necks, the registry-driven builder)
+              necks, the registry-driven builder), the timm adapter and
+              the official-weight converters
   mapping/    per-step semantic map update
   perception/ depth preprocessing, ground-truth and Mask R-CNN segmenters
   prediction/ the target-prediction model; its training: map dataset and
@@ -29,7 +30,8 @@ Layering (bottom-up), as in the JAX package:
   core/       training checkpoints, the zoo's config-file loader
   utils/      stage timer, drawing, the episode dashboard, logger hooks
   cli/        collect, collect_maps, eval, train_prediction_model, test,
-              serve and benchmark (the zoo's)
+              and the zoo's serve, benchmark, convert (weight and dataset
+              converters), export (torch.export) and tools
   registry.py, apis.py   the zoo's registries and mmseg-style API
 
 Device rule: entry points take ``device=``; left unset they run on ``cuda``
@@ -65,9 +67,11 @@ def upload(x, device, dtype=None) -> torch.Tensor:
     To a card it goes through pinned memory without blocking: a copy from
     pageable memory waits for the stream to drain, which would hold the
     caller (an env-step thread launching a detect chunk, say) until every
-    queued kernel has finished."""
+    queued kernel has finished.  While a program is traced
+    (``torch.export``) the data is a constant of the program and goes in
+    as it is: a traced tensor has no pinned staging."""
     t = torch.as_tensor(x, dtype=dtype)
     device = torch.device(device)
-    if device.type != "cuda" or t.is_cuda:
+    if device.type != "cuda" or t.is_cuda or torch.compiler.is_compiling():
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)

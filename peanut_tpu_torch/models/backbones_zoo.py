@@ -543,7 +543,10 @@ class MobileNetV3(nn.Module):
         self.add_module(f"layer{n + 1}", ConvModule(widths[-1], final, 1,
                                                     act=hswish))
         widths.append(final)
-        self.out_channels = [widths[i] for i in self.out_indices]
+        # an index past the last layer taps nothing, as in the JAX package
+        # (the small arch under the large one's default (1, 3, 16))
+        self.out_channels = [widths[i] for i in self.out_indices
+                             if i < len(widths)]
 
     def forward(self, x: torch.Tensor):
         outs = []

@@ -10,9 +10,8 @@ one auxiliary head) train mode: batch-statistics batch norms and the
 heads' dropout, flax's ``train=True``.  ``inference`` and
 ``predict_labels`` keep the JAX package's NHWC layout at their boundary.
 
-The backbone, the neck and the heads come from the registries; a type the
-port does not have (the timm adapter's, ROADMAP A13 part 6) raises
-NotImplementedError naming it.  As in
+The backbone, the neck and the heads come from the registries; a type
+that is not registered raises NotImplementedError naming it.  As in
 the JAX package's ``setup``, ``pretrained`` and ``norm_cfg`` are dropped
 from the backbone's config and ``norm_cfg`` and ``loss_decode`` from the
 heads'.  A neck without ``in_channels`` is given the backbone's
@@ -38,13 +37,13 @@ from .ops import resize_nchw
 def build_component(registry: Registry, cfg: Dict[str, Any],
                     drop=()) -> nn.Module:
     """``registry.build(cfg)`` without the keys ``drop``; a type that is
-    not registered raises NotImplementedError naming ROADMAP A13 part 6
-    (the timm adapter's, the one type of the JAX package's not ported)."""
+    not registered raises NotImplementedError (the port has every type
+    of the JAX package's zoo, the timm adapter's ``TIMMBackbone`` too)."""
     kind = cfg["type"]
     if not isinstance(kind, str) or kind not in registry:
         raise NotImplementedError(
-            f"{kind} ({registry.name}) is not ported (the timm adapter is "
-            "ROADMAP A13 part 6)")
+            f"{kind} ({registry.name}) is not a type of the model zoo; "
+            f"registered: {sorted(registry.keys())}")
     return registry.build({k: v for k, v in cfg.items() if k not in drop})
 
 

@@ -118,7 +118,14 @@ class BatchNorm(nn.Module):
         """(mean, rsqrt(var + eps) * weight, bias) as (C, 1, 1), kept until
         a buffer is replaced or written: a detect dispatches ~100 of these
         layers, and recomputing the terms in every call made up a large
-        share of the operations its host enqueues."""
+        share of the operations its host enqueues.  While a program is
+        traced (``torch.export``, ``torch.compile``) the terms are computed
+        in the graph, uncached: a traced tensor has no storage, so no
+        ``data_ptr()`` to key on."""
+        if torch.compiler.is_compiling():
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            return (self.running_mean[:, None, None], mul[:, None, None],
+                    self.bias[:, None, None])
         bufs = (self.weight, self.bias, self.running_mean, self.running_var)
         key = tuple((b.data_ptr(), b._version) for b in bufs)
         cached = self.__dict__.get("_cached_terms")

@@ -21,7 +21,7 @@ variables into the model, optax Adam's moments and count into a
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,10 +227,13 @@ def _port_layout(arr: np.ndarray, mod: torch.nn.Module, leaf: str):
 
 
 def flax_to_torch_state(variables: Mapping[str, Any],
-                        model: torch.nn.Module) -> Dict[str, np.ndarray]:
+                        model: torch.nn.Module,
+                        keep: Sequence[str] = ()) -> Dict[str, np.ndarray]:
     """The JAX package's variables of a zoo segmentor ({"params",
     "batch_stats"}, numpy or anything ``np.asarray`` reads) as a state
-    dict of the port's ``model`` built from the same config.  The zoo's
+    dict of the port's ``model`` built from the same config; or of one
+    module of the zoo, rooted there (a backbone and the tree a weight
+    converter gives it: ``zoo_import.converted_backbone_state``).  The zoo's
     ResNets, PSPHead and FCNHead go by their mmseg names
     (``flax_to_mmseg_state``'s rule); the rest by ``_generic_name``, in
     the layout of the port module that receives each (``_port_layout``:
@@ -240,7 +243,8 @@ def flax_to_torch_state(variables: Mapping[str, Any],
     ``var`` -> ``running_mean`` / ``running_var``.  float64 stays
     float64, anything else becomes float32.  Raises KeyError on any flax
     variable it does not place and on any parameter or buffer of
-    ``model`` left unset."""
+    ``model`` left unset, but those whose name matches one of the
+    regular expressions ``keep``, which keep ``model``'s own values."""
     sd: Dict[str, np.ndarray] = {}
     left = []
     for col in ("params", "batch_stats"):
@@ -263,7 +267,11 @@ def flax_to_torch_state(variables: Mapping[str, Any],
             sd[name] = np.ascontiguousarray(arr)
     if left:
         raise KeyError(f"Unconverted flax variables: {left[:8]}")
-    unset = sorted(set(model.state_dict()) - set(sd))
+    own = model.state_dict()
+    for name in set(own) - set(sd):
+        if any(re.fullmatch(p, name) for p in keep):
+            sd[name] = own[name].detach().cpu().numpy()
+    unset = sorted(set(own) - set(sd))
     if unset:
         raise KeyError(f"Port parameters or buffers left unset: {unset[:8]}")
     return sd

@@ -912,3 +912,85 @@ def test_hrnet_on_the_card_matches_the_cpu(cuda):
     assert got.shape == (1, 19, 128, 256)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-8 * float(want.abs().max())
+
+
+def test_export_on_the_card_matches_eager(cuda, tmp_path):
+    """cli.export of FCN over U-Net on the card at (1, 64, 64, 3): the
+    reloaded program within rtol = atol = 1e-5 of the eager model (the
+    JAX package's bar), TF32 off."""
+    import os
+
+    from peanut_tpu_torch import apis
+    from peanut_tpu_torch.cli import export
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = os.path.join(root, "configs", "unet", "fcn_unet.py")
+    out = str(tmp_path / "unet.pt2")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        export.export_segmentor(config, out, (1, 64, 64, 3), verify=True,
+                                device=cuda)
+        model = apis.init_segmentor(config, device=cuda).model
+        x = torch.as_tensor(np.random.RandomState(13).rand(1, 64, 64, 3)
+                            .astype(np.float32), device=cuda)
+        with torch.no_grad():
+            got = torch.export.load(out).module()(x)
+            want = model.inference(x)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert got.device.type == "cuda" and got.shape == (1, 64, 64, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_converted_convnext_on_the_card_matches_the_cpu(cuda):
+    """An mmcls ConvNeXt-T state dict of seeded values, converted
+    (zoo_import.convert_mmcls_convnext) and laid into the port's ConvNeXt
+    (converted_backbone_state): its features in float64 on the card and
+    the CPU at 64x64, within 1e-9 of the largest."""
+    import copy
+
+    from peanut_tpu_torch.models.convnext import ConvNeXt
+    from peanut_tpu_torch.models.mmseg_import import load_mmseg_state
+    from peanut_tpu_torch.models.zoo_import import (converted_backbone_state,
+                                                    convert_mmcls_convnext)
+
+    rng = np.random.RandomState(14)
+    sd, in_c = {}, 3
+    for i, (nd, d) in enumerate(zip((3, 3, 9, 3), (96, 192, 384, 768))):
+        t = f"backbone.downsample_layers.{i}"
+        conv, norm = (0, 1) if i == 0 else (1, 0)
+        k = 4 if i == 0 else 2
+        sd[f"{t}.{conv}.weight"] = rng.randn(d, in_c, k, k) / (k * in_c)
+        sd[f"{t}.{conv}.bias"] = 0.1 * rng.randn(d)
+        sd[f"{t}.{norm}.weight"] = 1 + 0.1 * rng.randn(d if i == 0 else in_c)
+        sd[f"{t}.{norm}.bias"] = 0.1 * rng.randn(d if i == 0 else in_c)
+        for j in range(nd):
+            b = f"backbone.stages.{i}.{j}"
+            sd[f"{b}.depthwise_conv.weight"] = rng.randn(d, 1, 7, 7) / 7
+            sd[f"{b}.depthwise_conv.bias"] = 0.1 * rng.randn(d)
+            sd[f"{b}.norm.weight"] = 1 + 0.1 * rng.randn(d)
+            sd[f"{b}.norm.bias"] = 0.1 * rng.randn(d)
+            sd[f"{b}.pointwise_conv1.weight"] = rng.randn(4 * d, d) / d ** .5
+            sd[f"{b}.pointwise_conv1.bias"] = 0.1 * rng.randn(4 * d)
+            sd[f"{b}.pointwise_conv2.weight"] = (rng.randn(d, 4 * d)
+                                                 / (4 * d) ** .5)
+            sd[f"{b}.pointwise_conv2.bias"] = 0.1 * rng.randn(d)
+            sd[f"{b}.gamma"] = 0.5 + rng.rand(d)
+        sd[f"backbone.norm{i}.weight"] = 1 + 0.1 * rng.randn(d)
+        sd[f"backbone.norm{i}.bias"] = 0.1 * rng.randn(d)
+        in_c = d
+    tree, leftovers = convert_mmcls_convnext(sd)
+    assert leftovers == []
+    backbone = ConvNeXt().double()
+    load_mmseg_state(backbone, converted_backbone_state(tree, backbone))
+    x = torch.as_tensor(np.random.RandomState(15).rand(1, 3, 64, 64))
+    with torch.no_grad():
+        want = backbone(x)
+        got = [g.cpu() for g in copy.deepcopy(backbone).to(cuda)(x.to(cuda))]
+    top = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-9 * top

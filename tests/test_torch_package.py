@@ -75,7 +75,13 @@ def test_import_pulls_in_neither_jax_nor_peanut_tpu():
             "peanut_tpu_torch.models.heads_zoo",
             "peanut_tpu_torch.apis",
             "peanut_tpu_torch.cli.serve",
-            "peanut_tpu_torch.cli.benchmark"} <= set(_modules())
+            "peanut_tpu_torch.cli.benchmark",
+            "peanut_tpu_torch.models.zoo_import",
+            "peanut_tpu_torch.models.timm_adapter",
+            "peanut_tpu_torch.cli.convert",
+            "peanut_tpu_torch.cli.convert_datasets",
+            "peanut_tpu_torch.cli.export",
+            "peanut_tpu_torch.cli.tools"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"

@@ -9,9 +9,10 @@
   transformer families, the two cascade ones and the twelve light-CNN
   ones (all 302) builds on ``device="meta"``, and a meta forward at
   64x128 gives logits of the config's classes (the channel arithmetic of
-  every module checked without memory).  A type the port does not have
-  yet (``TIMMBackbone``, ROADMAP A13 part 6) raises NotImplementedError
-  naming A13.
+  every module checked without memory).  The timm adapter
+  (``TIMMBackbone``, ROADMAP A13 part 6, which no shipped config uses)
+  builds; a timm name it does not map raises NotImplementedError listing
+  the names it knows.
 """
 
 import glob
@@ -95,12 +96,22 @@ def test_the_sweep_covers_every_config():
 
 
 def test_an_unported_type_names_a13():
-    """TIMMBackbone (the JAX package's timm_adapter) is ROADMAP A13 part
-    6: no shipped config uses it, and the port raises naming A13."""
+    """TIMMBackbone (the JAX package's timm_adapter) was ROADMAP A13 part
+    6, the one type of the zoo the port lacked: it now builds inside
+    FCN over U-Net, and a timm name without an equivalent in the zoo
+    raises NotImplementedError listing the names it maps."""
     cfg = load_config(os.path.join(REPO, "configs", "unet",
                                    "fcn_unet.py"))["model"]
     cfg["backbone"] = dict(type="TIMMBackbone", model_name="resnet18")
-    with pytest.raises(NotImplementedError, match="A13"):
+    cfg["decode_head"].update(in_channels=512, in_index=3)
+    model = build_segmentor(cfg, device="meta")
+    assert list(model.backbone.out_channels) == [64, 128, 256, 512]
+    with torch.no_grad():
+        out = model.inference(torch.empty(1, 64, 128, 3, device="meta"))
+    assert tuple(out.shape) == (1, 64, 128, 2)
+    cfg["backbone"]["model_name"] = "efficientnet_b0"
+    with pytest.raises(NotImplementedError,
+                       match=r"available: \['mobilenetv2_100', "):
         build_segmentor(cfg, device="meta")
 
 
