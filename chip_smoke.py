@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--ticks N]
                           [--only b3|b1|wide|paths|train|zoo|zoo_train|
-                                  zoo_tools]
+                                  zoo_tools|multichip]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
@@ -10,7 +10,7 @@ phase 3's lines over 1024 cells (run from a copy of another tree, it times
 that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
 and B4 lines at the paths' shapes (to time another tree's beside these),
 "train" phase 11, "zoo" phase 12, "zoo_train" phase 13, "zoo_tools" phase
-14.
+14, "multichip" phase 15.
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -89,7 +89,7 @@ Phases (each prints one JSON line):
                ticks and warmup_rare_paths first: steps/s, median tick, the
                stages per tick, peak memory and the launches of B1, B2, B3
                and nms_keep (all > 0); then pred_parity: 8 envs with GT
-               semantics, 12 ticks of the serving profile and 4 of the
+               semantics, 12 ticks of the serving profile and 2 of the
                exact one (its plain solves take ~37 s a tick), the
                prediction branch's goal-weighting solve through the
                kernels and through the plain versions: equal actions and
@@ -200,6 +200,33 @@ Phases (each prints one JSON line):
                each a near-tie (the two largest logits within 1e-4);
                cli.tools collect_env on the card as one JSON line
                (zoo_tools_env).  No kernel of csrc/.
+ 15. multichip — the mesh's data axis (run after 7b, with its Mask
+               R-CNN): mesh_serve_16, serve_16's BatchRunner (16 envs, 5
+               warm-up ticks, warmup_rare_paths, 10 measured) with its
+               runtime sharded over make_mesh({"data": 4}, [cuda:0] * 4)
+               (over the distinct cards, as many as divide 16, when there
+               are two or more), and the same seeds unsharded: equal
+               actions and host goals on every tick, each run's steps/s,
+               median tick, stages, peak memory and launches, each
+               shard's launches of B1, B2, B3 and nms_keep (all > 0);
+               mesh_gt_8, 8 envs with GT semantics and prediction on, 10
+               ticks sharded and unsharded: the DeviceStates bit-equal
+               after every tick; ddp_train, cli.train_prediction_model
+               --distributed 1 at the recipe's full width (global batch
+               8, crop 960, 14 channels, remat=1, TF32 off) over two
+               ranks of 4 on the card under gloo (NCCL refuses two ranks
+               on one card), spawned from here, for 1 iteration, then
+               resumed to 4 and to 6: rank 0's log (one record an
+               iteration) and checkpoints (iter_1, 2, 4, 6), each step's
+               ms, each rank's peak memory; step 1 against one process at
+               the global batch on the ranks' first batches from the same
+               seed (the loss within 1e-4 relative; the parameters within
+               the 2 lr Adam's first step allows, and apart by more than
+               1e-6 in at most 2 % of the elements), and with one card a
+               one-rank NCCL step of the tiny PSPNet in float64 against
+               the plain step (1e-10); ddp_eval, cli.test --distributed 1
+               over two ranks on iter_6: each rank's report equal to one
+               process's.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -890,8 +917,9 @@ PROFILE_TICKS = {"serve_16": 20, "exact_16": 10}
 PARITY_ENVS = 8
 # the exact profile's plain goal-weighting solve (order 2 at 8 x 960^2)
 # takes ~37 s a tick on the H100, and under random PSPNet weights every
-# tick triggers: 4 of its ticks keep the script inside its time limit
-PARITY_TICKS = {"serve_16": 12, "exact_16": 4}
+# tick triggers: 2 of its ticks keep the script, with the multichip phase,
+# inside its time limit
+PARITY_TICKS = {"serve_16": 12, "exact_16": 2}
 SERVE_STAGES = ("env_phase", "dispatch", "tick_wait", "pred_dispatch",
                 "pred_goal_wait", "detect")
 
@@ -2729,6 +2757,490 @@ def zoo_tools_phase(args, dev, smi_line: str) -> dict:
     return reading
 
 
+# ---------------------------------------------------------------------------
+# 15. multichip: the data axis of the mesh (the sharded tick, DDP training
+# and distributed evaluation)
+
+MESH_TICKS = 10          # measured ticks of mesh_serve_16, after 5 warm-up
+MESH_GT_TICKS = 10
+MESH_KERNELS = ("fused_eikonal", "block_sweep2", "roi_window_pool",
+                "nms_keep")
+DDP_WORLD = 2
+DDP_RUNS = (1, 4, 6)     # --max_iters of the three runs (each resumes)
+DDP_LOSS_TOL = 1e-4      # step 1's losses, 2 ranks x 4 against 1 x 8
+# Adam's first step moves every parameter by +-lr (m / sqrt(v) = sign(g)):
+# the two runs' parameters after it differ by up to 2 lr where a gradient
+# near 0 took the other sign, and nowhere more.  ddp_train measures 0.70 %
+# of the 49.0 M elements apart by more than 1e-6 on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (cuDNN's float32 convolutions at batch 4 and 8 round
+# differently); batch norms over each rank's own rows would turn the
+# gradients' directions, not only those near 0
+DDP_PARAM_SIGN_FRAC = 0.02   # share of elements allowed such a flip
+DDP_NCCL_TOL = 1e-10     # world-1 NCCL step against the plain one, float64
+
+
+def mesh_devices(n_envs: int) -> list:
+    """The mesh of the sharded cases: the distinct cards when there are two
+    or more (the largest count of them that divides n_envs), else the one
+    card four times."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        k = max(d for d in range(2, count + 1) if n_envs % d == 0)
+        return [torch.device("cuda", i) for i in range(k)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def count_by_shard(rt) -> list:
+    """Wrap ``rt``'s per-shard programs so each shard's kernel launches add
+    up in the returned list: B1 and B2 of its tick, prediction program,
+    replan and magnify solves (on the main thread); B3 and nms_keep of
+    every detect chunk that carried one of its frames (a chunk of 8
+    carries two shards' frames, so these sum to more than the launches).
+    The env-step threads launch the chunks: a lock keeps one chunk's
+    launches from counting in another's."""
+    import threading
+
+    per = [dict.fromkeys(MESH_KERNELS, 0) for _ in rt.shards]
+    lock = threading.Lock()
+
+    def wrap(name, shards_of, kernels, guard):
+        fn = getattr(rt, name)
+
+        def run(*a, **kw):
+            with guard:
+                c0 = kernel_counts()
+                out = fn(*a, **kw)
+                c1 = kernel_counts()
+            for s in shards_of(a):
+                for k in kernels:
+                    per[s][k] += c1[k] - c0[k]
+            return out
+        setattr(rt, name, run)
+
+    def by_state(a):
+        return [next(i for i, st in enumerate(rt.shard_states)
+                     if st is a[0])]
+    for name in ("_tick", "_pred_program", "_replan_program",
+                 "_magnify_shard"):
+        wrap(name, by_state, ("fused_eikonal", "block_sweep2"),
+             contextlib.nullcontext())
+    wrap("_launch_detect", lambda a: sorted(
+        {rt._shard_of(o["_env"])[0] for o in a[0]}),
+        ("roi_window_pool", "nms_keep"), lock)
+    return per
+
+
+def record_actions(rt) -> list:
+    """Each tick's actions and host goals (``goal_shadow`` after collect)."""
+    log = []
+    fn = rt.act_batch_collect
+
+    def run(h):
+        out = fn(h)
+        log.append(([a["action"] for a in out], rt.goal_shadow.tolist()))
+        return out
+    rt.act_batch_collect = run
+    return log
+
+
+def mesh_serve(args, dev, maskrcnn, pspnet) -> dict:
+    """mesh_serve_16: serve_16's BatchRunner with its runtime sharded over
+    the mesh, against the same seeds unsharded (equal actions and goals
+    on every tick), both timed."""
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.envs.batch_runner import BatchRunner
+    from peanut_tpu_torch.perception import MaskRCNNSegmenter
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    cfg = NavConfig(use_gt_seg=0, serve_bf16=True, **PROFILES["serve_16"])
+    devices = mesh_devices(16)
+    runs = {}
+    for name, mesh in (("unsharded", None),
+                       ("sharded", make_mesh({"data": len(devices)},
+                                             devices=devices))):
+        runner = BatchRunner(
+            cfg, [lambda s=s: FakeNavEnv(cfg, size_m=14.0,
+                                         seed=args.seed + s,
+                                         emit_gt_seg=False)
+                  for s in range(16)],
+            prediction_model=PredictionModel(cfg, model=pspnet, device=dev),
+            segmenter=MaskRCNNSegmenter(cfg, model=maskrcnn, device=dev),
+            device=None if mesh else dev, mesh=mesh)
+        rt = runner.runtime
+        log = record_actions(rt)
+        per_shard = count_by_shard(rt)
+        runner.reset_all()
+        for _ in range(5):
+            runner.tick()
+        runner.warmup_rare_paths()
+        runner.reset_timers()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_counts(reset=True)
+        for d in per_shard:
+            d.update(dict.fromkeys(d, 0))
+        tick_ms = []
+        t0 = time.perf_counter()
+        for _ in range(MESH_TICKS):
+            t1 = time.perf_counter()
+            runner.tick()
+            tick_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stages = {k: v / MESH_TICKS * 1e3
+                  for k, v in runner.stage_totals().items()}
+        runs[name] = {
+            "devices": [str(sh.device) for sh in rt.shards],
+            "steps_per_sec": 16 * MESH_TICKS / dt,
+            "tick_ms_median": float(np.median(tick_ms)),
+            "stage_ms_per_tick": {k: stages.get(k, 0.0)
+                                  for k in SERVE_STAGES},
+            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "launches": {k: kernel_counts()[k] for k in MESH_KERNELS},
+            "launches_by_shard": per_shard, "log": log}
+        runner.close()
+    s, u = runs["sharded"], runs["unsharded"]
+    acts_equal = [a[0] == b[0] for a, b in zip(s["log"], u["log"])]
+    goals_equal = [a[1] == b[1] for a, b in zip(s["log"], u["log"])]
+    reading = {"phase": "mesh_serve_16", "envs": 16, "ticks": MESH_TICKS,
+               "warmup_ticks": 5,
+               "config": "serve_16's NavConfig, Mask R-CNN R101-FPN and "
+                         "PSPNet-R50-v1c from --seed, bf16",
+               "mesh": {"data": len(devices)},
+               "actions_equal_every_tick": all(acts_equal),
+               "goals_equal_every_tick": all(goals_equal),
+               "ticks_compared": len(acts_equal),
+               **{k: {kk: vv for kk, vv in v.items() if kk != "log"}
+                  for k, v in runs.items()}}
+    emit(reading)
+    if not (all(acts_equal) and all(goals_equal)
+            and len(acts_equal) == 5 + MESH_TICKS):
+        fail(f"mesh_serve_16: the sharded runtime's actions or goals "
+             f"differ from the unsharded one's (ticks equal: actions "
+             f"{acts_equal}, goals {goals_equal})")
+    if min(v for d in s["launches_by_shard"] for v in d.values()) <= 0:
+        fail(f"mesh_serve_16: a shard launched no {MESH_KERNELS}: "
+             f"{s['launches_by_shard']}")
+    return reading
+
+
+def mesh_gt(args, dev, pspnet) -> dict:
+    """mesh_gt_8: 8 envs with GT semantics and prediction on, sharded over
+    the mesh and unsharded: the DeviceStates bit-equal after every tick."""
+    from peanut_tpu_torch.agent.batched_runtime import (BatchedNavRuntime,
+                                                        DeviceState)
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    cfg = NavConfig(use_gt_seg=1, serve_bf16=True, **PROFILES["serve_16"])
+    pm = PredictionModel(cfg, model=pspnet, device=dev)
+    devices = mesh_devices(PARITY_ENVS)
+    runs = []
+    for mesh in (None, make_mesh({"data": len(devices)}, devices=devices)):
+        rt = BatchedNavRuntime(cfg, PARITY_ENVS, prediction_model=pm,
+                               device=None if mesh else dev, mesh=mesh)
+        envs = [FakeNavEnv(cfg, size_m=14.0, seed=args.seed + s)
+                for s in range(PARITY_ENVS)]
+        obs = [e.reset() for e in envs]
+        for i in range(PARITY_ENVS):
+            rt.reset_env(i)
+        acts, states = [], []
+        for _ in range(MESH_GT_TICKS):
+            out = rt.act_batch(obs)
+            rt.wait_pending_goal()
+            acts.append([a["action"] for a in out])
+            states.append([x.cpu() for x in rt.state])
+            obs = [e.step(a) for e, a in zip(envs, out)]
+        runs.append((acts, states, int(rt.state.dd_valid.sum())))
+    (ua, us, _), (sa, ss, trig) = runs
+    unequal = sorted({f for a, b in zip(us, ss)
+                      for f, x, y in zip(DeviceState._fields, a, b)
+                      if not torch.equal(x, y)})
+    diff = {f: float(max((b[i].double() - a[i].double()).abs().max()
+                         for a, b in zip(us, ss)))
+            for i, f in enumerate(DeviceState._fields) if f in unequal}
+    reading = {"phase": "mesh_gt_8", "envs": PARITY_ENVS,
+               "ticks": MESH_GT_TICKS, "mesh": {"data": len(devices)},
+               "devices": [str(d) for d in devices],
+               "config": "serve_16's NavConfig with use_gt_seg=1",
+               "actions_equal": ua == sa, "state_bit_equal": not unequal,
+               "fields_unequal": unequal, "max_abs_diff": diff,
+               "envs_with_goal_field": trig}
+    emit(reading)
+    if unequal or ua != sa or trig <= 0:
+        fail(f"mesh_gt_8: the sharded state is not the unsharded one "
+             f"bit for bit: {reading}")
+    return reading
+
+
+def _ddp_rank(rank, world, init, entry, argv, out_dir):
+    """One rank of ddp_train / ddp_eval, in a process of its own: the gloo
+    group (two ranks share the card: NCCL refuses that), TF32 off, then
+    the CLI's main on the card; its step, peak memory and report go to
+    ``out_dir/rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from peanut_tpu_torch.cli import test as test_cli
+    from peanut_tpu_torch.cli import train_prediction_model
+    from peanut_tpu_torch.core.mesh import init_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_distributed("gloo", device="cuda:0", init_method=init,
+                           rank=rank, world_size=world)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        if entry == "train":
+            out = {"step": train_prediction_model.main(argv, device=dev).step}
+        else:
+            out = {"report": test_cli.main(argv, device=dev)}
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    out.update(rank=rank, wall_s=time.perf_counter() - t0,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_ddp(entry, argv, tmp) -> list:
+    """``entry`` ("train" or "test") over DDP_WORLD spawned ranks on the
+    card; their rank{r}.json records.  A rank that fails fails the phase."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, f"ranks_{entry}_{time.monotonic_ns()}")
+    os.makedirs(out_dir)
+    try:
+        mp.start_processes(_ddp_rank, args=(
+            DDP_WORLD, f"file://{os.path.join(out_dir, 'pg')}", entry,
+            argv + ["--distributed", "1"], out_dir), nprocs=DDP_WORLD,
+            join=True, start_method="spawn")
+    except Exception as e:          # mp.ProcessRaisedException, ...
+        fail(f"ddp {entry}: a rank failed: {e}")
+    recs = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def nccl_world1(dev, seed: int) -> dict:
+    """One train step of the tiny PSPNet in float64 under ``distribute`` in
+    a one-rank NCCL group, against the plain step on the same batch."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from peanut_tpu_torch.core.mesh import init_distributed
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   distribute,
+                                                   loss_and_grads)
+    rng = np.random.RandomState(seed)
+    batch = {"img": torch.as_tensor(rng.rand(4, 14, 64, 64), device=dev),
+             "gt": torch.as_tensor((rng.rand(4, 6, 64, 64) > 0.9) * 255.0,
+                                   device=dev)}
+    tcfg = TrainConfig(lr=1e-3, max_iters=50, seed=seed)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", device=dev,
+                         init_method=f"file://{os.path.join(tmp, 'pg')}",
+                         rank=0, world_size=1)
+        try:
+            for name in ("ddp", "plain"):
+                state = create_train_state(build_segmentor(
+                    tiny_pspnet_config(), seed=seed).double(), tcfg,
+                    device=dev)
+                if name == "ddp":
+                    distribute(state)
+                loss = float(loss_and_grads(state, batch, tcfg)["loss"])
+                res[name] = (loss, {n: p.grad.detach().cpu() for n, p in
+                                    state.model.named_parameters()})
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    (la, ga), (lb, gb) = res["ddp"], res["plain"]
+    top = max(float(g.abs().max()) for g in gb.values())
+    return {"backend": backend, "loss_ddp": la, "loss_plain": lb,
+            "loss_rel_err": abs(la - lb) / abs(lb),
+            "grad_err_of_largest": max(float((ga[n] - gb[n]).abs().max())
+                                       for n in gb) / top}
+
+
+def ddp_phases(args, dev, smi_line: str) -> dict:
+    """ddp_train and ddp_eval (module docstring)."""
+    import tempfile
+
+    from peanut_tpu_torch.cli import test as test_cli
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    from peanut_tpu_torch.prediction.dataset import (PrefetchLoader,
+                                                     SemMapDataset,
+                                                     training_pipeline)
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   make_train_step)
+    from peanut_tpu_torch.utils.loggers import read_train_log
+
+    reading = {"phase": "ddp_train", "nvidia_smi": smi_line,
+               "model": "PSPNet-R50-v1c", "global_batch": TRAIN_BATCH,
+               "ranks": DDP_WORLD, "crop": TRAIN_MAP, "channels": 14,
+               "remat": 1, "tf32": False, "backend": "gloo",
+               "backend_reason": "both ranks on one card: NCCL refuses two "
+                                 "ranks on one GPU; gloo all-reduces and "
+                                 "broadcasts CUDA tensors"
+               if torch.cuda.device_count() < DDP_WORLD else
+               "chosen for the same code path as on one card"}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_train_maps(os.path.join(tmp, "train_80"), args.seed)
+        work = os.path.join(tmp, "work")
+        argv = ["--data_root", tmp, "--img_dir", "train_80", "--work_dir",
+                work, "--batch_size", str(TRAIN_BATCH), "--crop_size",
+                str(TRAIN_MAP), "--checkpoint_interval", "2",
+                "--log_interval", "1", "--num_workers", "1", "--seed",
+                str(args.seed)]
+        runs = []
+        for iters in DDP_RUNS:
+            t0 = time.perf_counter()
+            recs = run_ddp("train", argv + ["--max_iters", str(iters)], tmp)
+            runs.append({"max_iters": iters, "wall_s":
+                         time.perf_counter() - t0,
+                         "steps": [r["step"] for r in recs],
+                         "peak_memory_gib_by_rank":
+                         [r["peak_memory_gib"] for r in recs]})
+        log = read_train_log(os.path.join(work, "train_log.jsonl"))
+        reading["cli_runs"] = runs
+        reading["log_iters"] = [r["iter"] for r in log]
+        reading["log_loss"] = [r["loss"] for r in log]
+        reading["step_ms_by_iter"] = [r["time_per_iter"] * 1e3 for r in log]
+        reading["checkpoints"] = sorted(d for d in os.listdir(work)
+                                        if d.startswith("iter_"))
+
+        # one process at the global batch, from the same seeded model, on
+        # the two ranks' first batches (rank 0's rows, then rank 1's)
+        shards = []
+        for r in range(DDP_WORLD):
+            ds = SemMapDataset(tmp, "train_80", pipeline=training_pipeline(
+                TRAIN_MAP, rng=np.random.RandomState(args.seed)))
+            it = iter(PrefetchLoader(ds, TRAIN_BATCH // DDP_WORLD,
+                                     seed=args.seed, num_workers=1,
+                                     num_shards=DDP_WORLD, shard_id=r))
+            shards.append(next(it))
+            it.close()
+        batch = {k: np.concatenate([s[k] for s in shards])
+                 for k in ("img", "gt")}
+        tcfg = TrainConfig(max_iters=DDP_RUNS[0], batch_size=TRAIN_BATCH,
+                           seed=args.seed)
+        state = create_train_state(build_segmentor(
+            peanut_prediction_config(remat=True), seed=args.seed), tcfg,
+            device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        one = {k: float(v) for k, v in
+               make_train_step(tcfg)(state, batch).items()}
+        reading["one_process_peak_memory_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        ddp_sd = torch.load(os.path.join(work, "iter_1", "model.pth"),
+                            map_location="cpu")["state_dict"]
+        diffs, n_el, apart, top = 0.0, 0, 0, 0.0
+        for n, p in state.model.named_parameters():
+            d = (p.detach().cpu() - ddp_sd[n]).abs()
+            diffs = max(diffs, float(d.max()))
+            apart += int((d > 1e-6).sum())
+            n_el += d.numel()
+        lr = TrainConfig().lr
+        reading["step1"] = {
+            "loss_ddp": log[0]["loss"], "loss_one_process": one["loss"],
+            "loss_rel_err": abs(log[0]["loss"] - one["loss"])
+            / abs(one["loss"]),
+            "loss_bce_ddp": log[0]["loss_bce"],
+            "loss_bce_one_process": one["loss_bce"],
+            "param_max_abs_diff": diffs, "lr": lr,
+            "param_elements": n_el, "param_elements_apart_1e-6": apart,
+            "param_share_apart": apart / n_el,
+            "bars": {"loss_rel": DDP_LOSS_TOL,
+                     "param_max_abs": 2 * lr + 1e-6,
+                     "param_share_apart": DDP_PARAM_SIGN_FRAC}}
+        del state
+        torch.cuda.empty_cache()
+        if torch.cuda.device_count() == 1:
+            reading["nccl_world1"] = nccl_world1(dev, args.seed)
+        emit(reading)
+        s1 = reading["step1"]
+        if (reading["log_iters"] != list(range(1, DDP_RUNS[-1] + 1))
+                or reading["checkpoints"] != ["iter_1", "iter_2", "iter_4",
+                                              "iter_6"]
+                or any(r["steps"] != [r["max_iters"]] * DDP_WORLD
+                       for r in runs)
+                or not all(np.isfinite(reading["log_loss"]))):
+            fail("ddp_train: the runs did not resume 1 -> 4 -> 6 with one "
+                 "log record an iteration and rank 0's checkpoints")
+        # the log rounds losses to 5 decimals: the bar sees that too
+        if (s1["loss_rel_err"] > DDP_LOSS_TOL
+                or s1["param_max_abs_diff"] > 2 * lr + 1e-6
+                or s1["param_share_apart"] > DDP_PARAM_SIGN_FRAC):
+            fail(f"ddp_train: step 1 over the ranks differs from one "
+                 f"process at the global batch: {s1}")
+        w1 = reading.get("nccl_world1")
+        if w1 and (w1["loss_rel_err"] > DDP_NCCL_TOL
+                   or w1["grad_err_of_largest"] > DDP_NCCL_TOL):
+            fail(f"ddp_train: the NCCL world-1 step differs from the "
+                 f"plain one: {w1}")
+
+        # ddp_eval: cli.test over the ranks on iter_6, against one process
+        ev = ["--data_root", tmp, "--img_dir", "train_80", "--checkpoint",
+              os.path.join(work, "iter_6"), "--max_samples", "4",
+              "--argmax"]
+        t0 = time.perf_counter()
+        recs = run_ddp("test", ev, tmp)
+        wall = time.perf_counter() - t0
+        want = test_cli.main(ev, device=dev)
+        ev_reading = {"phase": "ddp_eval", "ranks": DDP_WORLD,
+                      "backend": "gloo", "samples": want["samples"],
+                      "report_one_process": want,
+                      "reports_equal_by_rank": [r["report"] == want
+                                                for r in recs],
+                      "wall_s": wall}
+        emit(ev_reading)
+        if not all(ev_reading["reports_equal_by_rank"]):
+            fail(f"ddp_eval: the gathered report differs from one "
+                 f"process's: {[r['report'] for r in recs]} vs {want}")
+    return reading
+
+
+def mesh_launches(mesh: dict, kernel: str) -> dict:
+    """A kernel's launches in mesh_serve_16's measured ticks: the sharded
+    run's, each shard's, and the unsharded reference's."""
+    return {"mesh_serve_16": mesh["sharded"]["launches"][kernel],
+            "mesh_serve_16_by_shard": [
+                d[kernel] for d in mesh["sharded"]["launches_by_shard"]],
+            "mesh_serve_16_unsharded": mesh["unsharded"]["launches"][kernel]}
+
+
+def multichip_phase(args, dev, smi_line: str, maskrcnn=None) -> dict:
+    """Phase 15; returns mesh_serve_16's reading (the kernels line reads
+    its launches)."""
+    from peanut_tpu_torch.models import MaskRCNN
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    t0 = time.perf_counter()
+    if maskrcnn is None:
+        maskrcnn = MaskRCNN(num_classes=9, depth=101, seed=args.seed)
+    pspnet = build_segmentor(peanut_prediction_config(), seed=args.seed)
+    serve = mesh_serve(args, dev, maskrcnn, pspnet)
+    mesh_gt(args, dev, pspnet)
+    del maskrcnn, pspnet
+    torch.cuda.empty_cache()
+    ddp_phases(args, dev, smi_line)
+    emit({"phase": "multichip_done", "seconds": time.perf_counter() - t0})
+    return serve
+
+
 def only_phase(args, dev) -> int:
     """``--only``: one phase alone, to compare trees (the parent's, a
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
@@ -2742,7 +3254,10 @@ def only_phase(args, dev) -> int:
                           "fmm_long"),
                  "paths": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
                  "train": (), "zoo": (), "zoo_train": (),
-                 "zoo_tools": ()}[args.only]:
+                 "zoo_tools": (),
+                 "multichip": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
+                               "fmm_long", "roi_window",
+                               "nms_greedy")}[args.only]:
         _build.library(stem)
     if args.only == "paths":
         path_kernels(np.random.RandomState(args.seed), dev, {})
@@ -2754,6 +3269,8 @@ def only_phase(args, dev) -> int:
         zoo_train_phase(args, dev, nvidia_smi_line())
     elif args.only == "zoo_tools":
         zoo_tools_phase(args, dev, nvidia_smi_line())
+    elif args.only == "multichip":
+        multichip_phase(args, dev, nvidia_smi_line())
     elif args.only == "b3":
         mask_rcnn_phases(args, dev)
     elif args.only == "b1":
@@ -2769,7 +3286,7 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
                                        "train", "zoo", "zoo_train",
-                                       "zoo_tools"),
+                                       "zoo_tools", "multichip"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -3001,6 +3518,8 @@ def main() -> int:
 
     # ---- 7b. the 16-env serving tick with prediction ---------------------
     serve_launches = serving_phases(args, dev, maskrcnn)
+    # ---- 15. multichip: the sharded tick, DDP training and evaluation ----
+    mesh = multichip_phase(args, dev, smi_line, maskrcnn)
     del maskrcnn
     launches_seg = {"fused_eikonal": seg_launches["fused_eikonal"],
                     "block_sweep2": seg_launches["block_sweep2"]}
@@ -3040,6 +3559,7 @@ def main() -> int:
                    "slice_seg": launches_seg[count_key],
                    **{k: v[count_key] for k, v in serve_launches.items()}}
         by_path.update({k: v[count_key] for k, v in single.items()})
+        by_path.update(mesh_launches(mesh, count_key))
         kernels.append({
             "name": name_, "route": "cuda", "source": src_file,
             "replaces": replaces,
@@ -3083,7 +3603,8 @@ def main() -> int:
                              **{k: v["roi_window_pool"]
                                 for k, v in serve_launches.items()},
                              **{k: v["roi_window_pool"]
-                                for k, v in single.items()}},
+                                for k, v in single.items()},
+                             **mesh_launches(mesh, "roi_window_pool")},
         "max_abs_err": max(c["max_abs_err"] for c in
                            [*b3.values(),
                             *nav_checks["roi_window_pool"].values()]),
@@ -3102,7 +3623,8 @@ def main() -> int:
         "launches_by_path": {"slice_seg": seg_launches["nms_keep"],
                              **{k: v["nms_keep"]
                                 for k, v in serve_launches.items()},
-                             **{k: v["nms_keep"] for k, v in single.items()}},
+                             **{k: v["nms_keep"] for k, v in single.items()},
+                             **mesh_launches(mesh, "nms_keep")},
         "max_abs_err": max(c["max_abs_err"] for c in
                            [*nms.values(), *nav_checks["nms_keep"].values()]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -30,11 +30,32 @@ device (``_pred_goal_update``) over the gathered subset of triggered envs
 (K = ``predict_chunk`` or all n): inside the tick (the exact profile), or
 with ``pred_async`` as a program enqueued after the tick's collect, whose
 goal download lands at the next dispatch (the serving profile's one-tick
-goal lag).  Mesh sharding (ROADMAP A14) is not ported.
+goal lag).
+
+With a ``mesh`` the episodes shard over its ``mesh_axis`` (the data axis):
+shard i holds rows ``[i*m, (i+1)*m)`` of the batch (m = num_envs / axis
+size) in a ``DeviceState`` of its own on its device, and every device
+program (the tick, the prediction program, the replan and goal-magnify
+solves) runs on each shard's rows alone, with shard-local indices: the
+trigger subset of a prediction is gathered within a shard, as the JAX
+package's shard_map path does (its GSPMD path has no PyTorch
+counterpart).  A device may repeat in the mesh (``[cuda:0] * 4``): its
+shards still keep their own state and programs.  The prediction model and
+the segmenter get one copy on each distinct device.  The detect runs on
+the device of the shards whose frames it holds, in fixed groups of
+``seg_batch_chunk`` of that device's envs: ``stage_obs(obs, env)``
+launches a group's chunk once all its envs have stepped, so on a mesh
+that repeats one device the detect chunks are the unsharded runtime's
+(whose detect no longer depends on the order the envs finish in), and
+the semantic stack never leaves the device.  The
+host side (the packed upload, the state machines, the action rules) stays
+one batch; ``act_batch_dispatch`` enqueues every shard's tick before
+``act_batch_collect`` waits for any.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import threading
@@ -48,6 +69,8 @@ import torch.nn.functional as F
 from .. import resolve_device, upload
 from ..config import NavConfig
 from ..constants import hm3d_names, hm3d_to_coco
+from ..core.mesh import (axis_devices, canonical_device, on_device,
+                         replicate, shard_slices)
 from ..geometry.pose import (get_rel_pose_change, get_l2_distance,
                              integrate_pose_np, threshold_poses)
 from ..kernels import eikonal_distance, masked_fill_unreachable
@@ -97,10 +120,17 @@ def device_state_from_numpy(arrays: Dict[str, np.ndarray],
                           for k in DeviceState._fields})
 
 
+class Shard(NamedTuple):
+    """One shard of the episode batch: its device and its rows."""
+    device: torch.device
+    rows: slice
+
+
 class TickHandle(NamedTuple):
     """In-flight tick: the device output plus the host-side values the
-    collect phase needs (act_batch_dispatch -> act_batch_collect)."""
-    packed: torch.Tensor       # (B, 125) device tensor, maybe computing
+    collect phase needs (act_batch_dispatch -> act_batch_collect).  The
+    device tensors are one a shard."""
+    packed: List[torch.Tensor]  # (m, 125) each, maybe computing
     starts: np.ndarray
     starts_exact: np.ndarray
     lmb_new: np.ndarray
@@ -109,8 +139,8 @@ class TickHandle(NamedTuple):
     is_toilet: np.ndarray
     stop_now: np.ndarray
     trig: np.ndarray
-    hp: Optional[torch.Tensor] = None         # the device host_pack
-    trig_idxs: Optional[torch.Tensor] = None  # (B,) padded trigger indices
+    hp: Optional[List[torch.Tensor]] = None         # the host_pack rows
+    trig_idxs: Optional[List[torch.Tensor]] = None  # (m,) padded, local
 
 
 @dataclass
@@ -143,20 +173,39 @@ class BatchedNavRuntime:
 
     def __init__(self, cfg: NavConfig, num_envs: int,
                  prediction_model=None, segmenter=None,
-                 predict_chunk: int = 8, device=None, plain: bool = False):
+                 predict_chunk: int = 8, device=None, plain: bool = False,
+                 mesh=None, mesh_axis: str = "data"):
         """device: where the maps live and the tick runs (``resolve_device``:
         the card unless ``"cpu"``).  prediction_model: the
         ``PredictionModel`` of ``only_explore=0`` (else one is built from
         ``cfg.pred_model_wts``, which raises FileNotFoundError without the
         checkpoint); trigger ticks run it on at most ``predict_chunk`` envs
-        at once unless more trigger.  plain: the prediction branch's
-        goal-weighting solve through the kernels' plain versions, even on
-        the card (the yardstick the kernels are held against; ``_plan``
-        takes its own ``plain``)."""
+        of a shard at once unless more of the shard's trigger.  plain: the
+        prediction branch's goal-weighting solve through the kernels' plain
+        versions, even on the card (the yardstick the kernels are held
+        against; ``_plan`` takes its own ``plain``).  mesh: a
+        ``core.mesh.Mesh`` whose ``mesh_axis`` the episodes shard over
+        (``num_envs`` must divide by its size; ``device`` is then its
+        first device); each shard always runs its own programs."""
         self.cfg = cfg
         self.n = num_envs
-        self.device = resolve_device(device)
         self.plain = plain
+        if mesh is None:
+            devices = [canonical_device(resolve_device(device))]
+        else:
+            ax = mesh.shape[mesh_axis]
+            if num_envs % ax:
+                raise ValueError(
+                    f"num_envs={num_envs} not divisible by mesh axis "
+                    f"'{mesh_axis}'={ax}")
+            devices = axis_devices(mesh, mesh_axis)
+            if device is not None and canonical_device(device) != devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {devices[0]}")
+        self.device = devices[0]
+        self.shards = [Shard(d, r) for d, r in
+                       zip(devices, shard_slices(num_envs, len(devices)))]
+        self.m = num_envs // len(devices)
         if self.device.type == "cuda":
             # f32 convolutions run in TF32 under cuDNN by default; the
             # morphology convs are 0/1-exact either way, but state it
@@ -171,6 +220,21 @@ class BatchedNavRuntime:
             prediction_model = PredictionModel(cfg, device=self.device)
         self.pred_model = prediction_model if cfg.only_explore == 0 else None
         self.predict_chunk = min(predict_chunk, num_envs)
+        # one prediction model and one device segmenter a distinct device
+        self._pred_models = {}
+        if self.pred_model is not None:
+            from ..prediction import PredictionModel
+
+            for d, model in replicate(self.pred_model.model,
+                                      devices).items():
+                self._pred_models[d] = (
+                    self.pred_model if model is self.pred_model.model else
+                    PredictionModel(cfg, model=model, device=d))
+        self._segs = {d: self.segmenter if d == self.device else
+                      type(self.segmenter)(cfg, model=copy.deepcopy(
+                          self.segmenter.model), device=d)
+                      for d in dict.fromkeys(devices)} \
+            if hasattr(self.segmenter, "batch_device") else {}
 
         self.nc = cfg.num_map_channels
         self.Hf = self.Wf = cfg.map_size
@@ -186,16 +250,29 @@ class BatchedNavRuntime:
         self.local_poses = np.zeros((num_envs, 3), np.float32)
         self.PACK = PACK
 
-        self.state = self._alloc_state()
+        self.shard_states = [self._alloc_state(sh) for sh in self.shards]
         self._clear_pending()
         # reset_env runs in the env-step thread pool; serialize its writes
         self._reset_lock = threading.Lock()
-        # chunked-detect pipeline: stage_obs launches a detect chunk as soon
-        # as seg_chunk envs have stepped (0: one detect call in _pack_obs)
+        # chunked-detect pipeline: a device's envs in groups of seg_chunk,
+        # in env order; stage_obs launches a group's detect chunk as soon
+        # as all its envs have stepped (_pack_obs the groups left).  A
+        # detect's rounding depends on the frames it batches, so fixed
+        # groups make it independent of the order the envs finish in
         self._det_lock = threading.Lock()
-        self._det_buf: list = []
+        self._det_pending: Dict[tuple, Dict[int, Dict]] = {}
+        self._det_groups: Dict[int, tuple] = {}    # env -> (device, group)
         self._seg_chunk = int(getattr(self.segmenter, "chunk", 0) or 0) \
-            if hasattr(self.segmenter, "batch_device") else 0
+            if self._segs else 0
+        self._det_envs = {d: [i for sh in self.shards if sh.device == d
+                              for i in range(sh.rows.start, sh.rows.stop)]
+                          for d in self._segs}
+        for d, envs in self._det_envs.items():
+            k = min(self._seg_chunk or len(envs), len(envs))
+            for g in range(0, len(envs), k):
+                group = tuple(envs[g:g + k])
+                for i in group:
+                    self._det_groups[i] = (d, group)
         # pred_async serving mode: the prediction/goal program is enqueued
         # after the tick's collect, so it runs while the envs step; its goal
         # download (a pinned host copy and an event) lands at the next
@@ -209,8 +286,28 @@ class BatchedNavRuntime:
             pin_memory=self.device.type == "cuda")
 
     # ------------------------------------------------------------------
-    def _alloc_state(self) -> DeviceState:
-        n, nc, dev = self.n, self.nc, self.device
+    @property
+    def state(self) -> DeviceState:
+        """The episodes' device state: on one device the live tensors, on a
+        mesh the shards' rows gathered on the first device (a copy)."""
+        if len(self.shards) == 1:
+            return self.shard_states[0]
+        return DeviceState(*(torch.cat([x.to(self.device) for x in xs])
+                             for xs in zip(*self.shard_states)))
+
+    @state.setter
+    def state(self, state: DeviceState) -> None:
+        """Each shard takes its rows of ``state``, on its device."""
+        self.shard_states = [
+            DeviceState(*(x[sh.rows].to(sh.device) for x in state))
+            for sh in self.shards]
+
+    def _shard_of(self, i: int):
+        """(shard index, row within the shard) of env ``i``."""
+        return i // self.m, i % self.m
+
+    def _alloc_state(self, shard: Shard) -> DeviceState:
+        n, nc, dev = self.m, self.nc, shard.device
         f32 = dict(dtype=torch.float32, device=dev)
         return DeviceState(
             local_maps=torch.zeros((n, nc, self.Hl, self.Wl), **f32),
@@ -252,7 +349,7 @@ class BatchedNavRuntime:
         categories (update_goal_map), and whether any are left."""
         cfg = self.cfg
         n = local_maps.shape[0]
-        cat_maps = local_maps[torch.arange(n, device=self.device),
+        cat_maps = local_maps[torch.arange(n, device=local_maps.device),
                               goal_cats + 4]
         cat_bin = (cat_maps > 0).float()
         eroded = cat_bin
@@ -269,7 +366,7 @@ class BatchedNavRuntime:
         """The found-goal region ``temp`` where ``found``, else the single
         goal cell."""
         single = torch.zeros_like(temp)
-        single[torch.arange(temp.shape[0], device=self.device),
+        single[torch.arange(temp.shape[0], device=temp.device),
                cur_goal[:, 0].long(), cur_goal[:, 1].long()] = 1.0
         return torch.where(found[:, None, None], temp, single)
 
@@ -310,13 +407,13 @@ class BatchedNavRuntime:
         pw = cfg.prediction_window
         px1 = self.Hf // 2 - pw // 2
         py1 = self.Wf // 2 - pw // 2
-        dev = self.device
+        dev = full_maps.device
         sub = trig_idxs[:pred_k]                       # (K,)
         k_ar = torch.arange(pred_k, device=dev)
         trig_s = trig[sub]
         lmb_s = lmb_new[sub]
         crop = full_maps[sub, :, px1:px1 + pw, py1:py1 + pw]
-        probs = self.pred_model.infer(crop)            # (K, 6, pw, pw)
+        probs = self._pred_models[dev].infer(crop)     # (K, 6, pw, pw)
         chan = probs[k_ar, goal_cats[sub]]
         pred_full = torch.zeros((pred_k, self.Hf, self.Wf),
                                 dtype=torch.float32, device=dev)
@@ -431,7 +528,7 @@ class BatchedNavRuntime:
 
         # --- observation assembly + map update ---------------------------
         zeros_rgb = torch.zeros((n, 3) + tuple(sem_u8.shape[2:]),
-                                dtype=torch.float32, device=self.device)
+                                dtype=torch.float32, device=hp.device)
         obs = torch.cat([zeros_rgb, depth_cm[:, None], sem_u8.float()], dim=1)
         _, local_maps, _ = self.mapper.update_core(obs, poses_new,
                                                    state.local_maps)
@@ -476,7 +573,7 @@ class BatchedNavRuntime:
             temp, found = self._goal_region(local_maps, goal_cats, no_erode)
         else:
             temp = torch.zeros_like(local_maps[:, 0])
-            found = torch.zeros((n,), dtype=torch.bool, device=self.device)
+            found = torch.zeros((n,), dtype=torch.bool, device=hp.device)
         goal_maps = self._goal_maps(temp, found, cur_goal)
 
         # --- local planning solve -----------------------------------------
@@ -517,8 +614,10 @@ class BatchedNavRuntime:
                           lmb, loc_r, loc_c, flags, goal_maps, found,
                           is_toilet).window
 
-    def _t(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _t(self, x, dtype=None, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=self.device if device is None
+                               else device)
 
     # ------------------------------------------------------------------
     def warmup_rare_paths(self):
@@ -526,51 +625,60 @@ class BatchedNavRuntime:
         region: the kernels build at first use (nvcc), and both paths are
         data-dependent, so the build would otherwise land inside whichever
         measured tick first hits them."""
-        n = self.n
-        lmb = np.stack([s.lmb for s in self.slots])
-        starts = np.full((n, 2), self.Hl // 2, np.int64)
-        self._replan_program(
-            self.state, self._t(lmb).long(), self._t(starts[:, 0]),
-            self._t(starts[:, 1]), self._t(np.ones(n, bool)),
-            self._t(np.zeros(n, np.int64)), self._t(np.zeros(n, bool)),
-            self._t(np.zeros(n, bool)), self._t(np.zeros(n, bool))).cpu()
-        # the magnify fallback solves (n, Hl+2, Wl+2) padded fields
-        trav = np.ones((n, self.Hl + 2, self.Wl + 2))
-        goal = np.zeros_like(trav, dtype=bool)
-        goal[:, 1, 1] = True
-        FMMPlanner.solve_batch(trav, goal, n_iters=self.cfg.fmm_sweeps,
-                               device=self.device)
+        m = self.m
+        for sh, st in zip(self.shards, self.shard_states):
+            def t(x, d=sh.device):
+                return self._t(x, device=d)
+            lmb = np.stack([s.lmb for s in self.slots[sh.rows]])
+            starts = np.full((m, 2), self.Hl // 2, np.int64)
+            with on_device(sh.device):
+                self._replan_program(
+                    st, t(lmb).long(), t(starts[:, 0]), t(starts[:, 1]),
+                    t(np.ones(m, bool)), t(np.zeros(m, np.int64)),
+                    t(np.zeros(m, bool)), t(np.zeros(m, bool)),
+                    t(np.zeros(m, bool))).cpu()
+                # the magnify fallback solves (m, Hl+2, Wl+2) padded fields
+                trav = np.ones((m, self.Hl + 2, self.Wl + 2))
+                goal = np.zeros_like(trav, dtype=bool)
+                goal[:, 1, 1] = True
+                FMMPlanner.solve_batch(trav, goal,
+                                       n_iters=self.cfg.fmm_sweeps,
+                                       device=sh.device)
         self.warmup_tick_variants()
 
     def warmup_tick_variants(self):
         """Run every tick variant (without prediction; with it on the small
         and the full subset, or the ``pred_async`` programs instead) once on
-        zero inputs, trigger off, and restore the episode state (a copy is
-        kept; the tick updates some tensors in place), so warming up
-        mid-episode leaves the episodes bit-identical."""
-        saved = DeviceState(*(x.clone() for x in self.state))
+        zero inputs on each shard, trigger off, and restore the episode
+        state (a copy is kept; the tick updates some tensors in place), so
+        warming up mid-episode leaves the episodes bit-identical."""
         cfg = self.cfg
-        n = self.n
+        m = self.m
         fh, fw = cfg.frame_height, cfg.frame_width
-        sem = torch.zeros((n, cfg.num_sem_categories, fh, fw),
-                          dtype=torch.uint8, device=self.device)
-        depth = torch.zeros((n, fh, fw), dtype=torch.float32,
-                            device=self.device)
-        hp = np.zeros((n, PACK), np.float32)
-        hp[:, 3:7] = np.stack([s.lmb for s in self.slots])
-        hp[:, 7:11] = hp[:, 3:7]
-        hp, idxs = self._t(hp), self._t(np.zeros(n, np.int64))
-        pred_ks = [self.predict_chunk, n] if self.pred_model is not None \
+        pred_ks = [self._pred_k(1), m] if self.pred_model is not None \
             else []
         tick_ks = [0] + ([] if self._pred_async else pred_ks)
-        for k in dict.fromkeys(tick_ks):
-            self.state, packed = self._tick(self.state, sem, depth, hp, idxs,
-                                            k)
-            packed.cpu()
-        for k in dict.fromkeys(pred_ks if self._pred_async else []):
-            self.state, goal = self._pred_program(self.state, hp, idxs, k)
-            goal.cpu()
-        self.state = saved
+        for s, sh in enumerate(self.shards):
+            saved = DeviceState(*(x.clone() for x in self.shard_states[s]))
+            d = sh.device
+            sem = torch.zeros((m, cfg.num_sem_categories, fh, fw),
+                              dtype=torch.uint8, device=d)
+            depth = torch.zeros((m, fh, fw), dtype=torch.float32, device=d)
+            hp = np.zeros((m, PACK), np.float32)
+            hp[:, 3:7] = np.stack([s_.lmb for s_ in self.slots[sh.rows]])
+            hp[:, 7:11] = hp[:, 3:7]
+            hp, idxs = self._t(hp, device=d), self._t(np.zeros(m, np.int64),
+                                                     device=d)
+            with on_device(d):
+                for k in dict.fromkeys(tick_ks):
+                    self.shard_states[s], packed = self._tick(
+                        self.shard_states[s], sem, depth, hp, idxs, k)
+                    packed.cpu()
+                for k in dict.fromkeys(pred_ks if self._pred_async else []):
+                    self.shard_states[s], goal = self._pred_program(
+                        self.shard_states[s], hp, idxs, k)
+                    goal.cpu()
+            self.shard_states[s] = saved
 
     # ==================================================================
     # episode lifecycle
@@ -594,22 +702,24 @@ class BatchedNavRuntime:
         self.local_poses[i] = pose - s.origins.astype(np.float32)
         self.goal_shadow[i] = [int(0.1 * self.Hl), int(0.1 * self.Wl)]
 
+        k, j = self._shard_of(i)
         with self._reset_lock:
-            st = self.state
-            st.full_maps[i] = 0.0
-            st.full_maps[i, 2:4, loc - 1:loc + 2, loc - 1:loc + 2] = 1.0
+            st = self.shard_states[k]
+            st.full_maps[j] = 0.0
+            st.full_maps[j, 2:4, loc - 1:loc + 2, loc - 1:loc + 2] = 1.0
             r0 = min(max(int(s.lmb[0]), 0), self.Hf - self.Hl)
             c0 = min(max(int(s.lmb[2]), 0), self.Wf - self.Wl)
-            st.local_maps[i] = st.full_maps[i, :, r0:r0 + self.Hl,
+            st.local_maps[j] = st.full_maps[j, :, r0:r0 + self.Hl,
                                             c0:c0 + self.Wl]
-            st.collision[i] = 0.0
-            st.visited[i] = 0.0
-            st.target_pred[i] = 0.0
-            st.dd_wt[i] = 0.0
-            st.dd_valid[i] = False
-            st.cur_goal[i] = self._t(self.goal_shadow[i])
-            st.last_goal[i] = -1
-            st.last_goal_valid[i] = False
+            st.collision[j] = 0.0
+            st.visited[j] = 0.0
+            st.target_pred[j] = 0.0
+            st.dd_wt[j] = 0.0
+            st.dd_valid[j] = False
+            st.cur_goal[j] = self._t(self.goal_shadow[i],
+                                     device=self.shards[k].device)
+            st.last_goal[j] = -1
+            st.last_goal_valid[j] = False
 
     # ------------------------------------------------------------------
     # episode checkpoint / resume: the same .npz as the JAX package's
@@ -654,7 +764,7 @@ class BatchedNavRuntime:
 
     def load_episode_state(self, path: str) -> None:
         """Restore a ``save_episode_state`` checkpoint of either package
-        (same config and env count), placing the maps on this runtime's
+        (same config and env count), placing each shard's maps on its
         device."""
         z = np.load(path, allow_pickle=False)
         slots = json.loads(str(z["__slots__"]))
@@ -724,8 +834,8 @@ class BatchedNavRuntime:
         if self._pending_goal is None:
             return
         with self.timer.stage("pred_goal_wait"):
-            event, = self._pending_goal
-            if event is not None:       # a copy to the host from the card
+            events, = self._pending_goal
+            for event in events:        # the copies to the host from cards
                 event.synchronize()
             g = self._goal_host.numpy().astype(np.int32)
         keep = np.logical_not(self._reset_since_pred)
@@ -826,7 +936,7 @@ class BatchedNavRuntime:
 
         # ---- segmentation + obs packing -------------------------------
         with T.stage("pack_obs"):
-            sem_u8, depth_cm = self._pack_obs(observations, goal_cats)
+            sems, depth_cm = self._pack_obs(observations, goal_cats)
 
         # ---- one packed f32 upload for every small input ---------------
         no_erode = np.array(["tv" in s.goal_name for s in self.slots])
@@ -850,32 +960,45 @@ class BatchedNavRuntime:
         hp[:, 335:351] = self._col_pts.reshape(n, -1)
         hp[:, 351:359] = self._col_valid
 
-        # trigger ticks: the K triggered envs padded with repeats; in the
-        # exact profile the tick predicts for them (K = predict_chunk, or n
-        # when more trigger), with pred_async the program after collect
-        trig_list = list(np.where(trig)[0])
-        idxs = np.asarray((trig_list + trig_list[-1:] * n)[:n]
-                          if trig_list else np.zeros(n), np.int64)
-        pred_k = 0
-        if trig_list and not self._pred_async:
-            pred_k = self._pred_k(len(trig_list))
+        # trigger ticks: each shard's K triggered envs (shard-local
+        # indices) padded with repeats; in the exact profile the tick
+        # predicts for them (K = predict_chunk, or the shard's m when more
+        # trigger), with pred_async the program after collect
+        m = self.m
+        idxs, pred_ks = [], []
+        for sh in self.shards:
+            trig_list = list(np.where(trig[sh.rows])[0])
+            idxs.append(np.asarray((trig_list + trig_list[-1:] * m)[:m]
+                                   if trig_list else np.zeros(m), np.int64))
+            pred_ks.append(self._pred_k(len(trig_list))
+                           if trig_list and not self._pred_async else 0)
         with T.stage("upload"):
-            sem = sem_u8 if torch.is_tensor(sem_u8) else self._t(sem_u8)
-            args = (sem, upload(depth_cm, self.device),
-                    upload(hp, self.device), upload(idxs, self.device))
+            args = [(sem if torch.is_tensor(sem)
+                     else self._t(sem, device=sh.device),
+                     upload(depth_cm[sh.rows], sh.device),
+                     upload(hp[sh.rows], sh.device),
+                     upload(idx, sh.device))
+                    for sh, sem, idx in zip(self.shards, sems, idxs)]
         with T.stage("dispatch"):
-            # on CUDA the tick's kernels are enqueued; nothing blocks until
-            # collect fetches the packed download
-            self.state, packed = self._tick(self.state, *args, pred_k)
+            # on CUDA every shard's kernels are enqueued; nothing blocks
+            # until collect fetches the packed downloads
+            packed = []
+            for s, (sh, a) in enumerate(zip(self.shards, args)):
+                with on_device(sh.device):
+                    self.shard_states[s], p = self._tick(
+                        self.shard_states[s], *a, pred_ks[s])
+                packed.append(p)
         self._clear_pending()
         return TickHandle(packed, starts, starts_exact, lmb_new, goal_cats,
-                          no_erode, is_toilet, stop_now, trig, args[2],
-                          args[3])
+                          no_erode, is_toilet, stop_now, trig,
+                          [a[2] for a in args], [a[3] for a in args])
 
     def _pred_k(self, n_trig: int) -> int:
-        """The prediction subset for n_trig triggered envs: the small
-        variant (predict_chunk) when they fit it, else all n."""
-        return self.predict_chunk if n_trig <= self.predict_chunk else self.n
+        """The prediction subset of a shard for n_trig of its envs
+        triggered: the small variant (predict_chunk, at most the shard's
+        m) when they fit it, else all m."""
+        k_small = min(self.predict_chunk, self.m)
+        return k_small if n_trig <= k_small else self.m
 
     def act_batch_collect(self, h: TickHandle) -> List[Dict]:
         """Phase 2: wait for the tick's packed download, then run the host
@@ -886,7 +1009,7 @@ class BatchedNavRuntime:
         T = self.timer
         starts, starts_exact, lmb_new = h.starts, h.starts_exact, h.lmb_new
         with T.stage("tick_wait"):
-            packed = h.packed.cpu().numpy()
+            packed = np.concatenate([p.cpu().numpy() for p in h.packed])
 
         k = 11
         windows = packed[:, :k * k].reshape(n, k, k)
@@ -919,15 +1042,22 @@ class BatchedNavRuntime:
         # down into pinned memory behind an event
         if self._pred_async and h.trig.any():
             with T.stage("pred_dispatch"):
-                self.state, goal = self._pred_program(
-                    self.state, h.hp, h.trig_idxs,
-                    self._pred_k(int(h.trig.sum())))
-                self._goal_host.copy_(goal, non_blocking=True)
-                event = None
-                if self.device.type == "cuda":
-                    event = torch.cuda.Event()
-                    event.record()
-                self._pending_goal = (event,)
+                events = {}
+                for s, sh in enumerate(self.shards):
+                    n_trig = int(h.trig[sh.rows].sum())
+                    with on_device(sh.device):
+                        if n_trig:
+                            self.shard_states[s], goal = self._pred_program(
+                                self.shard_states[s], h.hp[s],
+                                h.trig_idxs[s], self._pred_k(n_trig))
+                        else:       # a shard with no trigger keeps its goals
+                            goal = self.shard_states[s].cur_goal
+                        self._goal_host[sh.rows].copy_(goal,
+                                                       non_blocking=True)
+                        if sh.device.type == "cuda":
+                            events[sh.device] = torch.cuda.Event()
+                            events[sh.device].record()
+                self._pending_goal = (list(events.values()),)
             self._reset_since_pred[:] = False
 
         self.last_stg = stg_results
@@ -939,42 +1069,47 @@ class BatchedNavRuntime:
         return [{"action": a} for a in actions]
 
     # ------------------------------------------------------------------
-    def stage_obs(self, obs: Dict) -> None:
-        """Preprocess this observation as soon as its env has stepped
-        (called from the env-step thread pool): its depth on the host and,
-        with a device segmenter, its uint8 RGB up to the device; once
-        ``seg_chunk`` frames are staged, launch their detect chunk, so
-        detection of the first envs overlaps the others' stepping."""
+    def stage_obs(self, obs: Dict, env: Optional[int] = None) -> None:
+        """Preprocess this observation of env ``env`` as soon as it has
+        stepped (called from the env-step thread pool): its depth on the
+        host and, with a device segmenter, its uint8 RGB up to its
+        device; once every env of its detect group (``seg_chunk`` of the
+        device's envs, in env order) is staged, launch the group's detect
+        chunk there, so detection of the first envs overlaps the others'
+        stepping.  Without ``env`` the detect waits for ``_pack_obs``."""
         cfg = self.cfg
-        if hasattr(self.segmenter, "batch_device"):
-            obs["_rgb_dev"] = upload(np.asarray(obs["rgb"], np.uint8),
-                                     self.device)
+        dev, group = self._det_groups.get(env, (self.device, None))
+        if self._segs:
+            obs["_rgb_dev"] = upload(np.asarray(obs["rgb"], np.uint8), dev)
         d = preprocess_depth(np.asarray(obs["depth"])[None],
                              cfg.min_depth, cfg.max_depth)[0]
         ds = cfg.env_frame_width // cfg.frame_width
         if ds != 1:
             d = d[ds // 2::ds, ds // 2::ds]
         obs["_depth_np"] = d
-        if self._seg_chunk:
+        if self._seg_chunk and group is not None:
             goal = int(np.asarray(obs["objectgoal"]).reshape(-1)[0])
             obs["_goal_cat"] = int(hm3d_to_coco[goal])
+            obs["_env"] = env
             batch = None
             with self._det_lock:
-                self._det_buf.append(obs)
-                if len(self._det_buf) >= self._seg_chunk:
-                    batch, self._det_buf = self._det_buf, []
+                staged = self._det_pending.setdefault(group, {})
+                staged[env] = obs
+                if len(staged) == len(group):
+                    batch = [staged[i] for i in group]
+                    del self._det_pending[group]
             if batch:
-                self._launch_detect(batch)
+                self._launch_detect(batch, dev)
 
-    def _launch_detect(self, batch) -> None:
-        """Detect one staged chunk; each obs gets its slice of the device
-        semantic stack under ``_sem_dev``.  Nothing in the detect waits for
-        the device (NMS solves on the card, host data goes up without
-        blocking), so the ``detect`` stage is the host's time to enqueue
-        the chunk; its device time overlaps the other envs' stepping and
-        shows in the tick's ``tick_wait``."""
-        with self.timer.stage("detect"):
-            sem = self.segmenter.batch_device(
+    def _launch_detect(self, batch, dev) -> None:
+        """Detect one staged chunk on ``dev``; each obs gets its slice of
+        the device semantic stack under ``_sem_dev``.  Nothing in the
+        detect waits for the device (NMS solves on the card, host data
+        goes up without blocking), so the ``detect`` stage is the host's
+        time to enqueue the chunk; its device time overlaps the other
+        envs' stepping and shows in the tick's ``tick_wait``."""
+        with self.timer.stage("detect"), on_device(dev):
+            sem = self._segs[dev].batch_device(
                 torch.stack([o["_rgb_dev"] for o in batch]),
                 [o["_goal_cat"] for o in batch])
         for j, o in enumerate(batch):
@@ -993,6 +1128,8 @@ class BatchedNavRuntime:
         return d_all
 
     def _pack_obs(self, observations, goal_cats):
+        """(each shard's semantic stack, the batch's depth): uint8 on the
+        host, or the detect's on the shard's device."""
         cfg = self.cfg
         n = self.n
         fh, fw = cfg.frame_height, cfg.frame_width
@@ -1000,25 +1137,31 @@ class BatchedNavRuntime:
         depth_cm = np.zeros((n, fh, fw), np.float32)
         ds = cfg.env_frame_width // cfg.frame_width
 
-        if hasattr(self.segmenter, "batch_device"):
-            # Mask R-CNN: the semantic stack stays on the device
+        if self._segs:
+            # Mask R-CNN: the semantic stack stays on the device; first
+            # the groups stage_obs did not launch (not every env staged),
+            # a device's in one call (it detects them group by group: only
+            # a device's last group is short)
             with self._det_lock:
-                batch, self._det_buf = self._det_buf, []
-            if batch:                  # the partial tail chunk stage_obs left
-                self._launch_detect(batch)
-            if all("_sem_dev" in o for o in observations):
-                sem = torch.stack([o.pop("_sem_dev") for o in observations])
-            else:
-                if all("_rgb_dev" in o for o in observations):
-                    rgbs = torch.stack([o["_rgb_dev"] for o in observations])
-                else:
-                    rgbs = np.stack([np.asarray(o["rgb"], np.uint8)
-                                     for o in observations])
-                with self.timer.stage("detect"):
-                    sem = self.segmenter.batch_device(
-                        rgbs, [int(g) for g in goal_cats])
+                self._det_pending = {}
+            for dev, envs in self._det_envs.items():
+                left = [i for i in envs if "_sem_dev" not in observations[i]]
+                for i in left:
+                    o = observations[i]
+                    if "_rgb_dev" not in o:
+                        o["_rgb_dev"] = upload(np.asarray(o["rgb"],
+                                                          np.uint8), dev)
+                    o["_rgb_dev"] = o["_rgb_dev"].to(dev)
+                    o["_goal_cat"], o["_env"] = int(goal_cats[i]), i
+                if left:
+                    self._launch_detect([observations[i] for i in left],
+                                        dev)
+            sems = [torch.stack([observations[i].pop("_sem_dev")
+                                 for i in range(sh.rows.start,
+                                                sh.rows.stop)])
+                    for sh in self.shards]
             depth_cm[:] = self._depth_stack(observations)
-            return sem, depth_cm
+            return sems, depth_cm
 
         if cfg.use_gt_seg == 1 and hasattr(self.segmenter, "goalseg"):
             # GroundTruthSegmenter fast path: only the goal channel is
@@ -1031,7 +1174,7 @@ class BatchedNavRuntime:
                     sem_u8[i, int(goal_cats[i])] = np.clip(
                         sub, 0, 255).astype(np.uint8)
             depth_cm[:] = self._depth_stack(observations)
-            return sem_u8, depth_cm
+            return [sem_u8[sh.rows] for sh in self.shards], depth_cm
 
         sems = []
         for i in range(n):
@@ -1048,7 +1191,7 @@ class BatchedNavRuntime:
         sem_u8[:] = np.clip(sem_all, 0, 255).astype(np.uint8).transpose(
             0, 3, 1, 2)
         depth_cm[:] = self._depth_stack(observations)
-        return sem_u8, depth_cm
+        return [sem_u8[sh.rows] for sh in self.shards], depth_cm
 
     def _planner_cells(self, lmb):
         cfg = self.cfg
@@ -1159,15 +1302,24 @@ class BatchedNavRuntime:
                 sl.preset_id = (sl.preset_id + 1) % len(self.presets)
 
         found = np.array([sl.found_goal for sl in self.slots], bool)
-        windows = self._replan_program(
-            self.state, self._t(lmb).long(), self._t(starts[:, 0]).long(),
-            self._t(starts[:, 1]).long(), self._t(flags),
-            self._t(goal_cats).long(), self._t(no_erode), self._t(found),
-            self._t(is_toilet)).cpu().numpy()
         out = list(stg_results)
-        for i in np.where(flags)[0]:
-            out[i] = self._stg_from_window(windows[i], starts_exact[i],
-                                           starts[i])
+        for st, sh in zip(self.shard_states, self.shards):
+            r = sh.rows
+            if not flags[r].any():
+                continue
+
+            def t(x, d=sh.device):
+                return self._t(x, device=d)
+            with on_device(sh.device):
+                windows = self._replan_program(
+                    st, t(lmb[r]).long(), t(starts[r, 0]).long(),
+                    t(starts[r, 1]).long(), t(flags[r]),
+                    t(goal_cats[r]).long(), t(no_erode[r]), t(found[r]),
+                    t(is_toilet[r])).cpu().numpy()
+            for j in np.where(flags[r])[0]:
+                i = r.start + j
+                out[i] = self._stg_from_window(windows[j], starts_exact[i],
+                                               starts[i])
         return out
 
     def _magnify_prepare(self, i, start, local_np, coll_full, vis_full):
@@ -1216,13 +1368,26 @@ class BatchedNavRuntime:
 
     def _magnify_goal_batch(self, idxs, starts, starts_exact, stg_results):
         """Goal-magnification fallback (planner.py:473-489), batched: every
-        flagged env solves in one batched eikonal call per dilation round.
-        Per env: initial solve, then up to 8 (toilet: 2) dilate-and-resolve
-        rounds while the agent's annulus distance stays > 100."""
+        flagged env of a shard solves in one batched eikonal call per
+        dilation round on the shard's device.  Per env: initial solve, then
+        up to 8 (toilet: 2) dilate-and-resolve rounds while the agent's
+        annulus distance stays > 100."""
+        out = list(stg_results)
+        for st, sh in zip(self.shard_states, self.shards):
+            mine = [i for i in idxs if sh.rows.start <= i < sh.rows.stop]
+            if mine:
+                with on_device(sh.device):
+                    self._magnify_shard(st, sh, mine, starts, starts_exact,
+                                        out)
+        return out
+
+    def _magnify_shard(self, st, sh, idxs, starts, starts_exact, out):
+        """``_magnify_goal_batch`` on one shard's envs ``idxs`` (batch
+        indices), writing their short-term goals into ``out``."""
         cfg = self.cfg
-        st = self.state
         k = len(idxs)
-        ii = torch.as_tensor(idxs, device=self.device)
+        ii = torch.as_tensor([i - sh.rows.start for i in idxs],
+                             device=sh.device)
         locals_np = st.local_maps[ii].cpu().numpy()
         colls = st.collision[ii].cpu().numpy()
         viss = st.visited[ii].cpu().numpy()
@@ -1237,14 +1402,14 @@ class BatchedNavRuntime:
         limits = np.array([2 if self.slots[i].goal_name == "toilet" else 8
                            for i in idxs])
         planners = [FMMPlanner(travs[j], n_iters=cfg.fmm_sweeps,
-                               device=self.device) for j in range(k)]
+                               device=sh.device) for j in range(k)]
         states = [[starts_exact[i][0] + 1, starts_exact[i][1] + 1]
                   for i in idxs]
         results = [None] * k
         active = np.ones(k, bool)
         rnd = 0
-        # every solve is padded to the full env count: one solve shape
-        pad_n = self.n
+        # every solve is padded to the shard's env count: one solve shape
+        pad_n = self.m
         while active.any():
             aw = np.where(active)[0]
             tb = np.ones((pad_n,) + travs.shape[1:], travs.dtype)
@@ -1253,7 +1418,7 @@ class BatchedNavRuntime:
             gb[:len(aw)] = goals[aw] == 1
             gb[len(aw):, 0, 0] = True  # padded rows need one goal cell
             dists = FMMPlanner.solve_batch(tb, gb, n_iters=cfg.fmm_sweeps,
-                                           device=self.device)
+                                           device=sh.device)
             for jj, j in enumerate(aw):
                 planners[j].fmm_dist = dists[jj]
                 results[j] = planners[j].get_short_term_goal(states[j])
@@ -1264,11 +1429,9 @@ class BatchedNavRuntime:
                 else:
                     gd = np_binary_dilation(goals[j], disk(2)) != True  # noqa: E712
                     goals[j] = 1 - gd.astype(float)
-        out = list(stg_results)
         for j, i in enumerate(idxs):
             sx, sy, distance, stop, replan = results[j]
             out[i] = (sx - 1, sy - 1, distance, stop, replan)
-        return out
 
     # ------------------------------------------------------------------
     def _action_rules(self, stg_results, starts, stop_now) -> List[int]:

@@ -122,7 +122,8 @@ def train_segmentor(config: Union[str, Dict], data_root: str,
     (the card unless ``"cpu"``); returns its ``TrainState``.  Like the
     reference, it does not pass ``config`` on, so it trains PEANUT's
     PSPNet whatever the config names (give ``config=...`` among the
-    overrides to train a zoo config)."""
+    overrides to train a zoo config; ``distributed=1`` trains data
+    parallel, one process a card under torchrun)."""
     from .cli.train_prediction_model import main as train_main
 
     argv = ["--data_root", data_root, "--work_dir", work_dir]

@@ -10,7 +10,11 @@ statistics are host numpy, reduced in dataset order.
         --checkpoint W/iter_N
 
 ``--checkpoint``: an mmseg ``.pth`` or a trainer's ``iter_N`` directory.
-``--distributed 1`` (the val set over processes) is ROADMAP A14.
+``--distributed 1`` (under torchrun, as the trainer's: one process a card,
+``core.mesh.init_distributed``): rank r evaluates samples r, r + world,
+..., the per-sample statistics are gathered back into dataset order over
+the process group (``metrics.gather_strided_results``) and rank 0 prints
+the report, bit-equal to one process's.
 """
 
 from __future__ import annotations
@@ -91,28 +95,44 @@ def main(argv=None, device=None):
     ap.add_argument("--max_samples", type=int, default=0)
     ap.add_argument("--argmax", action="store_true")
     ap.add_argument("--distributed", type=int, default=0,
-                    help="the val set over processes (not ported)")
+                    help="the val set over processes (under torchrun)")
     ns = ap.parse_args(argv)
-    if ns.distributed:
-        raise NotImplementedError("--distributed: evaluation over processes "
-                                  "is ROADMAP A14")
+
+    import torch.distributed as dist
 
     from .. import resolve_device
     from ..config import NavConfig
     from ..core.checkpoint import MODEL_FILE
+    from ..core.mesh import init_distributed
     from ..prediction import PredictionModel
     from ..prediction.dataset import SemMapDataset
+    from ..prediction.metrics import gather_strided_results
 
-    device = resolve_device(device)
+    rank, world, joined = 0, 1, False
+    if ns.distributed:
+        joined = not dist.is_initialized()
+        device = init_distributed(device=device)
+        rank, world = dist.get_rank(), dist.get_world_size()
+    else:
+        device = resolve_device(device)
     ckpt = ns.checkpoint or ""
     if os.path.isdir(ckpt):
         ckpt = os.path.join(ckpt, MODEL_FILE)
     pm = PredictionModel(NavConfig(pred_model_wts=ckpt), device=device)
     ds = SemMapDataset(ns.data_root, ns.img_dir)
     n = len(ds) if ns.max_samples == 0 else min(len(ds), ns.max_samples)
-    stats = evaluate_shard(pm, ds, range(n), ns.threshold, ns.argmax)
+    try:
+        stats = evaluate_shard(pm, ds, range(rank, n, world), ns.threshold,
+                               ns.argmax)
+        if world > 1:
+            stats = {k: gather_strided_results(v, n, world=world)
+                     for k, v in stats.items()}
+    finally:
+        if joined:
+            dist.destroy_process_group()
     out = reduce_metrics(stats, ns.threshold, ns.argmax)
-    print(json.dumps(out))
+    if rank == 0:
+        print(json.dumps(out))
     return out
 
 

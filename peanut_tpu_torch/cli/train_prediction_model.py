@@ -23,7 +23,21 @@ initialises at; ``--remat`` is ignored, as in the reference.  The config
 needs one auxiliary head (``prediction.train.check_heads``).
 
 ``main(argv, device=)`` runs on ``device`` (the card unless ``"cpu"``).
-``--distributed 1`` (DDP) is ROADMAP A14.
+
+``--distributed 1``: data parallelism, one process a card
+(``prediction.train.distribute``):
+
+    torchrun --nproc_per_node=N -m peanut_tpu_torch.cli.train_prediction_model \
+        --distributed 1 --data_root DIR --img_dir train_80 --work_dir W
+
+Each process joins the group from torchrun's environment
+(``core.mesh.init_distributed``: NCCL on ``cuda:{LOCAL_RANK}``; a caller
+that joined a group before, gloo say, keeps it), takes rank 0's
+``--seed``, loads ``--batch_size / world`` samples of every global batch
+from its rank-strided share of the episodes and trains on its device;
+``--batch_size`` is the global batch and must divide by the world size.
+Rank 0 alone writes the log and the checkpoints; every rank resumes from
+the same one.
 """
 
 from __future__ import annotations
@@ -55,7 +69,8 @@ def parse_args(argv=None):
     ap.add_argument("--remat", type=int, default=1,
                     help="recompute the backbone's blocks in backward")
     ap.add_argument("--distributed", type=int, default=0,
-                    help="data parallelism over processes (not ported)")
+                    help="data parallelism over processes (DDP; under "
+                         "torchrun)")
     ns, _ = ap.parse_known_args(argv)
     return ns
 
@@ -88,38 +103,72 @@ def main(argv=None, device=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     ns = parse_args(argv)
-    if ns.distributed:
-        raise NotImplementedError("--distributed: data parallelism over "
-                                  "processes (DDP) is ROADMAP A14")
+
+    import torch
+    import torch.distributed as dist
 
     from .. import resolve_device
+    from ..core.mesh import init_distributed
     from ..models.pspnet import build_segmentor, peanut_prediction_config
-    from ..prediction.dataset import (PrefetchLoader, SemMapDataset,
-                                      training_pipeline)
+    from ..prediction.dataset import (GlobalShardedLoader, PrefetchLoader,
+                                      SemMapDataset, training_pipeline)
     from ..prediction.runner import IterRunner
     from ..prediction.train import (TrainConfig, create_train_state,
-                                    make_train_step)
+                                    distribute, make_train_step)
 
-    device = resolve_device(device)
+    seed, rank, world = ns.seed, 0, 1
+    joined = False
+    if ns.distributed:
+        joined = not dist.is_initialized()
+        device = init_distributed(device=device)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        # rank 0's seed everywhere: every rank draws the same epoch
+        # permutation to take its stride of
+        t = torch.tensor([ns.seed], dtype=torch.int64, device=device)
+        dist.broadcast(t, 0)
+        seed = int(t.item())
+        if ns.batch_size % world:
+            raise SystemExit(f"--batch_size {ns.batch_size} must be "
+                             f"divisible by the world size {world}")
+    else:
+        device = resolve_device(device)
+    local_bs = ns.batch_size // world
     tcfg = TrainConfig(lr=ns.lr, max_iters=ns.max_iters,
-                       batch_size=ns.batch_size, seed=ns.seed,
+                       batch_size=ns.batch_size, seed=seed,
                        log_interval=ns.log_interval,
                        checkpoint_interval=ns.checkpoint_interval)
-    rng = np.random.RandomState(ns.seed)
+    rng = np.random.RandomState(seed)
     dataset = SemMapDataset(ns.data_root, ns.img_dir,
                             pipeline=training_pipeline(ns.crop_size, rng=rng))
-    loader = PrefetchLoader(dataset, ns.batch_size, seed=ns.seed,
-                            num_workers=ns.num_workers)
-    logging.info("Loaded %d samples (batch %d)", len(dataset), ns.batch_size)
+    loader = PrefetchLoader(dataset, local_bs, seed=seed,
+                            num_workers=ns.num_workers, num_shards=world,
+                            shard_id=rank)
+    if ns.distributed:
+        loader = GlobalShardedLoader(loader, device)
+    logging.info("Loaded %d samples (%d processes x batch %d)",
+                 len(dataset), world, local_bs)
     if ns.config:
-        model = config_model(ns.config, ns.crop_size, ns.seed, device)
+        model = config_model(ns.config, ns.crop_size, seed, device)
     else:
         model = build_segmentor(
-            peanut_prediction_config(remat=bool(ns.remat)), seed=ns.seed)
+            peanut_prediction_config(remat=bool(ns.remat)), seed=seed)
     state = create_train_state(model, tcfg, device=device)
     runner = IterRunner(make_train_step(tcfg), state, loader, tcfg,
                         ns.work_dir, auto_resume=not ns.no_resume)
-    return runner.run()
+    if ns.distributed:
+        steps = torch.tensor([state.step, -state.step], device=device)
+        dist.all_reduce(steps, op=dist.ReduceOp.MAX)
+        if int(steps[0]) != -int(steps[1]):
+            raise RuntimeError(f"the ranks resumed from different "
+                               f"iterations ({int(steps[0])} and "
+                               f"{-int(steps[1])}): is {ns.work_dir} "
+                               f"shared?")
+        distribute(state)
+    try:
+        return runner.run()
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

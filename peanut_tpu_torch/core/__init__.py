@@ -1,2 +1,4 @@
-"""Infrastructure (port of ``peanut_tpu.core``): training checkpoints and
-the python config-file loader of the model zoo.  The mesh is ROADMAP A14."""
+"""Infrastructure (port of ``peanut_tpu.core``): training checkpoints, the
+python config-file loader of the model zoo, and the device mesh with the
+process group (``mesh``: the data axis; the spatial axis is ROADMAP A14
+part 2)."""

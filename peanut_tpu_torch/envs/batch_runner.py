@@ -35,7 +35,9 @@ class BatchRunner:
                  **runtime_kw):
         """device: the runtimes' device (``resolve_device``: the card unless
         ``"cpu"``); ignored when a runtime is passed.  runtime_kw go to each
-        runtime (``prediction_model``, ``predict_chunk``, ``segmenter``)."""
+        runtime (``prediction_model``, ``predict_chunk``, ``segmenter``,
+        ``mesh``: with ``pipeline=k`` each part's runtime shards its n/k
+        envs over it)."""
         self.cfg = cfg
         self.envs = [fn() for fn in env_fns]
         self.n = len(self.envs)
@@ -116,7 +118,7 @@ class BatchRunner:
             obs = env.reset()
             rt.reset_env(j)
             done = 1
-        rt.stage_obs(obs)
+        rt.stage_obs(obs, j)
         self.obs[i] = obs
         return done
 
@@ -148,7 +150,8 @@ class BatchRunner:
             # the observation staging overlaps the wait for the in-flight
             # pred_async goal
             fut = self._part_pool.submit(
-                lambda: list(self._pool.map(rt.stage_obs, self.obs)))
+                lambda: list(self._pool.map(rt.stage_obs, self.obs,
+                                            range(self.n))))
             rt.wait_pending_goal()
             fut.result()
         elif self.pipeline == 1:

@@ -12,8 +12,9 @@ ConvModule resized back bilinearly, then the 3x3 bottleneck and the 1x1
 auxiliary head of PSPNet training (fcn_head.py), run by the train step
 (``EncoderDecoder.forward(with_aux=True)``).  Dropout before ``conv_seg``
 (flax's ``nn.Dropout``: keep with probability 1 - p, scale by 1 / (1 - p))
-runs in train mode, drawn from the ``generator`` the caller passes; in
-eval mode it is the identity.  Logits stay at the head's resolution.
+runs in train mode, drawn from the ``generator`` the caller passes (a
+``layers.BatchRows`` under data parallelism); in eval mode it is the
+identity.  Logits stay at the head's resolution.
 A resize computes in float32 or wider and its result goes back to the
 map's type (a bfloat16 model stays bfloat16).
 """
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 
 from ..registry import HEADS
-from .layers import ConvModule
+from .layers import ConvModule, dropout_draw
 from .ops import adaptive_avg_pool, resize_nchw
 
 
@@ -81,8 +82,7 @@ class DecodeHead(nn.Module):
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.training and self.dropout_ratio > 0:
             keep = 1.0 - self.dropout_ratio
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            mask = dropout_draw(x.shape, generator, x.device) < keep
             x = torch.where(mask, x / keep, torch.zeros_like(x))
         return self.conv_seg(x)
 

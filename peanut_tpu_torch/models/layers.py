@@ -30,10 +30,11 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -77,7 +78,16 @@ class BatchNorm(nn.Module):
     and ``bias`` are parameters that need no gradient until a trainer asks
     for one (``requires_grad_``); the running statistics are buffers.  A
     new one is in eval mode, as every model of the port starts (serving
-    builds them): only an explicit ``.train()`` switches it."""
+    builds them): only an explicit ``.train()`` switches it.
+
+    ``group``: a process group (``sync_batch_stats``) over which train
+    mode takes its statistics, as the JAX package's sharded step does: the
+    mean over the global batch.  The sums of x and x^2 and the count go
+    over the group in one all-reduce, whose backward all-reduces their
+    gradients, so each rank's input gets the gradient through the global
+    statistics once (DDP then averages the parameters' gradients, as the
+    global batch's mean loss would).  None (the default): the process's
+    own batch."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -87,6 +97,7 @@ class BatchNorm(nn.Module):
                                  requires_grad=False)
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.group = None
         self.train(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -101,9 +112,18 @@ class BatchNorm(nn.Module):
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+        else:
+            c = xf.shape[1]
+            sums = _AllReduceSum.apply(torch.cat([
+                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                xf.new_full((1,), xf.numel() // c)]), self.group)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                              min=0.0)
         if not getattr(_remat, "active", False):
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
@@ -135,6 +155,52 @@ class BatchNorm(nn.Module):
                             mul[:, None, None], self.bias[:, None, None]))
             self.__dict__["_cached_terms"] = cached
         return cached[1]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group, differentiable: the gradient of each
+    rank's input is the sum of every rank's output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def sync_batch_stats(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` takes its train-mode statistics over
+    the process group ``group`` (None: over its own batch again)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+
+
+class BatchRows(NamedTuple):
+    """A dropout stream for one rank's rows of a global batch: a head draws
+    the mask of all ``total`` rows from ``generator`` and keeps rows
+    ``[start, start + its batch)``, so each rank drops what one process
+    at the global batch drops."""
+    generator: torch.Generator
+    start: int
+    total: int
+
+
+def dropout_draw(shape, generator, device) -> torch.Tensor:
+    """Uniform numbers of ``shape`` from ``generator`` (a
+    ``torch.Generator``, a ``BatchRows`` or None)."""
+    if isinstance(generator, BatchRows):
+        full = torch.rand((generator.total,) + tuple(shape[1:]),
+                          generator=generator.generator, device=device)
+        return full[generator.start:generator.start + shape[0]]
+    return torch.rand(shape, generator=generator, device=device)
 
 
 class Conv2d(nn.Conv2d):

@@ -15,8 +15,9 @@ it in one native pass (``native.augment_sample``), the trainer's route: the
 card's machine has no cv2.  The python chain (``cv2.warpAffine``) is its
 plain twin.  Both draw from the ``np.random.RandomState`` they are given in
 the JAX package's order, so a seeded run's samples are the JAX package's
-byte for byte.  ``GlobalShardedLoader`` (multi-process batches) is ROADMAP
-A14.
+byte for byte.  Under data parallelism each rank iterates its own
+rank-strided ``PrefetchLoader`` and ``GlobalShardedLoader`` puts its
+share of each global batch on its device.
 """
 
 from __future__ import annotations
@@ -324,3 +325,30 @@ class PrefetchLoader:
             stop.set()
             for t in threads:
                 t.join(timeout=5)
+
+
+class GlobalShardedLoader:
+    """A rank's share of each global batch, on the rank's device: the
+    counterpart of the JAX package's loader of the same name, which
+    stitches the processes' local batches into one sharded array.  Here
+    each rank keeps its own rows (process p holds rows [p * local,
+    (p + 1) * local) of the global batch): ``loader`` is the rank's
+    ``PrefetchLoader(num_shards=world, shard_id=rank)``, and its batches
+    go up as the train step takes them (``train.upload_batch``: NCHW
+    float32, through pinned memory)."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = device
+
+    def __iter__(self):
+        from .train import upload_batch
+
+        batches = iter(self.loader)
+        try:
+            for batch in batches:
+                yield upload_batch(batch, self.device)
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()              # stops the PrefetchLoader's threads

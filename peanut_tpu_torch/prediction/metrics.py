@@ -2,10 +2,9 @@
 ``peanut_tpu.prediction.metrics``; mmseg's metrics.py:26-296).
 
 intersect_and_union, mean IoU / Dice / Fscore, the streaming ``pre_eval``
-protocol and the host half of multi-process result gathering.  Pure numpy:
-evaluation is host bookkeeping.  The gathering's process group is ROADMAP
-A14: ``gather_strided_results`` takes the world size and the all-gather as
-arguments.
+protocol and multi-process result gathering.  Numpy: evaluation is host
+bookkeeping; ``gather_strided_results`` exchanges the ranks' host arrays
+over the process group.
 """
 
 from __future__ import annotations
@@ -131,23 +130,36 @@ class EvalHook:
         return res
 
 
-def gather_strided_results(local: np.ndarray, n_total: int, world: int = 1,
-                           allgather: Optional[Callable] = None
-                           ) -> np.ndarray:
+def gather_strided_results(local: np.ndarray, n_total: int,
+                           world: Optional[int] = None,
+                           allgather: Optional[Callable] = None,
+                           group=None) -> np.ndarray:
     """Per-sample results of rank-strided shards (rank r evaluated
-    ``range(r, n_total, world)``) in dataset order (mmseg's
-    collect_results_cpu).  ``allgather(padded) -> (world, k_max, ...)``
-    exchanges the shards; one process (world 1) needs none.  A process
-    group to supply it is ROADMAP A14."""
+    ``range(r, n_total, world)``) in dataset order on every rank (mmseg's
+    collect_results_cpu), so reductions over them are bit-equal to one
+    process's.  ``allgather(padded) -> (world, k_max, ...)`` exchanges the
+    shards; without it they go over the process group ``group`` (the
+    default group when None; ``all_gather_object``, host memory whatever
+    the backend).  ``world``: the group's size unless given; one process
+    (world 1) needs no exchange."""
+    import torch.distributed as dist
+
     local = np.asarray(local)
+    if world is None:
+        world = dist.get_world_size(group) if dist.is_initialized() else 1
     if world == 1:
         if len(local) != n_total:
             raise ValueError(f"expected {n_total} samples, got {len(local)}")
         return local
     if allgather is None:
-        raise NotImplementedError("gathering across processes needs an "
-                                  "allgather; the process group is "
-                                  "ROADMAP A14")
+        if not dist.is_initialized():
+            raise RuntimeError(f"gathering {world} ranks' results needs a "
+                               f"process group or an allgather")
+
+        def allgather(padded):
+            out = [None] * world
+            dist.all_gather_object(out, padded, group=group)
+            return np.stack(out)
     k_max = -(-n_total // world)
     padded = np.zeros((k_max,) + local.shape[1:], local.dtype)
     padded[:len(local)] = local

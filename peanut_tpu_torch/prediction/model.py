@@ -63,3 +63,12 @@ class PredictionModel:
         episodes."""
         maps = upload(np.asarray(full_maps, np.float32), self.device)
         return self.infer(maps).cpu().numpy()
+
+    def get_prediction_sharded(self, full_map: np.ndarray, mesh,
+                               axis: str = "spatial") -> np.ndarray:
+        """Whole-map inference with the map's height sharded over a mesh
+        axis (the JAX package's GSPMD form, a halo exchange at every
+        convolution): ROADMAP A14 part 2."""
+        raise NotImplementedError(
+            "spatially sharded prediction (the map's height over a mesh "
+            "axis, halo exchanges in every layer) is ROADMAP A14 part 2")

@@ -7,7 +7,9 @@ the time an iteration and the ETA goes to the loggers and to
 ``work_dir/train_log.jsonl``; every ``checkpoint_interval`` iterations and
 at the end a checkpoint goes to ``work_dir/iter_N``; a new runner resumes
 from the latest one.  The losses stay on the device until a log record
-reads them (one synchronisation a window).
+reads them (one synchronisation a window).  In a process group only rank
+0 writes logs and checkpoints (mmcv's hooks are rank-0-only); every rank
+resumes from the latest checkpoint in ``work_dir``, so they must share it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..core.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                save_checkpoint)
+from ..core.mesh import rank
 from .train import TrainConfig, TrainState
 
 logger = logging.getLogger("peanut_tpu_torch")
@@ -63,6 +66,7 @@ class IterRunner:
         window: Dict[str, list] = {}
         t_start = t_window = time.time()
         it = self.state.step
+        primary = rank() == 0
         data_iter = iter(self.loader)
         try:
             while it < max_iters:
@@ -81,15 +85,17 @@ class IterRunner:
                            "eta_min": round((max_iters - it)
                                             / max(ips, 1e-9) / 60, 1),
                            **{k: round(v, 5) for k, v in means.items()}}
-                    for hook in self.loggers:
-                        hook.log(rec)
-                    self._append(rec)
+                    if primary:
+                        for hook in self.loggers:
+                            hook.log(rec)
+                        self._append(rec)
                 if self.eval_hook is not None:
                     res = self.eval_hook.maybe_run(it, self.state)
-                    if res:
+                    if res and primary:
                         logger.info("eval@%d: %s", it, res)
                         self._append({"iter": it, "eval": res})
-                if it % cfg.checkpoint_interval == 0 or it == max_iters:
+                if primary and (it % cfg.checkpoint_interval == 0
+                                or it == max_iters):
                     path = os.path.join(self.work_dir, f"iter_{it}")
                     save_checkpoint(path, self.state, step=it)
                     logger.info("checkpoint -> %s", path)

@@ -6,8 +6,16 @@ train_prediction_model.py:214-319): Adam 5e-4 with poly decay (power 0.9,
 down to 1e-5), per-pixel multi-label BCE on the decode head plus 0.4 x the
 FCN auxiliary head, batch 8, crop 960.  The step takes PEANUT's PSPNet
 or any model the zoo's config files build with one auxiliary head
-(``check_heads``).  One process on one card; data parallelism (DDP) is
-ROADMAP A14.
+(``check_heads``).
+
+Data parallelism (``distribute``): one process a card in a process group,
+each with its rows of the global batch, the model under
+``DistributedDataParallel``, which averages the gradients over the group,
+and its batch norms taking the global batch's statistics
+(``layers.sync_batch_stats``), so a step equals the one-process step at
+the global batch, as the JAX package's sharded step equals its plain one.
+Dropout draws the global batch's mask and keeps the rank's rows
+(``layers.BatchRows``); the logged losses are the global batch's means.
 
 The train state is the model, a ``torch.optim.Adam`` over all its
 parameters (the batch norms' weight and bias included, as in flax) and the
@@ -26,13 +34,15 @@ convolutions in TF32 (``torch.backends.cudnn.allow_tf32``), which
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import resolve_device, upload
+from ..models.layers import BatchRows, sync_batch_stats
 from ..models.losses import bce_with_logits
 
 ADAM_BETAS = (0.9, 0.999)     # optax.adam's defaults
@@ -68,6 +78,7 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Adam
     step: int = 0
+    ddp: Optional[nn.Module] = None    # ``model`` under DDP (``distribute``)
 
 
 def check_heads(model: nn.Module) -> None:
@@ -115,6 +126,24 @@ def create_train_state(model: nn.Module, cfg: TrainConfig,
     return TrainState(model, opt, 0)
 
 
+def distribute(state: TrainState, group=None) -> TrainState:
+    """Data parallelism over the process group ``group`` (None: the default
+    group), in place: ``state.ddp`` is the model under DDP, which first
+    broadcasts rank 0's parameters (not its buffers, at no step: every
+    rank's batch norms compute the same global statistics from the same
+    start, the seeded model or the checkpoint all ranks resumed from), and
+    the model's batch norms average over the group.  Call it after a
+    resume, before the first step."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    if group is None:
+        group = dist.group.WORLD
+    sync_batch_stats(state.model, group)
+    state.ddp = DistributedDataParallel(state.model, process_group=group,
+                                        broadcast_buffers=False)
+    return state
+
+
 def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     """The dropout stream of one step: a generator on ``device`` seeded from
     (seed, step)."""
@@ -134,27 +163,42 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
     """The forward in train mode with the auxiliary head, the loss at
     gt / 255 and its backward into the parameters' ``.grad``; the batch
     norms' running statistics move once.  Returns the step's losses (on
-    the device, not synchronised)."""
-    model = state.model
-    dev = next(model.parameters()).device
+    the device, not synchronised; under ``distribute`` the global batch's,
+    averaged over the group)."""
+    dev = next(state.model.parameters()).device
     gen = dropout_generator(cfg.seed, state.step, dev)
-    logits, aux = model(batch["img"], train=True, with_aux=True,
-                        generator=gen)
+    forward = state.model
+    if state.ddp is not None:
+        group, forward = state.ddp.process_group, state.ddp
+        b = batch["img"].shape[0]
+        gen = BatchRows(gen, dist.get_rank(group) * b,
+                        dist.get_world_size(group) * b)
+    logits, aux = forward(batch["img"], train=True, with_aux=True,
+                          generator=gen)
     target = batch["gt"] / 255.0
     loss_main = bce_with_logits(logits, target).mean()
     loss_aux = bce_with_logits(aux, target).mean()
     loss = loss_main + cfg.aux_weight * loss_aux
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    return {"loss": loss.detach(), "loss_bce": loss_main.detach(),
-            "aux.loss_bce": loss_aux.detach()}
+    losses = torch.stack([loss, loss_main, loss_aux]).detach()
+    if state.ddp is not None:
+        dist.all_reduce(losses, group=group)
+        losses = losses / dist.get_world_size(group)
+    return dict(zip(("loss", "loss_bce", "aux.loss_bce"), losses))
 
 
-def make_train_step(cfg: TrainConfig):
+def make_train_step(cfg: TrainConfig, spatial_axis: Optional[str] = None):
     """step(state, batch) -> losses: ``loss_and_grads``, then Adam at
     ``poly_schedule(cfg)(state.step)``, then the step count.  ``batch``:
     the loader's numpy batch {"img": (B, H, W, C), "gt": (B, H, W, 6) in
-    [0, 255]}, or tensors already on the device in NCHW."""
+    [0, 255]}, or tensors already on the device in NCHW.  Data
+    parallelism is ``distribute``'s; ``spatial_axis`` (the map's height
+    over a mesh axis) is ROADMAP A14 part 2."""
+    if spatial_axis is not None:
+        raise NotImplementedError(
+            f"spatial_axis={spatial_axis!r}: the train step with the map's "
+            f"height sharded is ROADMAP A14 part 2")
     sched = poly_schedule(cfg)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:

@@ -821,6 +821,55 @@ def test_serving_tick_with_prediction_on_the_card(cuda, profile):
     assert runs[0][2] > runs[1][2] > 0
 
 
+def test_sharded_runtime_on_the_card(cuda):
+    """The batched runtime sharded over two shards on the one card
+    (``make_mesh({"data": 2}, [cuda:0] * 2)``) acts as it does unsharded,
+    prediction on (the serving profile), and each shard's tick launches
+    B1 and B2 on the card."""
+    from peanut_tpu_torch.agent.batched_runtime import BatchedNavRuntime
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.envs import FakeNavEnv
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    cfg = NavConfig(
+        env_frame_width=64, env_frame_height=48, frame_width=64,
+        frame_height=48, map_size_cm=1200, vision_range=48,
+        prediction_window=160, use_gt_seg=1, update_goal_freq=3,
+        dd_downscale=2, dd_order=1, dd_block=8, dd_inner=24, plan_block=8,
+        plan_inner=24, pred_async=1)
+    tiny = dict(type="EncoderDecoder",
+                backbone=dict(type="ResNetV1c", base_channels=8,
+                              stem_channels=8, in_channels=14),
+                decode_head=dict(type="PSPHead", in_channels=256,
+                                 channels=16, num_classes=6))
+    pm = PredictionModel(cfg, model=build_segmentor(tiny, seed=0),
+                         device=cuda)
+    runs = []
+    for mesh in (None, make_mesh({"data": 2}, devices=[cuda] * 2)):
+        rt = BatchedNavRuntime(cfg, 4, prediction_model=pm,
+                               device=None if mesh else cuda, mesh=mesh)
+        envs = [FakeNavEnv(cfg, seed=s) for s in range(4)]
+        obs = [e.reset() for e in envs]
+        for i in range(4):
+            rt.reset_env(i)
+        f0, b0 = fused_eikonal.launches, block_sweep2.launches
+        acts = []
+        for _ in range(5):
+            out = rt.act_batch(obs)
+            rt.wait_pending_goal()
+            acts.append([a["action"] for a in out])
+            obs = [e.step(a) for e, a in zip(envs, out)]
+        runs.append((acts, fused_eikonal.launches - f0,
+                     block_sweep2.launches - b0))
+        assert all(st.local_maps.is_cuda for st in rt.shard_states)
+    (ua, uf, ub), (sa, sf, sb) = runs
+    assert ua == sa
+    # each shard solves on its own: more launches than one batch
+    assert sf > uf > 0 and sb > ub > 0
+
+
 def test_train_step_on_the_card_matches_the_cpu(cuda):
     """One train step of the tiny PSPNet (base width 8, batch 2, crop 64,
     dropout 0) from the same state on the card and the CPU, in float64:

@@ -26,6 +26,7 @@ from peanut_tpu_torch.models.pspnet import (build_segmentor,
 from peanut_tpu_torch.prediction import metrics
 
 from test_torch_training import write_maps
+from torch_dist_support import eval_cli, gather_rows, run_ranks
 
 torch.set_num_threads(1)
 
@@ -74,9 +75,10 @@ def test_eval_metrics_and_pre_eval_match_jax(which, nan_to_num):
 
 
 @pytest.mark.parametrize("world", [1, 2, 3])
-def test_gather_strided_results_matches_jax(world):
-    """Rank-strided shards back into dataset order; the all-gather is
-    injected (the process group is ROADMAP A14)."""
+def test_gather_strided_results_matches_jax(world, tmp_path):
+    """Rank-strided shards back into dataset order: with the all-gather
+    injected, as the JAX package's; then over a gloo process group of
+    ``world`` spawned ranks, each of which gets the whole array."""
     n = 7
     full = np.arange(n * 2, dtype=np.float64).reshape(n, 2)
     shards = [full[r::world] for r in range(world)]
@@ -96,7 +98,13 @@ def test_gather_strided_results_matches_jax(world):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, full)
     if world > 1:
-        with pytest.raises(NotImplementedError, match="A14"):
+        path = str(tmp_path / "full.npy")
+        np.save(path, full)
+        run_ranks(gather_rows, world, tmp_path, path, str(tmp_path / "got"))
+        for r in range(world):
+            np.testing.assert_array_equal(
+                np.load(str(tmp_path / f"got.{r}.npy")), full)
+        with pytest.raises(RuntimeError, match="process group"):
             metrics.gather_strided_results(shards[0], n, world=world)
     with pytest.raises(ValueError):
         metrics.gather_strided_results(full[:3], n)
@@ -164,12 +172,26 @@ def test_cli_report_matches_jax(val_data, monkeypatch, capsys):
     assert again == got
 
 
-def test_cli_refuses_what_is_not_ported(val_data):
+def test_cli_refuses_what_is_not_ported(val_data, tmp_path):
+    """A checkpoint that is not there; and ``--distributed 1``, which the
+    CLI refused until ROADMAP A14, over two gloo ranks: each rank gets the
+    report of one process, bit for bit (the per-sample statistics gathered
+    back into dataset order), so JAX's as tests/test_cli_report_matches_jax
+    holds it."""
     root, path = val_data
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttest.main(["--data_root", root, "--img_dir", "val",
-                    "--checkpoint", path, "--distributed", "1"],
-                   device="cpu")
+    argv = ["--data_root", root, "--img_dir", "val", "--checkpoint", path,
+            "--max_samples", "3", "--argmax"]
+    want = ttest.main(argv, device="cpu")
+    out = str(tmp_path / "report")
+    run_ranks(eval_cli, 2, tmp_path, argv + ["--distributed", "1"], out)
+    for r in (0, 1):
+        with open(f"{out}.{r}.json") as f:
+            assert json.load(f) == want
+    jwant = jtest.main(argv)
+    assert want["samples"] == jwant["samples"] == 3
+    assert want["bce"] == pytest.approx(jwant["bce"], abs=1e-5)
+    for k in ("iou_at_thr", "miou_at_thr", "argmax_mIoU"):
+        assert want[k] == jwant[k], k
     with pytest.raises(FileNotFoundError, match="pred_model_wts"):
         ttest.main(["--data_root", root, "--img_dir", "val",
                     "--checkpoint", os.path.join(root, "none.pth")],

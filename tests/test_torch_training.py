@@ -501,11 +501,32 @@ def test_runner_checkpoints_and_resumes(maps_dir, tmp_path):
     assert all(np.isfinite(r["loss"]) and "aux.loss_bce" in r for r in log)
 
 
-def test_cli_refuses_what_is_not_ported(maps_dir):
+def test_cli_refuses_what_is_not_ported(maps_dir, tmp_path):
+    """``--distributed 1``, which the CLI refused until ROADMAP A14, trains
+    in a process group joined before (one gloo rank here; two in
+    tests/test_torch_ddp_cli.py), keeps that group, and refuses a global
+    batch the world does not divide; a zoo config without an auxiliary
+    head, which the step cannot train, is refused."""
+    import torch.distributed as dist
+    from peanut_tpu_torch.core.mesh import init_distributed
+
     base = ["--data_root", maps_dir, "--img_dir", "train"]
-    with pytest.raises(NotImplementedError, match="A14"):
-        train_prediction_model.main(base + ["--distributed", "1"],
-                                    device="cpu")
+    init_distributed("gloo", device="cpu", rank=0, world_size=1,
+                     init_method=f"file://{tmp_path / 'pg'}")
+    try:
+        from peanut_tpu_torch.core.config_file import dump_config
+        tiny = str(tmp_path / "tiny.py")
+        dump_config({"model": tiny_cfg()}, tiny)
+        state = train_prediction_model.main(
+            base + ["--distributed", "1", "--config", tiny, "--work_dir",
+                    str(tmp_path / "w"), "--max_iters", "2",
+                    "--batch_size", "2", "--crop_size", "32",
+                    "--num_workers", "1"], device="cpu")
+        assert state.step == 2 and state.ddp is not None
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert os.listdir(tmp_path / "w") == ["iter_2"]
+    finally:
+        dist.destroy_process_group()
     # a zoo config the step cannot train: no auxiliary head
     from peanut_tpu_torch.core.config_file import dump_config
     from torch_zoo_support import family_config
