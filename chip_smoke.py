@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--ticks N]
                           [--only b3|b1|wide|paths|train|zoo|zoo_train|
-                                  zoo_tools|multichip]
+                                  zoo_tools|multichip|spatial]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
@@ -10,7 +10,7 @@ phase 3's lines over 1024 cells (run from a copy of another tree, it times
 that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
 and B4 lines at the paths' shapes (to time another tree's beside these),
 "train" phase 11, "zoo" phase 12, "zoo_train" phase 13, "zoo_tools" phase
-14, "multichip" phase 15.
+14, "multichip" phase 15, "spatial" phase 16 (without serve_16's map).
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -216,8 +216,8 @@ Phases (each prints one JSON line):
                8, crop 960, 14 channels, remat=1, TF32 off) over two
                ranks of 4 on the card under gloo (NCCL refuses two ranks
                on one card), spawned from here, for 1 iteration, then
-               resumed to 4 and to 6: rank 0's log (one record an
-               iteration) and checkpoints (iter_1, 2, 4, 6), each step's
+               resumed to 4: rank 0's log (one record an iteration) and
+               checkpoints (iter_1, 2, 4), each step's
                ms, each rank's peak memory; step 1 against one process at
                the global batch on the ranks' first batches from the same
                seed (the loss within 1e-4 relative; the parameters within
@@ -225,8 +225,34 @@ Phases (each prints one JSON line):
                1e-6 in at most 2 % of the elements), and with one card a
                one-rank NCCL step of the tiny PSPNet in float64 against
                the plain step (1e-10); ddp_eval, cli.test --distributed 1
-               over two ranks on iter_6: each rank's report equal to one
+               over two ranks on iter_4: each rank's report equal to one
                process's.
+ 16. spatial — the mesh's spatial axis, PSPNet's map height over shards
+               that one process drives (run last): spatial_pred,
+               PredictionModel.get_prediction_sharded of PEANUT's
+               PSPNet-R50-v1c (peanut_prediction_config, 14 in, 6 out,
+               random weights from --seed) over make_mesh({"spatial": k},
+               [cuda:0] * k) against get_prediction, in float32 and
+               bfloat16: a 960^2 x 14 map (the challenge's full map) at
+               k = 2 and 4, the 720^2 crop at k = 4 (90 stride-8 rows:
+               uneven shards), serve_16's first full map at k = 2; each
+               forward's ms (CUDA events), the host's enqueue and the peak
+               memory, sharded and unsharded; spatial_train, three steps
+               of make_train_step(spatial_axis="spatial") at batch 8, crop
+               960, remat=1, float32 (TF32 off) over [cuda:0] * 2 against
+               three unsharded steps from the same state: losses, step ms,
+               peak memory, the parameters after them; spatial_float64,
+               the dry run's narrow PSPNet at 128^2 in float64, one train
+               step (losses, gradients, statistics) and the eval forward
+               sharded over 2, 4 and 8 shards against the unsharded ones
+               on the card and on the CPU, with dropout and remat too
+               (1e-10 of the largest |value|); spatial_dryrun,
+               multichip.dryrun_multichip(4, spatial=True): the train step
+               over {"data": 2, "spatial": 2} (two gloo ranks of two
+               shards), the sharded evaluation, the nav ticks and the
+               whole-map prediction over {"spatial": 2}.  The spatial path
+               launches no kernel of csrc/ (PSPNet has none); every gap is
+               a gate with its bound printed beside it.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -943,7 +969,8 @@ def kernel_counts(reset: bool = False) -> dict:
 
 def serving_phases(args, dev, maskrcnn):
     """Phases serve_16, exact_16 and pred_parity; returns the launches of
-    each profile's measured ticks."""
+    each profile's measured ticks, and serve_16's first full map (its 14
+    channels, for the spatial phase)."""
     from peanut_tpu_torch.config import NavConfig
     from peanut_tpu_torch.envs import FakeNavEnv
     from peanut_tpu_torch.envs.batch_runner import BatchRunner
@@ -1002,6 +1029,8 @@ def serving_phases(args, dev, maskrcnn):
         emit(reading)
         finite = bool(torch.isfinite(st.local_maps).all()
                       and torch.isfinite(st.target_pred).all())
+        if name == "serve_16":
+            serve_map = st.full_maps[0, :14].float().cpu().numpy()
         runner.close()
         need = ("fused_eikonal", "block_sweep2", "roi_window_pool",
                 "nms_keep")
@@ -1069,7 +1098,7 @@ def serving_phases(args, dev, maskrcnn):
                  f"differs from the plain versions': {p}")
         if p["envs_with_goal_field"] <= 0:
             fail(f"pred_parity {name}: no prediction ran")
-    return launches
+    return launches, serve_map
 
 
 # ---------------------------------------------------------------------------
@@ -2766,7 +2795,9 @@ MESH_GT_TICKS = 10
 MESH_KERNELS = ("fused_eikonal", "block_sweep2", "roi_window_pool",
                 "nms_keep")
 DDP_WORLD = 2
-DDP_RUNS = (1, 4, 6)     # --max_iters of the three runs (each resumes)
+# --max_iters of the two runs (the second resumes); a third run would
+# cost ~30 s of the script's time limit, which the spatial phase uses
+DDP_RUNS = (1, 4)
 DDP_LOSS_TOL = 1e-4      # step 1's losses, 2 ranks x 4 against 1 x 8
 # Adam's first step moves every parameter by +-lr (m / sqrt(v) = sign(g)):
 # the two runs' parameters after it differ by up to 2 lr where a gradient
@@ -3173,12 +3204,11 @@ def ddp_phases(args, dev, smi_line: str) -> dict:
         emit(reading)
         s1 = reading["step1"]
         if (reading["log_iters"] != list(range(1, DDP_RUNS[-1] + 1))
-                or reading["checkpoints"] != ["iter_1", "iter_2", "iter_4",
-                                              "iter_6"]
+                or reading["checkpoints"] != ["iter_1", "iter_2", "iter_4"]
                 or any(r["steps"] != [r["max_iters"]] * DDP_WORLD
                        for r in runs)
                 or not all(np.isfinite(reading["log_loss"]))):
-            fail("ddp_train: the runs did not resume 1 -> 4 -> 6 with one "
+            fail("ddp_train: the runs did not resume 1 -> 4 with one "
                  "log record an iteration and rank 0's checkpoints")
         # the log rounds losses to 5 decimals: the bar sees that too
         if (s1["loss_rel_err"] > DDP_LOSS_TOL
@@ -3192,9 +3222,9 @@ def ddp_phases(args, dev, smi_line: str) -> dict:
             fail(f"ddp_train: the NCCL world-1 step differs from the "
                  f"plain one: {w1}")
 
-        # ddp_eval: cli.test over the ranks on iter_6, against one process
+        # ddp_eval: cli.test over the ranks on iter_4, against one process
         ev = ["--data_root", tmp, "--img_dir", "train_80", "--checkpoint",
-              os.path.join(work, "iter_6"), "--max_samples", "4",
+              os.path.join(work, "iter_4"), "--max_samples", "4",
               "--argmax"]
         t0 = time.perf_counter()
         recs = run_ddp("test", ev, tmp)
@@ -3241,6 +3271,293 @@ def multichip_phase(args, dev, smi_line: str, maskrcnn=None) -> dict:
     return serve
 
 
+# ---------------------------------------------------------------------------
+# The mesh's spatial axis (phase 16): PSPNet's map height over shards
+
+SPATIAL_SHARDS = (2, 4)
+SPATIAL_MAP = 960         # the challenge's full map: map_size_cm 4800 at 5 cm
+SPATIAL_CROP = 720        # the prediction crop: 90 stride-8 rows, uneven
+#                           over 4 shards (23, 23, 22, 22)
+SPATIAL_STEPS = 3
+SPATIAL_F64_SHARDS = (2, 4, 8)
+SPATIAL_F64_SIZE = 128    # 16 stride-8 rows: 2 a shard at k = 8
+# |sharded - unsharded| gates: float64 within 1e-10 of the largest |value|;
+# float32 and bfloat16 bounds set from the gaps measured on the H100
+# (PERF.md §6): the probabilities (float32 bit-equal, bfloat16 5e-4 at
+# k = 2 and 1.7e-3 at k = 4); the train steps' losses (relative; 3.5e-7,
+# ~3e-4, 7e-4 to 4e-3: Adam's first update keeps only each gradient's
+# sign, so the elements where rounding flips it move 2 lr apart, and the
+# runs drift from the second step on); step 1's gradients before Adam,
+# of the largest |gradient| (2.8e-2, in the stem's first convolution:
+# float32 gradients of this net are rounding-bound,
+# tests/test_torch_training.py)
+SPATIAL_F64_BOUND = 1e-10
+SPATIAL_PRED_BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
+SPATIAL_LOSS_BOUND = (1e-5, 5e-3, 2e-2)
+SPATIAL_GRAD_BOUND = 0.1
+
+
+def spatial_prediction(args, dev, serve_map=None) -> dict:
+    """spatial_pred: PredictionModel.get_prediction_sharded of PEANUT's
+    PSPNet-R50-v1c (random weights from --seed) over
+    make_mesh({"spatial": k}, [cuda:0] * k) against get_prediction, in
+    float32 and bfloat16: the 960^2 full map at k = 2 and 4, the 720^2
+    crop at k = 4, serve_16's first full map at k = 2; each forward's ms
+    (CUDA events, sharded and unsharded), the host's enqueue of it, and
+    the peak memory above the weights (all shards, then per shard)."""
+    import copy
+
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    from peanut_tpu_torch.models.sharded import forward_rows
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    rng = np.random.RandomState(args.seed + 15)
+    cases = [("map_960", rng.rand(14, SPATIAL_MAP, SPATIAL_MAP).astype(
+        np.float32), SPATIAL_SHARDS),
+             ("crop_720", rng.rand(14, SPATIAL_CROP, SPATIAL_CROP).astype(
+                 np.float32), (4,))]
+    if serve_map is not None:
+        cases.append(("serve_16_full_map", serve_map, (2,)))
+    model = build_segmentor(peanut_prediction_config(), seed=args.seed)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pm = PredictionModel(NavConfig(serve_bf16=dtype == "bfloat16"),
+                             model=copy.deepcopy(model), device=dev)
+        for name, full_map, shards in cases:
+            want = pm.get_prediction(full_map)
+            x = torch.as_tensor(full_map[None], device=dev).to(pm.dtype)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+
+            def reading(fn, k):
+                torch.cuda.reset_peak_memory_stats()
+                with torch.no_grad():
+                    fn()
+                    torch.cuda.synchronize()
+                    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                    t0 = time.perf_counter()
+                    fn()
+                    host = (time.perf_counter() - t0) * 1e3
+                    ms = cuda_ms(fn, reps=3)
+                return {"ms": ms, "host_enqueue_ms": host,
+                        "peak_mib_all_shards": peak,
+                        "peak_mib_a_shard_est": peak / k}
+
+            res = {"shape": list(full_map.shape),
+                   "unsharded": reading(lambda: pm.model(x), 1)}
+            for k in shards:
+                mesh = make_mesh({"spatial": k}, [dev] * k)
+                got = pm.get_prediction_sharded(full_map, mesh)
+                rows = spatial.shard(x, [dev] * k)
+                gap = float(np.abs(got - want).max())
+                res[f"sharded_{k}"] = {
+                    "max_abs_diff": gap, "bound": SPATIAL_PRED_BOUND[dtype],
+                    "finite": bool(np.isfinite(got).all()),
+                    "shape_ok": got.shape == want.shape,
+                    "row_blocks": [b.shape[2] for b in rows.blocks],
+                    **reading(lambda: forward_rows(pm.model, rows,
+                                                   train=False), k)}
+            out[f"{name}_{dtype}"] = res
+        del pm
+        torch.cuda.empty_cache()
+    emit({"phase": "spatial_pred", "model": "PSPNet-R50-v1c "
+          "(peanut_prediction_config, 14 in, 6 out), seed "
+          f"{args.seed}", "cases": out})
+    for name, res in out.items():
+        for key, r in res.items():
+            if key.startswith("sharded") and not (
+                    r["finite"] and r["shape_ok"]
+                    and r["max_abs_diff"] <= r["bound"]):
+                fail(f"spatial_pred {name} {key}: {r}")
+    return out
+
+
+def spatial_training(args, dev) -> dict:
+    """spatial_train: three steps of make_train_step(spatial_axis=
+    "spatial") at the trainer cell's shape (batch 8, crop 960, remat=1,
+    float32, TF32 off) over [cuda:0] * 2 against three unsharded steps
+    from the same state and batches: each step's loss (gap relative), its
+    ms (CUDA events, Adam included), peak memory above the weights and
+    Adam's state, step 1's gradients (before Adam moves the two runs
+    apart) and the parameters after the third step."""
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.pspnet import (build_segmentor,
+                                                peanut_prediction_config)
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   make_train_step,
+                                                   poly_schedule)
+    tcfg = TrainConfig(seed=args.seed)
+    sd = build_segmentor(peanut_prediction_config(remat=True),
+                         seed=args.seed).state_dict()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    batches = [{"img": torch.rand(8, 14, 960, 960, generator=gen,
+                                  device=dev),
+                "gt": (torch.rand(8, 6, 960, 960, generator=gen, device=dev)
+                       > 0.9).float() * 255.0} for _ in range(SPATIAL_STEPS)]
+    runs = {}
+    for name, step in (
+            ("unsharded", make_train_step(tcfg)),
+            ("sharded_2", make_train_step(
+                tcfg, spatial_axis="spatial",
+                mesh=make_mesh({"spatial": 2}, [dev] * 2)))):
+        model = build_segmentor(peanut_prediction_config(remat=True))
+        model.load_state_dict(sd)
+        state = create_train_state(model, tcfg, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, grads = [], [], None
+        for b in batches:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            m = step(state, b)
+            e1.record()
+            torch.cuda.synchronize()
+            losses.append(float(m["loss"]))
+            ms.append(e0.elapsed_time(e1))
+            if grads is None:
+                grads = torch.cat([p.grad.reshape(-1) for p in
+                                   state.model.parameters()])
+        runs[name] = {"losses": losses, "step_ms": ms, "grads": grads,
+                      "peak_mib": (torch.cuda.max_memory_allocated()
+                                   - base) / 2 ** 20,
+                      "params": torch.cat([p.detach().reshape(-1) for p in
+                                           state.model.parameters()])}
+        del state, model
+        torch.cuda.empty_cache()
+    a, b = runs["unsharded"], runs["sharded_2"]
+    diff = (a.pop("params") - b.pop("params")).abs()
+    ga, gb = a.pop("grads"), b.pop("grads")
+    grad_err = float((ga - gb).abs().max() / ga.abs().max())
+    del ga, gb
+    gaps = [abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"])]
+    b["peak_mib_a_shard_est"] = b["peak_mib"] / 2
+    reading = {"phase": "spatial_train", "batch": 8, "crop": 960,
+               "remat": 1, "dtype": "float32, TF32 off",
+               "steps": SPATIAL_STEPS, "unsharded": a, "sharded_2": b,
+               "loss_rel_gaps": gaps, "loss_bounds": SPATIAL_LOSS_BOUND,
+               "step1_grad_err_of_largest": grad_err,
+               "step1_grad_bound": SPATIAL_GRAD_BOUND,
+               "param_max_abs_diff": float(diff.max()),
+               "param_share_apart_1e-6": float((diff > 1e-6).float().mean()),
+               "lr_by_step": [poly_schedule(tcfg)(i)
+                              for i in range(SPATIAL_STEPS)]}
+    emit(reading)
+    if not (all(np.isfinite(a["losses"] + b["losses"]))
+            and all(g <= bd for g, bd in zip(gaps, SPATIAL_LOSS_BOUND))
+            and grad_err <= SPATIAL_GRAD_BOUND):
+        fail(f"spatial_train: {reading}")
+    return reading
+
+
+def spatial_float64(args, dev) -> dict:
+    """spatial_float64: the dry run's narrow PSPNet (base 16) at
+    SPATIAL_F64_SIZE^2, batch 2, in float64: the eval forward and one
+    train step's losses, gradients and batch statistics, sharded over
+    [cuda:0] * k for k in SPATIAL_F64_SHARDS against the unsharded step on
+    the card and on the CPU (dropout 0: the card's and the CPU's random
+    streams differ), and with dropout 0.1 and remat against the card's
+    unsharded step from the same generator; each within
+    SPATIAL_F64_BOUND of the largest |value|."""
+    import copy
+
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.models.sharded import forward_rows
+    from peanut_tpu_torch.multichip import DRYRUN_MODEL
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads)
+    rng = np.random.RandomState(args.seed + 17)
+    s = SPATIAL_F64_SIZE
+    img = rng.rand(2, 14, s, s)
+    gt = (rng.rand(2, 6, s, s) > 0.9) * 255.0
+    tcfg = TrainConfig(lr=1e-3, max_iters=50, seed=args.seed)
+
+    def cfg(dropout):
+        c = copy.deepcopy(DRYRUN_MODEL)
+        c["backbone"]["remat"] = True
+        for head in ("decode_head", "auxiliary_head"):
+            c[head]["dropout_ratio"] = dropout
+        return c
+
+    def run(where, devices, dropout):
+        state = create_train_state(build_segmentor(cfg(dropout), seed=0)
+                                   .double(), tcfg, device=where)
+        state.step = 3
+        batch = {"img": torch.as_tensor(img, device=where),
+                 "gt": torch.as_tensor(gt, device=where)}
+        losses = loss_and_grads(state, batch, tcfg, devices)
+        with torch.no_grad():
+            x = batch["img"][:1]
+            logits = (state.model(x, train=False) if devices is None else
+                      spatial.gather(forward_rows(
+                          state.model, spatial.shard(x, devices),
+                          train=False)))
+        return {"loss": float(losses["loss"]),
+                "grads": {n: p.grad.double().cpu() for n, p in
+                          state.model.named_parameters()},
+                "stats": {n: v.double().cpu() for n, v in
+                          state.model.state_dict().items() if "running" in n},
+                "logits": logits.double().cpu()}
+
+    def err(got, want):
+        out = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+               "logits_of_largest": float((got["logits"] - want["logits"])
+                                          .abs().max()
+                                          / want["logits"].abs().max())}
+        for key in ("grads", "stats"):
+            top = max(float(v.abs().max()) for v in want[key].values())
+            out[f"{key}_of_largest"] = max(
+                float((got[key][n] - v).abs().max())
+                for n, v in want[key].items()) / top
+        return out
+
+    cpu = run("cpu", None, 0.0)
+    card = run(dev, None, 0.0)
+    card_drop = run(dev, None, 0.1)
+    res = {"card_vs_cpu_unsharded": err(card, cpu)}
+    for k in SPATIAL_F64_SHARDS:
+        devices = [dev] * k
+        got = run(dev, devices, 0.0)
+        res[f"sharded_{k}_vs_cpu"] = err(got, cpu)
+        res[f"sharded_{k}_vs_card"] = err(got, card)
+        res[f"sharded_{k}_dropout_vs_card"] = err(run(dev, devices, 0.1),
+                                                  card_drop)
+    emit({"phase": "spatial_float64", "model": "multichip.DRYRUN_MODEL "
+          "(base 16), remat", "size": s, "batch": 2,
+          "bound_of_largest": SPATIAL_F64_BOUND, "errors": res})
+    worst = max(v for r in res.values() for v in r.values())
+    if not worst <= SPATIAL_F64_BOUND:
+        fail(f"spatial_float64: an error above {SPATIAL_F64_BOUND}: {res}")
+    return res
+
+
+def spatial_phase(args, dev, smi_line: str, serve_map=None) -> dict:
+    """Phase 16: spatial_pred, spatial_train, spatial_float64, then
+    dryrun_multichip(4, spatial=True) (spatial_dryrun).  No kernel of
+    csrc/ on the spatial path (PSPNet has none); the dry run's nav tick
+    launches the eikonal kernels."""
+    from peanut_tpu_torch.multichip import dryrun_multichip
+    t0 = time.perf_counter()
+    spatial_prediction(args, dev, serve_map)
+    spatial_training(args, dev)
+    spatial_float64(args, dev)
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(4, spatial=True)     # raises on a failed check
+    emit({"phase": "spatial_dryrun", "seconds": time.perf_counter() - t1,
+          **dry})
+    emit({"phase": "spatial_done", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi_line})
+    return dry
+
+
 def only_phase(args, dev) -> int:
     """``--only``: one phase alone, to compare trees (the parent's, a
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
@@ -3255,6 +3572,7 @@ def only_phase(args, dev) -> int:
                  "paths": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
                  "train": (), "zoo": (), "zoo_train": (),
                  "zoo_tools": (),
+                 "spatial": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
                  "multichip": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
                                "fmm_long", "roi_window",
                                "nms_greedy")}[args.only]:
@@ -3271,6 +3589,8 @@ def only_phase(args, dev) -> int:
         zoo_tools_phase(args, dev, nvidia_smi_line())
     elif args.only == "multichip":
         multichip_phase(args, dev, nvidia_smi_line())
+    elif args.only == "spatial":
+        spatial_phase(args, dev, nvidia_smi_line())
     elif args.only == "b3":
         mask_rcnn_phases(args, dev)
     elif args.only == "b1":
@@ -3286,7 +3606,7 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
                                        "train", "zoo", "zoo_train",
-                                       "zoo_tools", "multichip"),
+                                       "zoo_tools", "multichip", "spatial"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -3517,7 +3837,7 @@ def main() -> int:
     b3, nms, seg_launches, maskrcnn = mask_rcnn_phases(args, dev)
 
     # ---- 7b. the 16-env serving tick with prediction ---------------------
-    serve_launches = serving_phases(args, dev, maskrcnn)
+    serve_launches, serve_map = serving_phases(args, dev, maskrcnn)
     # ---- 15. multichip: the sharded tick, DDP training and evaluation ----
     mesh = multichip_phase(args, dev, smi_line, maskrcnn)
     del maskrcnn
@@ -3539,6 +3859,9 @@ def main() -> int:
 
     # ---- 14. the zoo's tools and converters (no kernel of csrc/) ---------
     zoo_tools_phase(args, dev, smi_line)
+
+    # ---- 16. the mesh's spatial axis (no kernel of csrc/ on its path) ----
+    spatial_phase(args, dev, smi_line, serve_map)
 
     kernels = []
     for name_, src_file, replaces, keys, count_key in (

@@ -1,20 +1,26 @@
-"""Device mesh, the data axis's helpers and the process group (port of
+"""Device mesh, the helpers of its axes and the process group (port of
 ``peanut_tpu.core.mesh``).
 
 The JAX package names its devices in a ``jax.sharding.Mesh`` and lets XLA
 place the shards.  Here a ``Mesh`` is a numpy array of ``torch.device``
-with axis names, and code that shards over an axis splits a tensor's
-leading (batch or episode) axis into one chunk a device itself
-(``split_rows``), runs each chunk on its device and puts the pieces back
-together (``concat_rows``).  ``replicate`` copies a module or a tensor once
-to each distinct device of a mesh.
+with axis names, and code that shards over an axis does it itself:
 
-Training and evaluation run one process a device instead, joined in a
-``torch.distributed`` process group (``init_distributed``); ``rank()`` and
-``world()`` are the counterparts of ``jax.process_index`` and
-``jax.process_count``.  Only the ``data`` axis is ported: a mesh that
-splits another axis over more than one device (the JAX package's
-``spatial``) is ROADMAP A14 part 2.
+* the ``data`` axis splits a tensor's leading (batch or episode) axis into
+  one chunk a device (``split_rows``), runs each chunk on its device and
+  puts the pieces back together (``concat_rows``); ``replicate`` copies a
+  module or a tensor once to each distinct device of a mesh;
+* the ``spatial`` axis splits a map's height into row blocks
+  (``row_ranges``, uneven where the rows do not divide), one a device,
+  which ``core.spatial`` holds and exchanges halos between.
+
+``axis_devices`` reads one axis of a mesh at a fixed index of the others
+(index 0 by default): the JAX runtime, given a mesh with a second axis,
+replicates over it and computes the same result.
+
+Training and evaluation run one process a data index instead, joined in
+a ``torch.distributed`` process group (``init_distributed``); ``rank()``
+and ``world()`` are the counterparts of ``jax.process_index`` and
+``jax.process_count``.  Each such process drives its own spatial shards.
 """
 
 from __future__ import annotations
@@ -96,19 +102,33 @@ def make_mesh(axes: Optional[dict] = None, devices=None) -> Mesh:
     return Mesh(arr.reshape(sizes), names)
 
 
-def axis_devices(mesh: Mesh, axis: str = "data") -> List[torch.device]:
-    """The devices along ``axis``, one a shard.  NotImplementedError when
-    another axis holds more than one device (the spatial axis, ROADMAP A14
-    part 2)."""
+def axis_devices(mesh: Mesh, axis: str = "data",
+                 at: Optional[Dict[str, int]] = None) -> List[torch.device]:
+    """The devices along ``axis``, one a shard, at index ``at[name]`` (0
+    unless given) of every other axis: on a {"data": a, "spatial": b}
+    mesh, ``axis_devices(mesh, "data")`` is each data index's device at
+    spatial index 0, and ``axis_devices(mesh, "spatial", {"data": r})``
+    the spatial shards of data index r."""
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh {mesh.shape} has no axis {axis!r}")
-    others = {k: v for k, v in mesh.shape.items() if k != axis and v > 1}
-    if others:
-        raise NotImplementedError(
-            f"sharding over {axis!r} with other axes {others}: the "
-            f"spatial axis is ROADMAP A14 part 2")
-    return list(np.moveaxis(mesh.devices,
-                            mesh.axis_names.index(axis), 0).reshape(-1))
+    at = dict(at or {})
+    unknown = set(at) - set(mesh.axis_names) - {axis}
+    if unknown:
+        raise ValueError(f"mesh {mesh.shape} has no axis {sorted(unknown)}")
+    index = tuple(slice(None) if name == axis else at.get(name, 0)
+                  for name in mesh.axis_names)
+    return list(mesh.devices[index])
+
+
+def row_ranges(h: int, shards: int) -> List[tuple]:
+    """[start, end) of each of ``shards`` row blocks of ``h`` rows: as even
+    as they come, the first ``h % shards`` one row longer (90 rows over 4
+    shards: 23, 23, 22, 22); a block is empty where ``h < shards``."""
+    if shards < 1:
+        raise ValueError(f"{shards} shards")
+    q, r = divmod(h, shards)
+    ends = np.cumsum([q + (i < r) for i in range(shards)])
+    return [(int(e - q - (i < r)), int(e)) for i, e in enumerate(ends)]
 
 
 def shard_slices(n: int, shards: int) -> List[slice]:

@@ -20,6 +20,11 @@ from ..config import NavConfig
 
 class FakeNavEnv:
     FORWARD_M = 0.25
+    # candidate positions ``reset`` draws before it gives up: 12x the most
+    # a reset that succeeds took over seeds 0-299 (843, in a 6.5 m square,
+    # whose goal region is four thin corners), and ~0.2 s of one that
+    # cannot (no free cell ``goal_min_dist`` from the start)
+    MAX_DRAWS = 10_000
 
     def __init__(self, cfg: NavConfig, size_m: float = 12.0, seed: int = 0,
                  max_steps: Optional[int] = None,
@@ -31,6 +36,7 @@ class FakeNavEnv:
                  emit_gt_seg: bool = True):
         self.cfg = cfg
         self.size = size_m
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.res = 0.05  # occupancy resolution (m/cell)
         self.n = int(size_m / self.res)
@@ -96,7 +102,16 @@ class FakeNavEnv:
 
         goal_cat = hm3d_to_coco[self.goal_id]
         n_objects = 8
+        draws = 0
         while len(self.objects) < n_objects:
+            if draws == self.MAX_DRAWS:
+                raise RuntimeError(
+                    f"FakeNavEnv.reset: {len(self.objects)} of {n_objects} "
+                    f"objects placed after {draws} candidate draws (size "
+                    f"{self.size} m, seed {self.seed}, goal_min_dist "
+                    f"{self.goal_min_dist} m): no free cell may lie "
+                    f"goal_min_dist from the start")
+            draws += 1
             gx, gy = self.rng.rand(2) * (self.size - 2) + 1
             if self._occupied(gx, gy):
                 continue

@@ -103,12 +103,18 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return self._train(x)
+        mean, mul, bias = self.eval_terms()
+        return (x - mean) * mul + bias
+
+    def eval_terms(self):
+        """Eval mode's (mean, rsqrt(var + eps) * weight, bias) as (C, 1,
+        1): differentiable while a trainer asks for the weight's gradient,
+        else ``_terms``'s cached ones."""
         if torch.is_grad_enabled() and self.weight.requires_grad:
             mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-            return ((x - self.running_mean[:, None, None])
-                    * mul[:, None, None] + self.bias[:, None, None])
-        mean, mul, bias = self._terms()
-        return (x - mean) * mul + bias
+            return (self.running_mean[:, None, None], mul[:, None, None],
+                    self.bias[:, None, None])
+        return self._terms()
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -117,22 +123,51 @@ class BatchNorm(nn.Module):
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                               min=0.0)
         else:
-            c = xf.shape[1]
-            sums = _AllReduceSum.apply(torch.cat([
-                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                xf.new_full((1,), xf.numel() // c)]), self.group)
-            mean = sums[:c] / sums[2 * c]
-            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
-                              min=0.0)
+            mean, var = self.moments(self.partial_sums(xf))
+        return self.normalise(xf, mean, self.batch_mul(mean, var)).to(
+            x.dtype)
+
+    @staticmethod
+    def partial_sums(xf: torch.Tensor) -> torch.Tensor:
+        """(sum of x, sum of x^2, count) of one part of the batch, over
+        (N, H, W): 2C + 1 values."""
+        c = xf.shape[1]
+        return torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                          xf.new_full((1,), xf.numel() // c)])
+
+    def moments(self, sums: torch.Tensor):
+        """The mean and the biased variance (clipped at 0) from the
+        ``partial_sums`` of the whole batch, summed over ``group`` first
+        where there is one."""
+        if self.group is not None:
+            sums = _AllReduceSum.apply(sums, self.group)
+        c = (sums.shape[0] - 1) // 2
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                          min=0.0)
+        return mean, var
+
+    def batch_mul(self, mean: torch.Tensor, var: torch.Tensor
+                  ) -> torch.Tensor:
+        """rsqrt(var + eps) * weight of the batch's statistics; the running
+        statistics move towards them, once a step (not while ``remat``
+        recomputes)."""
         if not getattr(_remat, "active", False):
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1 - BN_MOMENTUM) * mean)
                 self.running_var.copy_(BN_MOMENTUM * self.running_var
                                        + (1 - BN_MOMENTUM) * var)
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return torch.rsqrt(var + BN_EPS) * self.weight
+
+    def normalise(self, xf: torch.Tensor, mean: torch.Tensor,
+                  mul: torch.Tensor, bias: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+        """(x - mean) * mul + bias over the channels of NCHW ``x``;
+        ``bias`` defaults to the module's."""
+        bias = self.bias if bias is None else bias
         return ((xf - mean[:, None, None]) * mul[:, None, None]
-                + self.bias[:, None, None]).to(x.dtype)
+                + bias[:, None, None])
 
     def _terms(self):
         """(mean, rsqrt(var + eps) * weight, bias) as (C, 1, 1), kept until

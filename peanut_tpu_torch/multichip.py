@@ -1,31 +1,37 @@
-"""Multi-device dry run of the port over the mesh's data axis: the
-counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``.
+"""Multi-device dry run of the port over the mesh's axes: the counterpart
+of the JAX package's ``__graft_entry__.dryrun_multichip``.
 
     from peanut_tpu_torch.multichip import dryrun_multichip
     dryrun_multichip(2, device="cpu")      # or on the cards: device=None
+    dryrun_multichip(4, device="cpu", spatial=True)
 
 One process drives it all, on ``n_devices`` devices (the cards, each
 repeated as often as needed when there are fewer; the CPU ``n_devices``
 times with ``device="cpu"``):
 
-1. a data-parallel train step of a narrow PSPNet (base width 16, the full
-   training step's structure) over ``n_devices`` spawned ranks in a process
-   group (NCCL when each rank has a card of its own, else gloo; printed),
-   each with its rows of a global batch of max(n, 2) at 64^2: finite
-   losses, and every rank's parameters equal after the step;
-2. in the same ranks, evaluation sharded rank-strided over 2n val maps,
-   the per-sample statistics gathered over the group
+1. a train step of a narrow PSPNet (base width 16, the full training
+   step's structure) over spawned ranks in a process group (NCCL when each
+   rank has a card of its own, else gloo; printed), each with its rows of
+   a global batch of max(ranks, 2) at 64^2: finite losses, and every
+   rank's parameters equal after the step.  Over the data axis alone,
+   ``n_devices`` ranks; with ``spatial=True`` and an even ``n_devices`` of
+   at least 4, over ``{"data": n // 2, "spatial": 2}``: n // 2 ranks, each
+   driving two spatial shards (``make_train_step(spatial_axis=...)``), as
+   the JAX dry run's mesh (``__graft_entry__.py:79-86``);
+2. in the same ranks, evaluation sharded rank-strided over 2 x ranks val
+   maps, the per-sample statistics gathered over the group
    (``metrics.gather_strided_results``): mIoU bit-equal to rank 0's
    direct pass over all of them;
 3. one tick of ``BatchedNavRuntime`` with n episodes sharded over
    ``make_mesh({"data": n})``, prediction on;
 4. the ``pred_async`` serving mode under the same mesh: the first tick
    triggers, so its collect enqueues the prediction program, whose goal
-   lands at the second tick.
-
-The JAX package's dry run also shards the train step's and the whole-map
-prediction's map height over a ``spatial`` axis: ``spatial=True`` raises
-NotImplementedError, ROADMAP A14 part 2.
+   lands at the second tick;
+5. with ``spatial=True`` and n >= 2, the whole-map prediction of the
+   tick's first full map (its 14 channels) with the height sharded over
+   ``make_mesh({"spatial": 2})`` (``get_prediction_sharded``, as
+   ``__graft_entry__.py:188-200``): its shape, finite values, and within
+   ``SPATIAL_PRED_TOL`` of ``get_prediction`` on the same map.
 """
 
 from __future__ import annotations
@@ -58,6 +64,11 @@ DRYRUN_MODEL = dict(
     test_cfg=dict(mode="whole"),
 )
 SIZE = 64
+# |sharded - unsharded| of part 5's float32 probabilities: rounding only
+# (the shards' convolutions sum in other orders); TF32 convolutions on the
+# card round to 10 bits
+SPATIAL_PRED_TOL = 1e-4
+SPATIAL_PRED_TOL_TF32 = 2e-3
 
 
 def _devices(n: int, device) -> list:
@@ -69,11 +80,14 @@ def _devices(n: int, device) -> list:
 
 
 def _train_and_eval_rank(rank: int, world: int, init: str, backend: str,
-                         devices: list, out_dir: str) -> None:
-    """Parts 1 and 2 on one rank; rank 0 writes what it found."""
+                         devices: list, out_dir: str,
+                         spatial: int = 1) -> None:
+    """Parts 1 and 2 on one rank, whose devices are ``devices[rank *
+    spatial:(rank + 1) * spatial]`` (its spatial shards where ``spatial``
+    > 1); rank 0 writes what it found."""
     import torch.distributed as dist
 
-    from .core.mesh import init_distributed
+    from .core.mesh import init_distributed, make_mesh
     from .models.pspnet import build_segmentor
     from .prediction.metrics import (gather_strided_results,
                                      intersect_and_union,
@@ -81,9 +95,10 @@ def _train_and_eval_rank(rank: int, world: int, init: str, backend: str,
     from .prediction.train import (TrainConfig, create_train_state,
                                    distribute, make_train_step)
 
-    if devices[rank] == "cpu":
+    mine = devices[rank * spatial:(rank + 1) * spatial]
+    if mine[0] == "cpu":
         torch.set_num_threads(1)
-    dev = init_distributed(backend, device=devices[rank], init_method=init,
+    dev = init_distributed(backend, device=mine[0], init_method=init,
                            rank=rank, world_size=world)
     try:
         tcfg = TrainConfig(batch_size=max(world, 2))
@@ -96,7 +111,10 @@ def _train_and_eval_rank(rank: int, world: int, init: str, backend: str,
         state = create_train_state(build_segmentor(DRYRUN_MODEL, seed=0),
                                    tcfg, device=dev)
         distribute(state)
-        metrics = make_train_step(tcfg)(state, {
+        step = (make_train_step(tcfg) if spatial == 1 else make_train_step(
+            tcfg, spatial_axis="spatial", mesh=make_mesh(
+                {"data": world, "spatial": spatial}, devices)))
+        metrics = step(state, {
             "img": torch.as_tensor(img[rows], device=dev),
             "gt": torch.as_tensor(gt[rows], device=dev)})
         flat = torch.cat([p.detach().reshape(-1)
@@ -134,7 +152,8 @@ def _train_and_eval_rank(rank: int, world: int, init: str, backend: str,
                 metrics=("mIoU",))
             with open(os.path.join(out_dir, "rank0.json"), "w") as f:
                 json.dump({
-                    "backend": backend,
+                    "backend": backend, "ranks": world,
+                    "spatial_shards_a_rank": spatial,
                     "losses": {k: float(v) for k, v in metrics.items()},
                     "params_spread_over_ranks": spread,
                     "eval_samples": n_val,
@@ -148,13 +167,10 @@ def _train_and_eval_rank(rank: int, world: int, init: str, backend: str,
 
 def dryrun_multichip(n_devices: int, device=None,
                      spatial: bool = False) -> Dict:
-    """Parts 1-4 of the module docstring on ``n_devices`` devices; returns
-    what each found, and raises on a failed check.  ``device``: the cards
-    (None) or ``"cpu"``."""
-    if spatial:
-        raise NotImplementedError(
-            "the dry run's spatial axis (the train step's and the whole-map "
-            "prediction's height sharded) is ROADMAP A14 part 2")
+    """Parts 1-4 of the module docstring on ``n_devices`` devices, and
+    with ``spatial`` the spatial axis (part 1 over a data x spatial mesh,
+    part 5); returns what each found, and raises on a failed check.
+    ``device``: the cards (None) or ``"cpu"``."""
     import torch.multiprocessing as mp
 
     from . import resolve_device
@@ -169,20 +185,24 @@ def dryrun_multichip(n_devices: int, device=None,
     devices = _devices(n_devices, device)
     distinct = len(set(devices)) == n_devices
     backend = "nccl" if device.type == "cuda" and distinct else "gloo"
+    shards = 2 if spatial and n_devices % 2 == 0 and n_devices >= 4 else 1
+    ranks_n = n_devices // shards
     out: Dict = {"devices": [str(d) for d in devices],
+                 "train_mesh": ({"data": ranks_n, "spatial": shards}
+                                if shards > 1 else {"data": ranks_n}),
                  "backend": backend,
                  "backend_reason": ("a card a rank" if backend == "nccl"
                                     else "ranks share a device (NCCL "
                                     "refuses two ranks on one card) or "
                                     "run on the CPU")}
 
-    # ---- 1-2. the train step and the evaluation over n ranks ----------
+    # ---- 1-2. the train step and the evaluation over the ranks --------
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'pg')}"
         mp.start_processes(_train_and_eval_rank,
-                           args=(n_devices, init, backend,
-                                 [str(d) for d in devices], tmp),
-                           nprocs=n_devices, join=True,
+                           args=(ranks_n, init, backend,
+                                 [str(d) for d in devices], tmp, shards),
+                           nprocs=ranks_n, join=True,
                            start_method="spawn")
         with open(os.path.join(tmp, "rank0.json")) as f:
             ranks = json.load(f)
@@ -192,7 +212,7 @@ def dryrun_multichip(n_devices: int, device=None,
             and ranks["eval_bit_equal"]):
         raise RuntimeError(f"dryrun_multichip train/eval failed: {ranks}")
     print("dryrun_multichip train step + sharded eval ok:", ranks,
-          "devices:", n_devices)
+          "devices:", n_devices, "mesh:", out["train_mesh"])
 
     # ---- 3. one tick with the episodes sharded over the data axis -----
     nav_cfg = NavConfig(
@@ -242,4 +262,24 @@ def dryrun_multichip(n_devices: int, device=None,
         raise RuntimeError(f"dryrun_multichip pred_async tick: {acts}")
     out["pred_async_tick"] = {"actions": acts}
     print("dryrun_multichip pred_async tick ok: actions", acts)
+
+    # ---- 5. whole-map prediction with the height sharded ---------------
+    if spatial and n_devices >= 2:
+        full_map = runtime.state.full_maps[0].float().cpu().numpy()[:14]
+        sp_mesh = make_mesh({"spatial": 2}, devices=devices[:2])
+        probs = pm.get_prediction_sharded(full_map, sp_mesh, axis="spatial")
+        plain = pm.get_prediction(full_map)
+        gap = float(np.abs(probs - plain).max())
+        tol = (SPATIAL_PRED_TOL_TF32 if device.type == "cuda"
+               and torch.backends.cudnn.allow_tf32 else SPATIAL_PRED_TOL)
+        out["spatial_prediction"] = {
+            "shape": list(probs.shape), "finite": bool(
+                np.isfinite(probs).all()), "max_abs_diff_unsharded": gap,
+            "tol": tol, "mesh": {"spatial": 2}}
+        if probs.shape != (6,) + full_map.shape[1:] or \
+                not np.isfinite(probs).all() or gap > tol:
+            raise RuntimeError(f"dryrun_multichip spatially sharded "
+                               f"prediction: {out['spatial_prediction']}")
+        print("dryrun_multichip spatially-sharded prediction ok:",
+              out["spatial_prediction"])
     return out

@@ -5,7 +5,9 @@ Twin of PEANUT's PEANUT_Prediction_Model (nav/agent/prediction.py:140-158):
 a PSPNet-R50-v1c over the partial 14-channel semantic map emitting 6
 per-category probability maps as sigmoid(raw logits).  PEANUT's mmcv test
 pipeline (MultiScaleFlipAug at ratio 1.0, identity normalisation) reduces
-to one whole-image forward, which is what runs here, on the model's device.
+to one whole-image forward, which is what runs here, on the model's device;
+``get_prediction_sharded`` runs it with the map's height sharded over a
+mesh axis (``models.sharded``).
 
 Weights: ``model`` (an EncoderDecoder, taken over), else ``state_dict``
 (mmseg keys), else the checkpoint at ``cfg.pred_model_wts``.  Unlike the
@@ -23,9 +25,12 @@ import torch
 
 from .. import resolve_device, upload
 from ..config import NavConfig
+from ..core import spatial
+from ..core.mesh import axis_devices
 from ..models.pspnet import build_segmentor, peanut_prediction_config
 from ..models.encoder_decoder import EncoderDecoder
 from ..models.mmseg_import import load_mmseg_checkpoint, load_mmseg_state
+from ..models.sharded import forward_rows
 
 
 class PredictionModel:
@@ -64,11 +69,20 @@ class PredictionModel:
         maps = upload(np.asarray(full_maps, np.float32), self.device)
         return self.infer(maps).cpu().numpy()
 
+    @torch.no_grad()
     def get_prediction_sharded(self, full_map: np.ndarray, mesh,
                                axis: str = "spatial") -> np.ndarray:
-        """Whole-map inference with the map's height sharded over a mesh
-        axis (the JAX package's GSPMD form, a halo exchange at every
-        convolution): ROADMAP A14 part 2."""
-        raise NotImplementedError(
-            "spatially sharded prediction (the map's height over a mesh "
-            "axis, halo exchanges in every layer) is ROADMAP A14 part 2")
+        """Whole-map inference with the map's height sharded over the mesh
+        axis ``axis`` (the other axes at index 0): (C, H, W) -> (6, H, W)
+        float32 probabilities on the host, as ``get_prediction``.  Each
+        device of the axis holds a block of rows (uneven where they do not
+        divide) and computes them in the model's type, taking the halo
+        rows each convolution reaches from the shards that hold them
+        (``models.sharded.forward_rows``); the model's parameters are read
+        where they lie, copied to a shard on another device."""
+        devices = axis_devices(mesh, axis)
+        x = torch.as_tensor(np.asarray(full_map, np.float32)[None])
+        rows = spatial.shard(x.to(self.dtype), devices)
+        logits = forward_rows(self.model, rows, train=False)
+        return np.concatenate([torch.sigmoid(b.float())[0].cpu().numpy()
+                               for b in logits.blocks], axis=1)

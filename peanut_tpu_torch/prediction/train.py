@@ -17,6 +17,12 @@ the global batch, as the JAX package's sharded step equals its plain one.
 Dropout draws the global batch's mask and keeps the rank's rows
 (``layers.BatchRows``); the logged losses are the global batch's means.
 
+The spatial axis (``make_train_step(spatial_axis=, mesh=)``): the map's
+height sharded over devices that one process drives
+(``models.sharded``), each rank of the data axis with its own shards.
+The step is the one-process step at the global batch, as the JAX
+package's GSPMD step is its plain one.
+
 The train state is the model, a ``torch.optim.Adam`` over all its
 parameters (the batch norms' weight and bias included, as in flax) and the
 step.  The learning rate of step t is ``poly_schedule(cfg)(t)``, set before
@@ -42,8 +48,11 @@ import torch.distributed as dist
 from torch import nn
 
 from .. import resolve_device, upload
+from ..core import spatial
+from ..core.mesh import axis_devices
 from ..models.layers import BatchRows, sync_batch_stats
 from ..models.losses import bce_with_logits
+from ..models.sharded import forward_rows
 
 ADAM_BETAS = (0.9, 0.999)     # optax.adam's defaults
 ADAM_EPS = 1e-8
@@ -158,53 +167,110 @@ def upload_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
             .permute(0, 3, 1, 2).contiguous() for k in ("img", "gt")}
 
 
+def average_grads(model: nn.Module, group) -> None:
+    """The parameters' gradients averaged over the process group
+    ``group`` in one all-reduce, as DDP's reducer averages them (each
+    rank's divided by the group's size, then summed): the data axis of a
+    step whose forward DDP does not run (the spatially sharded one)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat.div_(dist.get_world_size(group))
+    dist.all_reduce(flat, group=group)
+    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(f.view_as(g))
+
+
 def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
-                   cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+                   cfg: TrainConfig,
+                   devices: Optional[list] = None) -> Dict[str, torch.Tensor]:
     """The forward in train mode with the auxiliary head, the loss at
     gt / 255 and its backward into the parameters' ``.grad``; the batch
     norms' running statistics move once.  Returns the step's losses (on
     the device, not synchronised; under ``distribute`` the global batch's,
-    averaged over the group)."""
+    averaged over the group).
+
+    ``devices``: the map's height sharded over these devices, one row
+    block each (``models.sharded.forward_rows``): the batch norms take
+    the statistics of every shard, the heads' dropout the global map's
+    mask, and the losses are each shard's sums over the global count.
+    Under ``distribute`` that forward bypasses DDP, and ``average_grads``
+    does what its reducer would."""
     dev = next(state.model.parameters()).device
     gen = dropout_generator(cfg.seed, state.step, dev)
-    forward = state.model
+    forward, group = state.model, None
     if state.ddp is not None:
-        group, forward = state.ddp.process_group, state.ddp
+        group = state.ddp.process_group
         b = batch["img"].shape[0]
         gen = BatchRows(gen, dist.get_rank(group) * b,
                         dist.get_world_size(group) * b)
-    logits, aux = forward(batch["img"], train=True, with_aux=True,
-                          generator=gen)
+        if devices is None:
+            forward = state.ddp
     target = batch["gt"] / 255.0
-    loss_main = bce_with_logits(logits, target).mean()
-    loss_aux = bce_with_logits(aux, target).mean()
+    if devices is None:
+        logits, aux = forward(batch["img"], train=True, with_aux=True,
+                              generator=gen)
+        loss_main = bce_with_logits(logits, target).mean()
+        loss_aux = bce_with_logits(aux, target).mean()
+    else:
+        logits, aux = forward_rows(state.model,
+                                   spatial.shard(batch["img"], devices),
+                                   train=True, with_aux=True, generator=gen)
+        target = spatial.shard(target, devices)
+        loss_main = spatial.bce_mean(logits, target, dev)
+        loss_aux = spatial.bce_mean(aux, target, dev)
     loss = loss_main + cfg.aux_weight * loss_aux
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if group is not None and devices is not None:
+        average_grads(state.model, group)
     losses = torch.stack([loss, loss_main, loss_aux]).detach()
-    if state.ddp is not None:
+    if group is not None:
         dist.all_reduce(losses, group=group)
         losses = losses / dist.get_world_size(group)
     return dict(zip(("loss", "loss_bce", "aux.loss_bce"), losses))
 
 
-def make_train_step(cfg: TrainConfig, spatial_axis: Optional[str] = None):
+def spatial_devices(state: TrainState, mesh, axis: str) -> list:
+    """This process's shards of ``mesh``'s axis ``axis``: at its rank's
+    index of the ``data`` axis under ``distribute`` (which must then have
+    the group's size, or be absent or 1), else at index 0."""
+    at = {}
+    data = mesh.shape.get("data", 1)
+    if state.ddp is not None and data > 1:
+        group = state.ddp.process_group
+        if data != dist.get_world_size(group):
+            raise ValueError(f"mesh {mesh.shape}: its data axis must have "
+                             f"the process group's "
+                             f"{dist.get_world_size(group)} ranks")
+        at["data"] = dist.get_rank(group)
+    elif data > 1:
+        raise ValueError(f"mesh {mesh.shape}: a data axis of {data} needs "
+                         f"{data} processes under distribute (one a data "
+                         f"index)")
+    return axis_devices(mesh, axis, at)
+
+
+def make_train_step(cfg: TrainConfig, spatial_axis: Optional[str] = None,
+                    mesh=None):
     """step(state, batch) -> losses: ``loss_and_grads``, then Adam at
     ``poly_schedule(cfg)(state.step)``, then the step count.  ``batch``:
     the loader's numpy batch {"img": (B, H, W, C), "gt": (B, H, W, 6) in
     [0, 255]}, or tensors already on the device in NCHW.  Data
-    parallelism is ``distribute``'s; ``spatial_axis`` (the map's height
-    over a mesh axis) is ROADMAP A14 part 2."""
-    if spatial_axis is not None:
-        raise NotImplementedError(
-            f"spatial_axis={spatial_axis!r}: the train step with the map's "
-            f"height sharded is ROADMAP A14 part 2")
+    parallelism is ``distribute``'s.  ``spatial_axis`` with ``mesh``: each
+    batch leaf's height sharded over that axis of the mesh
+    (``spatial_devices``), composed with the data axis under
+    ``distribute``; the JAX package's ``P("data", spatial_axis)``."""
+    if (spatial_axis is None) != (mesh is None):
+        raise ValueError("spatial_axis and mesh come together: the map's "
+                         "height is sharded over an axis of a mesh")
     sched = poly_schedule(cfg)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         if not isinstance(batch["img"], torch.Tensor):
             batch = upload_batch(batch, next(state.model.parameters()).device)
-        metrics = loss_and_grads(state, batch, cfg)
+        devices = (None if mesh is None
+                   else spatial_devices(state, mesh, spatial_axis))
+        metrics = loss_and_grads(state, batch, cfg, devices)
         for group in state.optimizer.param_groups:
             group["lr"] = sched(state.step)
         state.optimizer.step()

@@ -915,6 +915,87 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(sg[n], sc[n], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_spatial_step_on_the_card_matches_the_cpu(cuda, k):
+    """The mesh's spatial axis on the card: the dry run's narrow PSPNet
+    (base 16, remat, dropout 0) in float64 at 64^2, batch 2, its height
+    over ``[cuda] * k`` (at k = 8 one stride-8 row a shard, the decode
+    head's dilation-4 halo from four shards a side): one train step's
+    loss, gradients and statistics and the eval forward against the CPU's
+    unsharded ones, within 1e-10 of the largest |value|."""
+    import copy
+
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.models.sharded import forward_rows
+    from peanut_tpu_torch.multichip import DRYRUN_MODEL
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads)
+    cfg = copy.deepcopy(DRYRUN_MODEL)
+    cfg["backbone"]["remat"] = True
+    for head in ("decode_head", "auxiliary_head"):
+        cfg[head]["dropout_ratio"] = 0.0
+    rng = np.random.RandomState(11)
+    img = rng.rand(2, 14, 64, 64)
+    gt = (rng.rand(2, 6, 64, 64) > 0.9) * 255.0
+    tcfg = TrainConfig(lr=1e-3, max_iters=50)
+    out = {}
+    for where, devices in (("cpu", None), (cuda, [cuda] * k)):
+        state = create_train_state(build_segmentor(cfg, seed=0).double(),
+                                   tcfg, device=where)
+        batch = {"img": torch.as_tensor(img, device=where),
+                 "gt": torch.as_tensor(gt, device=where)}
+        loss = float(loss_and_grads(state, batch, tcfg, devices)["loss"])
+        with torch.no_grad():
+            x = batch["img"]
+            logits = (state.model(x, train=False) if devices is None
+                      else spatial.gather(forward_rows(
+                          state.model, spatial.shard(x, devices),
+                          train=False)))
+        out[str(where)] = (loss, {n: p.grad.cpu() for n, p in
+                                  state.model.named_parameters()},
+                           {n: v.cpu() for n, v in
+                            state.model.state_dict().items()
+                            if "running" in n}, logits.cpu())
+    (lc, gc, sc, yc), (lg, gg, sg, yg) = out["cpu"], out[str(cuda)]
+    assert lg == pytest.approx(lc, rel=1e-10)
+    for want, got in ((gc, gg), (sc, sg), ({"y": yc}, {"y": yg})):
+        top = max(float(v.abs().max()) for v in want.values())
+        for n in want:
+            assert float((got[n] - want[n]).abs().max()) <= 1e-10 * top, n
+
+
+def test_spatial_prediction_on_the_card(cuda):
+    """``get_prediction_sharded`` over ``make_mesh({"spatial": k},
+    [cuda] * k)`` for k = 2 and 4 against ``get_prediction`` on the
+    card, the dry run's narrow PSPNet at 120 x 96 (15 stride-8 rows:
+    uneven shards), float32 with TF32 off (within 1e-4) and bfloat16
+    (within 5e-2: cuDNN's bfloat16 algorithms round by shape)."""
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.multichip import DRYRUN_MODEL
+    from peanut_tpu_torch.prediction import PredictionModel
+    full_map = np.random.RandomState(12).rand(14, 120, 96).astype(
+        np.float32)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for bf16, tol in ((False, 1e-4), (True, 5e-2)):
+            pm = PredictionModel(NavConfig(serve_bf16=bf16),
+                                 model=build_segmentor(DRYRUN_MODEL, seed=0),
+                                 device=cuda)
+            want = pm.get_prediction(full_map)
+            for k in (2, 4):
+                got = pm.get_prediction_sharded(
+                    full_map, make_mesh({"spatial": k}, [cuda] * k))
+                assert got.shape == (6, 120, 96) and np.isfinite(got).all()
+                np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def test_swin_on_the_card_matches_the_cpu(cuda):
     """UPerNet-Swin-T at its config's widths (150 classes), seeded, in
     float64 on the card and the CPU on a 96x160 input (its 24x40 patch

@@ -2,9 +2,9 @@
 the CPU.
 
 * ``make_mesh`` against the JAX package's on the 8 virtual CPU devices of
-  tests/conftest.py: the shapes, the -1 axis, the error; a mesh that
-  splits a second axis over several devices is the spatial axis (ROADMAP
-  A14 part 2).
+  tests/conftest.py: the shapes, the -1 axis, the error; ``axis_devices``
+  on a mesh that splits a second axis over several devices reads the
+  axis at index 0 of the other (the JAX runtime replicates over it).
 * The port's ``BatchedNavRuntime`` sharded over
   ``make_mesh({"data": 4}, devices=["cpu"] * 4)`` against the JAX
   runtime unsharded, on the geometry of tests/test_batched_runtime.py::
@@ -15,7 +15,8 @@ the CPU.
   ``dd_wt`` within 1e-5 (the bars of tests/test_torch_batched_pred.py:
   the frameworks' CPU convolutions sum in other orders).  The envs are
   8 m squares, not that test's 6 m: at 6 m FakeNavEnv(seed=100 + i)
-  finds no goal 3 m from the start and its reset never returns.
+  finds no goal 3 m from the start, so the port's reset raises and the
+  JAX package's never returns (tests/test_torch_fake_env.py).
 """
 
 import numpy as np
@@ -60,9 +61,13 @@ def test_make_mesh_errors():
         jmesh.make_mesh({"data": 3, "spatial": 2})
     with pytest.raises(ValueError, match=str(e.value)):
         mesh.make_mesh({"data": 3, "spatial": 2}, devices=["cpu"] * 8)
-    two = mesh.make_mesh({"data": 2, "spatial": 2}, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
-        mesh.axis_devices(two, "data")
+    two = mesh.make_mesh({"data": 2, "spatial": 2},
+                         devices=["cpu", "cpu", "meta", "meta"])
+    assert mesh.axis_devices(two, "data") == [torch.device("cpu"),
+                                              torch.device("meta")]
+    assert mesh.axis_devices(two, "spatial") == [torch.device("cpu")] * 2
+    assert mesh.axis_devices(two, "spatial", {"data": 1}) == \
+        [torch.device("meta")] * 2
     assert mesh.axis_devices(mesh.make_mesh({"data": 4, "spatial": 1},
                                             devices=["cpu"] * 4)) == \
         [torch.device("cpu")] * 4

@@ -1,9 +1,12 @@
 """``peanut_tpu_torch.multichip.dryrun_multichip`` on the CPU over two
 devices (the JAX package's ``__graft_entry__.dryrun_multichip`` over the
 data axis): the train step over two gloo ranks, the sharded evaluation
-bit-equal to the direct one, a sharded tick and a ``pred_async`` one; the
-spatial axis is ROADMAP A14 part 2."""
+bit-equal to the direct one, a sharded tick and a ``pred_async`` one.
+The spatial axis's entry points run: the train step with the height over
+two shards and the sharded whole-map prediction, each against its
+unsharded form (tests/test_torch_spatial*.py hold them to JAX's)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,14 +34,33 @@ def test_dryrun_multichip_on_two_cpu_devices():
 
 
 def test_spatial_axis_is_part_2():
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
-        dryrun_multichip(2, device="cpu", spatial=True)
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
+    """The three entry points that raised naming ROADMAP A14 part 2 run:
+    ``make_train_step(spatial_axis=, mesh=)`` (loss within 1e-5 relative
+    of the unsharded step's, float32), ``get_prediction_sharded`` (within
+    1e-6 of ``get_prediction``) and ``dryrun_multichip(spatial=True)``'s
+    spatial half (tests/test_torch_spatial_6.py)."""
+    from peanut_tpu_torch.prediction.train import create_train_state
+    mesh = make_mesh({"spatial": 2}, devices=["cpu"] * 2)
+    rng = np.random.RandomState(0)
+    batch = {"img": rng.rand(2, 64, 64, 14).astype(np.float32),
+             "gt": ((rng.rand(2, 64, 64, 6) > 0.9) * 255.0).astype(
+                 np.float32)}
+    losses = []
+    for step in (make_train_step(TrainConfig()),
+                 make_train_step(TrainConfig(), spatial_axis="spatial",
+                                 mesh=mesh)):
+        state = create_train_state(build_segmentor(DRYRUN_MODEL, seed=0),
+                                   TrainConfig(), device="cpu")
+        losses.append(float(step(state, batch)["loss"]))
+        assert state.step == 1
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    with pytest.raises(ValueError, match="come together"):
         make_train_step(TrainConfig(), spatial_axis="spatial")
     pm = PredictionModel(NavConfig(), model=build_segmentor(DRYRUN_MODEL,
                                                             seed=0),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
-        pm.get_prediction_sharded(
-            torch.zeros(14, 64, 64).numpy(),
-            make_mesh({"spatial": 2}, devices=["cpu"] * 2))
+    full_map = rng.rand(14, 64, 64).astype(np.float32)
+    got = pm.get_prediction_sharded(full_map, mesh)
+    assert got.shape == (6, 64, 64)
+    np.testing.assert_allclose(got, pm.get_prediction(full_map), rtol=0,
+                               atol=1e-6)

@@ -88,3 +88,60 @@ def eval_cli(rank, world, argv, out_path):
 
     with open(f"{out_path}.{rank}.json", "w") as f:
         json.dump(test.main(argv, device="cpu"), f)
+
+
+def spatial_steps(rank, world, model_cfg, batch_path, out_path, shards, lr):
+    """Data x spatial training on the CPU: this rank's rows of each global
+    batch at ``batch_path`` (``img``/``gt`` of shape (steps, B, ...),
+    NCHW) with their height over ``shards`` spatial shards of a
+    ``{"data": world, "spatial": shards}`` mesh, under ``distribute``.
+    Two runs from the seed-0 model in float64: SGD at ``lr`` over every
+    step of the batch (``model_cfg``, dropout 0), and one
+    ``loss_and_grads`` at step 5 of ``model_cfg`` with dropout 0.1 and
+    remat.  Rank 0 saves the losses, the state dicts and the second run's
+    gradients."""
+    import copy
+
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   distribute, loss_and_grads,
+                                                   make_train_step,
+                                                   spatial_devices)
+
+    z = np.load(batch_path)
+    b = z["img"].shape[1] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    mesh = make_mesh({"data": world, "spatial": shards},
+                     ["cpu"] * (world * shards))
+    tcfg = TrainConfig(lr=lr, min_lr=lr, seed=3)
+    state = create_train_state(build_segmentor(model_cfg, seed=0).double(),
+                               tcfg, device="cpu")
+    state.optimizer = torch.optim.SGD(state.model.parameters(), lr=lr)
+    distribute(state)
+    step = make_train_step(tcfg, spatial_axis="spatial", mesh=mesh)
+    losses = [{k: float(v) for k, v in step(state, {
+        k: torch.from_numpy(z[k][i, rows]) for k in ("img", "gt")}).items()}
+        for i in range(len(z["img"]))]
+    out = {"losses": losses, "state": state.model.state_dict(),
+           "devices": [str(d) for d in spatial_devices(state, mesh,
+                                                       "spatial")]}
+
+    cfg = copy.deepcopy(model_cfg)
+    cfg["backbone"]["remat"] = True
+    for head in ("decode_head", "auxiliary_head"):
+        cfg[head]["dropout_ratio"] = 0.1
+    state = create_train_state(build_segmentor(cfg, seed=0).double(), tcfg,
+                               device="cpu")
+    distribute(state)
+    state.step = 5
+    metrics = loss_and_grads(state, {k: torch.from_numpy(z[k][0, rows])
+                                     for k in ("img", "gt")}, tcfg,
+                             spatial_devices(state, mesh, "spatial"))
+    out["dropout"] = {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {n: p.grad for n, p in state.model.named_parameters()},
+        "state": state.model.state_dict()}
+    if rank == 0:
+        torch.save(out, out_path)
