@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--ticks N]
                           [--only b3|b1|wide|paths|train|zoo|zoo_train|
-                                  zoo_tools|multichip|spatial]
+                                  zoo_tools|multichip|spatial|spatial_zoo]
 
 With --only, the device line and one phase alone, with no result line: "b3"
 phase 5's roi_window_pool lines, "b1" phase 3's fused_eikonal lines, "wide"
@@ -10,7 +10,8 @@ phase 3's lines over 1024 cells (run from a copy of another tree, it times
 that tree's kernels beside these, in one call), "paths" phase 3's B1, B2
 and B4 lines at the paths' shapes (to time another tree's beside these),
 "train" phase 11, "zoo" phase 12, "zoo_train" phase 13, "zoo_tools" phase
-14, "multichip" phase 15, "spatial" phase 16 (without serve_16's map).
+14, "multichip" phase 15, "spatial" phase 16 (without serve_16's map),
+"spatial_zoo" phase 17.
 
 Phases (each prints one JSON line):
   1. device  — the card's name, count, and nvidia-smi's name + power limit;
@@ -253,6 +254,23 @@ Phases (each prints one JSON line):
                whole-map prediction over {"spatial": 2}.  The spatial path
                launches no kernel of csrc/ (PSPNet has none); every gap is
                a gate with its bound printed beside it.
+ 17. spatial_zoo — the spatial axis over the zoo's ResNet heads:
+               spatial_zoo_pred, get_prediction_sharded of UPerNet-R50
+               (k = 2, 4; float32 and bfloat16), DeepLabV3-R50 (k = 4:
+               dilation-36 halos past the neighbouring shard) and
+               NonLocal-R50 (k = 2, 4: whole-map attention over 8192
+               tokens) from their 80k Cityscapes configs at published
+               widths, random weights from --seed, batch 1 at 512x1024,
+               over [cuda:0] * k against get_prediction, with ms, the
+               host's enqueue and the peak memory beside the unsharded
+               forward's; spatial_zoo_train, three steps of UPerNet-R50's
+               make_train_step(spatial_axis="spatial") at batch 2, crop
+               512x1024, float32 (TF32 off) over 2 shards against three
+               unsharded steps (step 1's loss gated); spatial_zoo_float64,
+               the fifteen families at the CPU tests' widths at 128^2 in
+               float64 sharded over 2 and 3 shards against the card's
+               unsharded forward and the CPU's sharded one (1e-10 of the
+               largest |logit|).  No kernel of csrc/ on this path.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Then the kernels line, the
 nvidia-smi line and, last, the result line.  Any failed phase exits
@@ -3558,13 +3576,274 @@ def spatial_phase(args, dev, smi_line: str, serve_map=None) -> dict:
     return dry
 
 
+# ---------------------------------------------------------------------------
+# The spatial axis over the zoo's ResNet heads (phase 17)
+
+SPATIAL_ZOO_HW = (512, 1024)      # the Cityscapes configs' training crop
+# (case, config, shards, types): each at its published widths, batch 1
+SPATIAL_ZOO_CASES = (
+    ("upernet_r50", ZOO_SERVE, (2, 4), ("float32", "bfloat16")),
+    ("deeplabv3_r50",
+     "configs/deeplabv3/deeplabv3_r50_512x1024_80k_cityscapes.py", (4,),
+     ("float32",)),
+    ("nonlocal_r50",
+     "configs/nonlocal_net/nonlocal_net_r50_512x1024_80k_cityscapes.py",
+     (2, 4), ("float32",)))
+SPATIAL_ZOO_FAMILIES = ("upernet", "sem_fpn", "deeplabv3", "deeplabv3plus",
+                        "fastfcn", "apcnet", "dmnet", "encnet", "ann",
+                        "gcnet", "emanet", "danet", "nonlocal_net", "dnlnet",
+                        "ccnet")
+SPATIAL_ZOO_F64_SHARDS = (2, 3)
+SPATIAL_ZOO_F64_SIZE = 128
+# |sharded - unsharded| of the probabilities (get_prediction_sharded
+# against get_prediction), set from the gaps measured on the H100
+# (PERF.md §6): float32 1.1e-6 to 1.2e-6, bf16 2.8e-3 (2 shards)
+# and 5.2e-3 (4; cuDNN's bf16 algorithms round by shape); the train
+# step's first loss, relative (1.2e-7 measured; Adam's first update
+# keeps each gradient's sign, so the runs drift from step 2 on)
+SPATIAL_ZOO_BOUND = {"float32": 1e-5, "bfloat16": 1e-2}
+SPATIAL_ZOO_LOSS_BOUND = 1e-5
+
+
+def zoo_test_widths(cfg: dict) -> dict:
+    """tests/test_zoo_forward.py's shrunk widths of a ResNetV1c config:
+    base and stem 16, the heads' channels a quarter (at least 8)."""
+    import copy
+    cfg = copy.deepcopy(cfg)
+    if "base_channels" not in cfg["backbone"]:
+        cfg["backbone"].update(base_channels=16, stem_channels=16)
+        for key in ("decode_head", "auxiliary_head"):
+            h = cfg.get(key)
+            if not h:
+                continue
+            if isinstance(h.get("in_channels"), (list, tuple)):
+                h["in_channels"] = tuple(c // 4 for c in h["in_channels"])
+            elif "in_channels" in h:
+                h["in_channels"] = h["in_channels"] // 4
+            if "c1_in_channels" in h:
+                h["c1_in_channels"] //= 4
+            h["channels"] = max(h.get("channels", 64) // 4, 8)
+            if "ema_channels" in h:
+                h["ema_channels"] = max(h["ema_channels"] // 4, 8)
+    return cfg
+
+
+def spatial_zoo_forwards(args, dev) -> dict:
+    """spatial_zoo_pred: PredictionModel.get_prediction_sharded of the
+    zoo's UPerNet-R50, DeepLabV3-R50 and NonLocal-R50 (their 80k
+    Cityscapes configs at published widths, random weights from --seed)
+    over make_mesh({"spatial": k}, [cuda:0] * k) against get_prediction
+    at 512x1024; each forward's ms (CUDA events, forward_rows against
+    model(x)), the host's enqueue of it, the peak memory above the
+    weights (all shards, then per shard) and the logits' gap."""
+    import copy
+
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.sharded import forward_rows
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    full_map = np.random.RandomState(args.seed + 18).rand(
+        3, *SPATIAL_ZOO_HW).astype(np.float32)
+    out = {}
+    for case, config, shards, dtypes in SPATIAL_ZOO_CASES:
+        model = zoo_weights(build_segmentor(load_config(config)["model"],
+                                            seed=args.seed), args.seed)
+        for dtype in dtypes:
+            pm = PredictionModel(NavConfig(serve_bf16=dtype == "bfloat16"),
+                                 model=copy.deepcopy(model), device=dev)
+            want = pm.get_prediction(full_map)
+            x = torch.as_tensor(full_map[None], device=dev).to(pm.dtype)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+
+            def reading(fn, k):
+                torch.cuda.reset_peak_memory_stats()
+                with torch.no_grad():
+                    y = fn()
+                    torch.cuda.synchronize()
+                    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+                    t0 = time.perf_counter()
+                    fn()
+                    host = (time.perf_counter() - t0) * 1e3
+                    ms = cuda_ms(fn, reps=3)
+                return y, {"ms": ms, "host_enqueue_ms": host,
+                           "peak_mib_all_shards": peak,
+                           "peak_mib_a_shard_est": peak / k}
+
+            logits, res = reading(lambda: pm.model(x), 1)
+            res = {"unsharded": res}
+            for k in shards:
+                mesh = make_mesh({"spatial": k}, [dev] * k)
+                got = pm.get_prediction_sharded(full_map, mesh)
+                rows = spatial.shard(x, [dev] * k)
+                y, timing = reading(lambda: forward_rows(pm.model, rows,
+                                                         train=False), k)
+                gap = float((spatial.gather(y).float() - logits.float())
+                            .abs().max() / logits.float().abs().max())
+                res[f"sharded_{k}"] = {
+                    "max_abs_diff": float(np.abs(got - want).max()),
+                    "bound": SPATIAL_ZOO_BOUND[dtype],
+                    "logits_err_of_largest": gap,
+                    "finite": bool(np.isfinite(got).all()),
+                    "shape_ok": got.shape == want.shape,
+                    "row_blocks": [b.shape[2] for b in rows.blocks],
+                    **timing}
+                del y
+            out[f"{case}_{dtype}"] = dict(res, config=config)
+            del pm, logits, x
+            torch.cuda.empty_cache()
+    emit({"phase": "spatial_zoo_pred", "input": [3, *SPATIAL_ZOO_HW],
+          "seed": args.seed, "cases": out})
+    for name, res in out.items():
+        for key, r in res.items():
+            if key.startswith("sharded") and not (
+                    r["finite"] and r["shape_ok"]
+                    and r["max_abs_diff"] <= r["bound"]):
+                fail(f"spatial_zoo_pred {name} {key}: {r}")
+    return out
+
+
+def spatial_zoo_training(args, dev) -> dict:
+    """spatial_zoo_train: three steps of make_train_step(spatial_axis=
+    "spatial") of UPerNet-R50 (its config: 19 classes, the auxiliary
+    FCNHead, dropout 0.1) at batch 2 (the config's samples_per_gpu), crop
+    512x1024, float32, TF32 off, over [cuda:0] * 2 against three
+    unsharded steps from the same state and batches: the losses (step 1's
+    gated; Adam's sign-keeping first update moves the runs apart after
+    it), ms a step (CUDA events, Adam included) and peak memory above the
+    weights and Adam's state."""
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   make_train_step)
+    cfg = load_config(ZOO_SERVE)["model"]
+    tcfg = TrainConfig(seed=args.seed, batch_size=2)
+    sd = zoo_weights(build_segmentor(cfg, seed=args.seed),
+                     args.seed).state_dict()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 19)
+    classes = zoo_classes(cfg)
+    batches = [{"img": torch.rand(2, 3, *SPATIAL_ZOO_HW, generator=gen,
+                                  device=dev),
+                "gt": (torch.rand(2, classes, *SPATIAL_ZOO_HW, generator=gen,
+                                  device=dev) > 0.9).float() * 255.0}
+               for _ in range(SPATIAL_STEPS)]
+    runs = {}
+    for name, step in (
+            ("unsharded", make_train_step(tcfg)),
+            ("sharded_2", make_train_step(
+                tcfg, spatial_axis="spatial",
+                mesh=make_mesh({"spatial": 2}, [dev] * 2)))):
+        model = build_segmentor(cfg)
+        model.load_state_dict(sd)
+        state = create_train_state(model, tcfg, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for b in batches:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            m = step(state, b)
+            e1.record()
+            torch.cuda.synchronize()
+            losses.append(float(m["loss"]))
+            ms.append(e0.elapsed_time(e1))
+        runs[name] = {"losses": losses, "step_ms": ms,
+                      "peak_mib": (torch.cuda.max_memory_allocated()
+                                   - base) / 2 ** 20}
+        del state, model
+        torch.cuda.empty_cache()
+    a, b = runs["unsharded"], runs["sharded_2"]
+    gaps = [abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"])]
+    b["peak_mib_a_shard_est"] = b["peak_mib"] / 2
+    reading = {"phase": "spatial_zoo_train", "config": ZOO_SERVE,
+               "batch": 2, "crop": list(SPATIAL_ZOO_HW),
+               "dtype": "float32, TF32 off", "steps": SPATIAL_STEPS,
+               "unsharded": a, "sharded_2": b, "loss_rel_gaps": gaps,
+               "step1_loss_bound": SPATIAL_ZOO_LOSS_BOUND}
+    emit(reading)
+    if not (all(np.isfinite(a["losses"] + b["losses"]))
+            and gaps[0] <= SPATIAL_ZOO_LOSS_BOUND):
+        fail(f"spatial_zoo_train: {reading}")
+    return reading
+
+
+def spatial_zoo_float64(args, dev) -> dict:
+    """spatial_zoo_float64: the fifteen families (all sixteen sharded
+    module types) at the CPU tests' widths, batch 1 at
+    SPATIAL_ZOO_F64_SIZE^2 in float64: forward_rows over [cuda:0] * k for
+    k in SPATIAL_ZOO_F64_SHARDS against the card's unsharded forward, and
+    over 2 shards against the CPU's sharded forward over ["cpu"] * 2;
+    each within SPATIAL_F64_BOUND of the largest |logit|."""
+    import copy
+
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.sharded import forward_rows
+    s = SPATIAL_ZOO_F64_SIZE
+    x = torch.as_tensor(np.random.RandomState(args.seed + 20).rand(
+        1, 3, s, s))
+    errors = {}
+    for fam in SPATIAL_ZOO_FAMILIES:
+        cfg = zoo_test_widths(load_config(zoo_config_path(fam))["model"])
+        cpu = zoo_weights(build_segmentor(cfg, seed=args.seed),
+                          args.seed).double()
+        card = copy.deepcopy(cpu).to(dev)
+        with torch.no_grad():
+            want = card(x.to(dev), train=False).cpu()
+            top = float(want.abs().max())
+            res = {}
+            for k in SPATIAL_ZOO_F64_SHARDS:
+                got = spatial.gather(forward_rows(
+                    card, spatial.shard(x.to(dev), [dev] * k),
+                    train=False)).cpu()
+                res[f"sharded_{k}_vs_card"] = float(
+                    (got - want).abs().max()) / top
+                if k == 2:
+                    on_cpu = spatial.gather(forward_rows(
+                        cpu, spatial.shard(x, ["cpu"] * 2), train=False))
+                    res["sharded_2_vs_cpu_sharded_2"] = float(
+                        (got - on_cpu).abs().max()) / top
+        errors[fam] = res
+        del card
+    torch.cuda.empty_cache()
+    emit({"phase": "spatial_zoo_float64", "size": s,
+          "bound_of_largest": SPATIAL_F64_BOUND, "errors": errors})
+    worst = max(v for r in errors.values() for v in r.values())
+    if not worst <= SPATIAL_F64_BOUND:
+        fail(f"spatial_zoo_float64: an error above {SPATIAL_F64_BOUND}: "
+             f"{errors}")
+    return errors
+
+
+def spatial_zoo_phase(args, dev, smi_line: str) -> None:
+    """Phase 17: spatial_zoo_pred, spatial_zoo_train, spatial_zoo_float64.
+    No kernel of csrc/ on this path (the zoo's heads are PyTorch ops)."""
+    t0 = time.perf_counter()
+    spatial_zoo_forwards(args, dev)
+    spatial_zoo_training(args, dev)
+    spatial_zoo_float64(args, dev)
+    emit({"phase": "spatial_zoo_done", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi_line})
+
+
 def only_phase(args, dev) -> int:
     """``--only``: one phase alone, to compare trees (the parent's, a
     variant's) in one call: "b3" B3's kernel lines in both types, "wide"
     the lines over 1024 cells, "paths" phase 3's B1, B2 and B4 lines at
     the paths' shapes, "train" the train phase, "zoo" the zoo phase,
     "zoo_train" the zoo's training phase, "zoo_tools" its tools and
-    converters.  Prints no result line."""
+    converters, "multichip" and "spatial" the mesh's phases,
+    "spatial_zoo" the spatial axis over the zoo's ResNet heads.  Prints
+    no result line."""
     from peanut_tpu_torch.kernels import _build
     for stem in {"b3": ("roi_window",), "b1": ("fmm_fused",),
                  "wide": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
@@ -3573,6 +3852,7 @@ def only_phase(args, dev) -> int:
                  "train": (), "zoo": (), "zoo_train": (),
                  "zoo_tools": (),
                  "spatial": ("fmm_fused", "fmm_sweep", "fmm_sweep2"),
+                 "spatial_zoo": (),
                  "multichip": ("fmm_fused", "fmm_sweep", "fmm_sweep2",
                                "fmm_long", "roi_window",
                                "nms_greedy")}[args.only]:
@@ -3591,6 +3871,8 @@ def only_phase(args, dev) -> int:
         multichip_phase(args, dev, nvidia_smi_line())
     elif args.only == "spatial":
         spatial_phase(args, dev, nvidia_smi_line())
+    elif args.only == "spatial_zoo":
+        spatial_zoo_phase(args, dev, nvidia_smi_line())
     elif args.only == "b3":
         mask_rcnn_phases(args, dev)
     elif args.only == "b1":
@@ -3606,7 +3888,8 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--only", choices=("b3", "b1", "wide", "paths",
                                        "train", "zoo", "zoo_train",
-                                       "zoo_tools", "multichip", "spatial"),
+                                       "zoo_tools", "multichip", "spatial",
+                                       "spatial_zoo"),
                     help="run this phase alone (after the device line)")
     args = ap.parse_args()
 
@@ -3862,6 +4145,9 @@ def main() -> int:
 
     # ---- 16. the mesh's spatial axis (no kernel of csrc/ on its path) ----
     spatial_phase(args, dev, smi_line, serve_map)
+
+    # ---- 17. the spatial axis over the zoo's ResNet heads (no kernel) ----
+    spatial_zoo_phase(args, dev, smi_line)
 
     kernels = []
     for name_, src_file, replaces, keys, count_key in (

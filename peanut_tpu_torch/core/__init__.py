@@ -1,4 +1,4 @@
 """Infrastructure (port of ``peanut_tpu.core``): training checkpoints, the
 python config-file loader of the model zoo, and the device mesh with the
-process group (``mesh``: the data axis; the spatial axis is ROADMAP A14
-part 2)."""
+process group (``mesh``: the data axis), and the row-sharded maps of the
+mesh's spatial axis (``spatial``)."""

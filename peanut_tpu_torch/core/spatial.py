@@ -22,6 +22,8 @@ The sharded ops, each built on ``fetch_rows``:
   rows, the contributions summed on one device (a global map);
 * ``resize``: each shard's output rows of the bilinear matrix times the
   input rows those rows read, of a sharded or a global map;
+* ``upsample_nearest2``: the FPN neck's nearest x2, each output row a
+  copy of the input row it reads;
 * ``dropout``: the global mask drawn from the generator, each shard
   keeping its rows;
 * ``bce_mean``: the sum over the shards over the global count.
@@ -283,6 +285,21 @@ def resize(x, size, align_corners: bool = False,
         y = torch.einsum("oh,...hw->...ow", mh, src.to(dt))
         blocks.append(torch.einsum("ow,...hw->...ho", mw, y))
     return Rows(blocks, out_h)
+
+
+def upsample_nearest2(x: Rows, size) -> Rows:
+    """``F.interpolate(x, scale_factor=2, mode="nearest")[..., :h, :w]``
+    (the FPN neck's top-down path) into a row-sharded (N, C, h, w) map:
+    output row r is input row r // 2, taken from whichever shard holds
+    it."""
+    h, w = size
+    blocks = []
+    for (r0, r1), dev in zip(row_ranges(h, len(x.blocks)), x.devices):
+        a = r0 // 2
+        src = fetch_rows(x, a, (r1 + 1) // 2 if r1 > r0 else a, dev)
+        up = src.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        blocks.append(up[:, :, r0 - 2 * a:r1 - 2 * a, :w])
+    return Rows(blocks, h)
 
 
 def dropout(x: Rows, ratio: float, generator, device) -> Rows:

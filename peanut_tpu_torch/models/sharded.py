@@ -1,6 +1,7 @@
 """The forward of a segmentor with the map's height sharded over devices
-(``core.spatial``): the mesh's ``spatial`` axis for PEANUT's PSPNet and
-the dry run's, whole-map inference and the train forward alike.
+(``core.spatial``): the mesh's ``spatial`` axis for PEANUT's PSPNet, the
+dry run's and the model zoo's ResNet families, whole-map inference and
+the train forward alike.
 
 ``forward_rows(model, x)`` runs an ``EncoderDecoder`` over a ``Rows`` map
 with the same parameters and buffers as ``model(x)``: each module of the
@@ -22,19 +23,37 @@ arithmetic:
 * the logits are resized to the input's rows shard by shard
   (``spatial.resize``).
 
+Only what GSPMD would also exchange crosses the shards: halo rows, global
+pools and what is computed from them (a pooled branch, region tokens,
+dynamic filters, a gate), partial sums over the pixels (a codebook's
+aggregation, CAM's energy, EMA's bases, the means of DNL's whitening),
+a softmax over all pixels as a partial log-sum-exp (GC's and DNL's
+unary pooling), and the keys and values of whole-map attention, which
+each shard reads for its own query rows only (PAM, NonLocal, DNL, CC's
+columns).  A global vector goes through its module's own forward on the
+model's device (``nn.Linear``, ``nn.LayerNorm``, EncHead's ``enc_bn``);
+global sums are taken in float32 or wider.  No head gathers a
+full-height map.
+
 Sharded forms exist for ``nn.Conv2d``, ``layers.Conv2d``, ``ConvModule``,
 ``BatchNorm``, ``nn.ReLU``, ``nn.Sequential``, ``ZooBottleneck``,
 ``BasicBlock``, ``ZooResNet`` / ``ResNetV1c`` / ``ResNeXt``,
-``AdaptiveAvgPool``, ``PSPHead``, ``FCNHead`` and ``EncoderDecoder``
-without a neck.  Any other module type raises NotImplementedError naming
-it: the model zoo's other families over the spatial axis are ROADMAP A14
-part 3.  Nothing falls back to the unsharded model.
+``AdaptiveAvgPool``, the necks ``FPN`` (a segmentor's, without P6) and
+``JPU``, the heads ``PSPHead``, ``FCNHead``, ``UPerHead``, ``ASPPHead``,
+``DepthwiseSeparableASPPHead``, ``FPNHead``, ``APCHead``, ``DMHead``,
+``EncHead`` (its ``Encoding`` runs on each shard's block), ``ANNHead``,
+``GCHead``, ``EMAHead``, ``DAHead`` with ``PAM`` and ``CAM``, ``NLHead``,
+``DNLHead`` and ``CCHead``, and ``EncoderDecoder``.  Any other module
+type raises NotImplementedError naming it: ISAHead, PSAHead, OCRHead with
+``CascadeEncoderDecoder``, then the transformer, light-CNN and cascade
+families over the spatial axis, are ROADMAP A14 part 3.  Nothing falls
+back to the unsharded model.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +62,20 @@ from torch import nn
 from ..core import spatial
 from ..core.spatial import Rows, to
 from .encoder_decoder import EncoderDecoder
-from .heads import AdaptiveAvgPool, FCNHead, PSPHead
+from .fpn import FPN
+from .heads import (AdaptiveAvgPool, ASPPHead, DepthwiseSeparableASPPHead,
+                    FCNHead, PSPHead, UPerHead, tokens, untokens)
+from .heads_attention import CAM, DAHead, GCHead, NLHead, PAM
+from .heads_zoo import (ANNHead, APCHead, CCHead, DMHead, DNLHead, EMAHead,
+                        EncHead, FPNHead, _attend, _bn_last, _l2norm)
 from .layers import BatchNorm, Conv2d, ConvModule, remat
+from .necks import JPU
 from .resnet import BasicBlock, ResNetV1c, ResNeXt, ZooBottleneck, ZooResNet
+
+# what the spatial axis still lacks, named by every refusal
+_LEFT = ("the spatial axis over ISAHead, PSAHead, OCRHead with "
+         "CascadeEncoderDecoder, then the transformer, light-CNN and "
+         "cascade families, is ROADMAP A14 part 3")
 
 
 @dataclasses.dataclass
@@ -73,9 +103,7 @@ def run(m: nn.Module, x, ctx: _Context):
     fn = _FORWARDS.get(type(m))
     if fn is None:
         raise NotImplementedError(
-            f"{type(m).__name__} has no row-sharded forward: the spatial "
-            f"axis over the model zoo's other module types is ROADMAP A14 "
-            f"part 3")
+            f"{type(m).__name__} has no row-sharded forward: {_LEFT}")
     return fn(m, x, ctx)
 
 
@@ -87,12 +115,23 @@ def _sum_on(parts, device) -> torch.Tensor:
     return total
 
 
+def _sum_wide(parts, device, dtype: torch.dtype) -> torch.Tensor:
+    """The shards' partial sums added on ``device`` in float32 or wider,
+    returned in ``dtype``."""
+    wide = torch.promote_types(dtype, torch.float32)
+    return _sum_on((p.to(wide) for p in parts), device).to(dtype)
+
+
+def _hw(x: Rows):
+    return (x.height, x.shape[3])
+
+
 @_sharded(nn.Conv2d)
 def _conv(m: nn.Conv2d, x: Rows, ctx) -> Rows:
     if m.padding_mode != "zeros" or isinstance(m.padding, str):
         raise NotImplementedError(
             f"Conv2d with padding {m.padding!r} ({m.padding_mode}) has no "
-            f"row-sharded forward: ROADMAP A14 part 3")
+            f"row-sharded forward: {_LEFT}")
     return spatial.conv2d(x, m.weight, m.bias, m.stride, m.padding,
                           m.dilation, m.groups)
 
@@ -197,7 +236,8 @@ def _adaptive_pool(m: AdaptiveAvgPool, x: Rows, ctx) -> torch.Tensor:
 
 
 def _resize_like(x, size, align_corners: bool, devices) -> Rows:
-    """``heads.resize_like``: the resize back in x's type."""
+    """``heads.resize_like``: the resize back in x's type (``devices``:
+    a global map's shards; a row-sharded map keeps its own)."""
     dtype = x.dtype
     return spatial.resize(x, size, align_corners, devices).map(
         lambda b: b.to(dtype))
@@ -235,6 +275,359 @@ def _fcn_head(m: FCNHead, inputs, ctx) -> Rows:
     return _cls_seg(m, feats, ctx)
 
 
+# ---- the zoo's necks and convolutional heads -------------------------------
+
+@_sharded(FPN)
+def _fpn(m: FPN, feats, ctx) -> List[Rows]:
+    if m.bottom_up is not None or m.add_p6_pool:
+        raise NotImplementedError(
+            f"FPN with {'a bottom_up' if m.bottom_up is not None else 'P6'}"
+            f" has no row-sharded forward: {_LEFT}")
+    lat = [run(getattr(m, f"{m.prefix}lateral{lvl}"), f, ctx)
+           for lvl, f in zip(m.levels, feats)]
+    for i in range(len(lat) - 2, -1, -1):
+        lat[i] = lat[i] + spatial.upsample_nearest2(lat[i + 1], _hw(lat[i]))
+    return [run(getattr(m, f"{m.prefix}output{lvl}"), t, ctx)
+            for lvl, t in zip(m.levels, lat)]
+
+
+@_sharded(JPU)
+def _jpu(m: JPU, inputs, ctx) -> List[Rows]:
+    feats = list(inputs[m.start_level:])
+    convs = [run(getattr(m, f"conv{i}"), f, ctx) for i, f in enumerate(feats)]
+    hw = _hw(convs[0])
+    cat = spatial.cat([_resize_like(c, hw, m.align_corners, None)
+                       for c in convs])
+    outs = [run(getattr(m, f"dil{i}_pw"), _relu_of(
+        getattr(m, f"dil{i}_bn"), run(getattr(m, f"dil{i}_dw"), cat, ctx),
+        ctx), ctx) for i in range(len(m.dilations))]
+    return list(inputs[:m.start_level + 1]) + feats[1:-1] + [spatial.cat(outs)]
+
+
+def _pooled(m: nn.Module, x: Rows, size, ctx) -> torch.Tensor:
+    """``m`` (its own forward) on x's global adaptive pool at ``size``."""
+    return run(m, spatial.adaptive_avg_pool(x, size, ctx.home), ctx)
+
+
+@_sharded(UPerHead)
+def _uper_head(m: UPerHead, inputs, ctx) -> Rows:
+    feats = [inputs[i] for i in m.in_index]
+    top = feats[-1]
+    ppm = [top] + [_resize_like(_pooled(getattr(m, f"ppm{i}"), top, s, ctx),
+                                _hw(top), m.align_corners, top.devices)
+                   for i, s in enumerate(m.pool_scales)]
+    lat = [run(getattr(m, f"lateral{i}"), f, ctx)
+           for i, f in enumerate(feats[:-1])]
+    lat.append(run(m.ppm_bottleneck, spatial.cat(ppm), ctx))
+    for i in range(len(lat) - 2, -1, -1):
+        # the coarser level's rows, wherever they lie, onto this level's
+        lat[i] = lat[i] + _resize_like(lat[i + 1], _hw(lat[i]),
+                                       m.align_corners, None)
+    outs = [run(getattr(m, f"fpn_conv{i}"), lat[i], ctx)
+            for i in range(len(lat) - 1)] + [lat[-1]]
+    hw0 = _hw(outs[0])
+    fused = spatial.cat([_resize_like(f, hw0, m.align_corners, None)
+                         for f in outs])
+    return _cls_seg(m, run(m.fpn_bottleneck, fused, ctx), ctx)
+
+
+def _aspp(m, x: Rows, ctx) -> Rows:
+    img = _resize_like(_pooled(m.image_pool_conv, x, 1, ctx), _hw(x),
+                       m.align_corners, x.devices)
+    outs = [img] + [run(getattr(m, f"aspp{i}"), x, ctx)
+                    for i in range(m.n_aspp)]
+    return run(m.bottleneck, spatial.cat(outs), ctx)
+
+
+@_sharded(ASPPHead)
+def _aspp_head(m: ASPPHead, inputs, ctx) -> Rows:
+    return _cls_seg(m, _aspp(m, inputs[m.in_index], ctx), ctx)
+
+
+@_sharded(DepthwiseSeparableASPPHead)
+def _sep_aspp_head(m: DepthwiseSeparableASPPHead, inputs, ctx) -> Rows:
+    feats = _aspp(m, inputs[m.in_index], ctx)
+    c1 = run(m.c1_bottleneck, inputs[m.c1_index], ctx)
+    feats = spatial.cat([_resize_like(feats, _hw(c1), m.align_corners, None),
+                         c1])
+    return _cls_seg(m, run(m.sep_conv1, run(m.sep_conv0, feats, ctx), ctx),
+                    ctx)
+
+
+@_sharded(FPNHead)
+def _fpn_head(m: FPNHead, inputs, ctx) -> Rows:
+    feats = [inputs[i] for i in m.in_index]
+    h0, w0 = _hw(feats[0])
+    out = None
+    for i, f in enumerate(feats):
+        up = m.feature_strides[i] != m.feature_strides[0]
+        y = f
+        for j in range(m.n_convs[i]):
+            y = run(getattr(m, f"scale{i}_conv{j}"), y, ctx)
+            if up:
+                y = _resize_like(y, (min(y.height * 2, h0),
+                                     min(y.shape[3] * 2, w0)),
+                                 m.align_corners, None)
+        y = _resize_like(y, (h0, w0), m.align_corners, None)
+        out = y if out is None else out + y
+    return _cls_seg(m, out, ctx)
+
+
+# ---- the pooled-context heads: global pools and partial sums --------------
+
+def _untokens_like(t: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    return untokens(t, block.shape[2], block.shape[3])
+
+
+@_sharded(APCHead)
+def _apc_head(m: APCHead, inputs, ctx) -> Rows:
+    x = inputs[m.in_index]
+    outs = []
+    for i, s in enumerate(m.pool_scales):
+        region = tokens(_pooled(getattr(m, f"acm{i}_pooled"), x, s, ctx))
+
+        def affinity(b, region=region):
+            r = to(region, b.device)
+            aff = torch.softmax(torch.einsum("bnc,bmc->bnm", tokens(b), r),
+                                dim=-1)
+            return _untokens_like(torch.einsum("bnm,bmc->bnc", aff, r), b)
+
+        z = run(getattr(m, f"acm{i}_input"), x, ctx).map(affinity)
+        outs.append(run(getattr(m, f"acm{i}_out"), z, ctx))
+    return _cls_seg(m, run(m.bottleneck, spatial.cat(outs + [x]), ctx), ctx)
+
+
+@_sharded(DMHead)
+def _dm_head(m: DMHead, inputs, ctx) -> Rows:
+    x = inputs[m.in_index]
+    b = x.shape[0]
+    outs = []
+    for i, k in enumerate(m.filter_sizes):
+        filt = _pooled(getattr(m, f"dcm{i}_filter_gen"), x, k, ctx)
+        xr = run(getattr(m, f"dcm{i}_input"), x, ctx)
+        c = xr.shape[1]
+        # the batch folded into the groups, as the unsharded head does:
+        # each block's (1, B*C, h, W) view with its halo rows
+        y = spatial.conv2d(
+            xr.map(lambda t: t.reshape(1, b * c, t.shape[2], t.shape[3])),
+            filt.reshape(b * c, 1, k, k), None, 1, (k - 1) // 2, 1, b * c)
+        y = y.map(lambda t: t.reshape(b, c, t.shape[2], t.shape[3]))
+        outs.append(_relu_of(getattr(m, f"dcm{i}_bn"), y, ctx))
+    return _cls_seg(m, run(m.bottleneck, spatial.cat(outs + [x]), ctx), ctx)
+
+
+@_sharded(EncHead)
+def _enc_head(m: EncHead, inputs, ctx) -> Rows:
+    feats = [inputs[i] for i in m.in_index]
+    x = run(m.bottleneck, feats[-1], ctx)
+    if m.add_lateral:
+        lats = [_resize_like(run(getattr(m, f"lateral{i}"), f, ctx), _hw(x),
+                             m.align_corners, None)
+                for i, f in enumerate(feats[:-1])]
+        x = run(m.fusion, spatial.cat([x] + lats), ctx)
+    # the codewords' aggregation is a sum over the pixels: each shard's
+    encoded = _sum_wide((m.encoding(blk) for blk in x.blocks), ctx.home,
+                        x.dtype)
+    enc = F.relu(_bn_last(m.enc_bn, encoded)).mean(dim=1)
+    gamma = torch.sigmoid(m.fc(enc))
+    return _cls_seg(m, x.map(
+        lambda blk: blk * to(gamma, blk.device)[:, :, None, None]), ctx)
+
+
+def _ppm_tokens(x: Rows, scales, ctx) -> torch.Tensor:
+    """``heads_zoo._ppm_sample`` of a row-sharded map: global (B, M, C)."""
+    return torch.cat([tokens(spatial.adaptive_avg_pool(x, s, ctx.home))
+                      for s in scales], dim=1)
+
+
+def _ann_block(m: ANNHead, prefix: str, q_in: Rows, kv_in: Rows,
+               ctx) -> Rows:
+    k = _ppm_tokens(run(getattr(m, f"{prefix}_key"), kv_in, ctx),
+                    m.key_pool_scales, ctx)
+    v = _ppm_tokens(run(getattr(m, f"{prefix}_value"), kv_in, ctx),
+                    m.key_pool_scales, ctx)
+    return run(getattr(m, f"{prefix}_query"), q_in, ctx).map(
+        lambda b: _untokens_like(_attend(
+            tokens(b), to(k, b.device), to(v, b.device),
+            m.project_channels ** -0.5), b))
+
+
+@_sharded(ANNHead)
+def _ann_head(m: ANNHead, inputs, ctx) -> Rows:
+    low, high = [inputs[i] for i in m.in_index]
+    fused = spatial.cat([_ann_block(m, "afnb", high, low, ctx), high])
+    feats = run(m.bottleneck, run(m.afnb_out, fused, ctx), ctx)
+    out = spatial.cat([_ann_block(m, "apnb", feats, feats, ctx), feats])
+    return _cls_seg(m, run(m.apnb_out, out, ctx), ctx)
+
+
+def _softmax_pool(logits: Rows, values: Rows, ctx) -> torch.Tensor:
+    """sum over all pixels n of softmax_n(logits) * values_n: (B, 1, h, W)
+    logits, (B, C, h, W) values -> (B, C) on the model's device, in the
+    values' type.  The softmax over every shard's pixels as a partial
+    log-sum-exp in float32 or wider: the global max, then each shard's
+    sum of exp(l - max) and of its weighted values."""
+    dt = values.dtype
+    wide = torch.promote_types(dt, torch.float32)
+    parts = [(lb.flatten(1).to(wide), vb.flatten(2).to(wide))
+             for lb, vb in zip(logits.blocks, values.blocks)
+             if lb.shape[2] > 0]
+    top = torch.stack([to(lb.amax(dim=1), ctx.home)
+                       for lb, _ in parts]).amax(dim=0).detach()
+    norm = _sum_on([torch.exp(lb - to(top, lb.device)[:, None]).sum(dim=1)
+                    for lb, _ in parts], ctx.home)
+    pooled = _sum_on([torch.einsum("bn,bcn->bc", torch.exp(
+        lb - to(top, lb.device)[:, None]), vb) for lb, vb in parts], ctx.home)
+    return (pooled / norm[:, None]).to(dt)
+
+
+@_sharded(GCHead)
+def _gc_head(m: GCHead, inputs, ctx) -> Rows:
+    feats = run(m.conv0, inputs[m.in_index], ctx)
+    context = _softmax_pool(run(m.mask, feats, ctx), feats, ctx)
+    t = m.up(F.relu(m.ln(m.down(context))))
+    feats = feats.map(lambda b: b + to(t, b.device)[:, :, None, None])
+    return _cls_seg(m, run(m.conv1, feats, ctx), ctx)
+
+
+@_sharded(EMAHead)
+def _ema_head(m: EMAHead, inputs, ctx) -> Rows:
+    feats = run(m.ema_in_conv, inputs[m.in_index], ctx)
+    pix = [tokens(b) for b in run(m.ema_mid_conv, feats, ctx).blocks]
+    dt = feats.dtype
+    mu = m.bases.expand(feats.shape[0], -1, -1)
+    for _ in range(m.num_stages):
+        z = [torch.softmax(torch.einsum("bnc,bkc->bnk", p,
+                                        to(mu, p.device)), dim=-1)
+             for p in pix]
+        # z over its sum over all pixels, then the bases from the sum over
+        # all pixels: two partial sums a stage
+        norm = 1e-6 + _sum_wide((zi.sum(dim=1, keepdim=True) for zi in z),
+                                ctx.home, dt)
+        mu = _l2norm(_sum_wide(
+            (torch.einsum("bnk,bnc->bkc", zi / to(norm, zi.device), p)
+             for zi, p in zip(z, pix)), ctx.home, dt), -1)
+    recon = []
+    for p, blk in zip(pix, feats.blocks):
+        mu_d = to(mu, p.device)
+        r = torch.einsum("bnk,bkc->bnc", torch.softmax(
+            torch.einsum("bnc,bkc->bnk", p, mu_d), dim=-1), mu_d)
+        recon.append(F.relu(_untokens_like(r, blk)))
+    recon = run(m.ema_out_conv, Rows(recon, feats.height), ctx)
+    feats = (feats + recon).map(F.relu)
+    return _cls_seg(m, run(m.bottleneck, feats, ctx), ctx)
+
+
+@_sharded(CAM)
+def _cam(m: CAM, x: Rows, ctx) -> Rows:
+    energy = _sum_wide((torch.einsum("bcn,bdn->bcd", b.flatten(2),
+                                     b.flatten(2)) for b in x.blocks),
+                       ctx.home, x.dtype)
+    attn = torch.softmax(energy.amax(dim=-1, keepdim=True) - energy, dim=-1)
+
+    def out(b):
+        a = to(attn, b.device)
+        y = torch.einsum("bcd,bdn->bcn", a, b.flatten(2)).reshape(b.shape)
+        return b + to(m.gamma, b.device) * y
+    return x.map(out)
+
+
+# ---- whole-map attention: each shard's queries, every row's keys ----------
+
+def _all_rows(x: Rows, device, cache: dict) -> torch.Tensor:
+    """x's tokens of every row on ``device``, (B, H*W, C) in the global
+    row-major order, gathered once a device (shards that share a card
+    share them)."""
+    if device not in cache:
+        cache[device] = tokens(spatial.fetch_rows(x, 0, x.height, device))
+    return cache[device]
+
+
+def _whole_map_attention(q: Rows, k: Rows, v: Rows, scale=None) -> Rows:
+    """``heads_zoo._attend`` of each shard's query rows against the keys
+    and values of all rows: an (h_i W) x (H W) attention a shard."""
+    keys, values = {}, {}
+    return q.map(lambda b: _untokens_like(_attend(
+        tokens(b), _all_rows(k, b.device, keys),
+        _all_rows(v, b.device, values), scale), b))
+
+
+@_sharded(PAM)
+def _pam(m: PAM, x: Rows, ctx) -> Rows:
+    out = _whole_map_attention(*(run(c, x, ctx)
+                                 for c in (m.query, m.key, m.value)))
+    return x + out.map(lambda o: to(m.gamma, o.device) * o)
+
+
+@_sharded(DAHead)
+def _da_head(m: DAHead, inputs, ctx) -> Rows:
+    x = inputs[m.in_index]
+    pam = run(m.pam_out, run(m.pam, run(m.pam_in, x, ctx), ctx), ctx)
+    cam = run(m.cam_out, run(m.cam, run(m.cam_in, x, ctx), ctx), ctx)
+    return _cls_seg(m, pam + cam, ctx)
+
+
+@_sharded(NLHead)
+def _nl_head(m: NLHead, inputs, ctx) -> Rows:
+    feats = run(m.conv0, inputs[m.in_index], ctx)
+    y = _whole_map_attention(*(run(c, feats, ctx)
+                               for c in (m.theta, m.phi, m.g)))
+    feats = feats + run(m.out_proj, y, ctx)
+    return _cls_seg(m, run(m.conv1, feats, ctx), ctx)
+
+
+def _centred(x: Rows, ctx) -> Rows:
+    """x less its mean over all pixels (a partial sum a shard)."""
+    n = x.height * x.shape[3]
+    mean = _sum_wide((b.sum(dim=(2, 3)) for b in x.blocks), ctx.home,
+                     x.dtype) / n
+    return x.map(lambda b: b - to(mean, b.device)[:, :, None, None])
+
+
+@_sharded(DNLHead)
+def _dnl_head(m: DNLHead, inputs, ctx) -> Rows:
+    feats = run(m.conv0, inputs[m.in_index], ctx)
+    theta, phi, g = (run(c, feats, ctx) for c in (m.theta, m.phi, m.g))
+    pairwise = _whole_map_attention(_centred(theta, ctx), _centred(phi, ctx),
+                                    g, 1.0 / m.temperature)
+    unary = _softmax_pool(run(m.unary, feats, ctx), g, ctx)
+    y = pairwise.map(lambda b: b + to(unary, b.device)[:, :, None, None])
+    y = run(m.conv_out, y, ctx)
+    return _cls_seg(m, run(m.conv1, feats + y, ctx), ctx)
+
+
+@_sharded(CCHead)
+def _cc_head(m: CCHead, inputs, ctx) -> Rows:
+    x = inputs[m.in_index]
+    feats = run(m.conv0, x, ctx)
+    h = feats.height
+    y = feats
+    for _ in range(m.recurrence):
+        # NHWC views of each block, the unsharded head's einsum subscripts
+        q, k, v = ([t.permute(0, 2, 3, 1) for t in run(c, y, ctx).blocks]
+                   for c in (m.cca_query, m.cca_key, m.cca_value))
+        columns = {}
+        blocks = []
+        for qb, kb, vb, yb, (s, e) in zip(q, k, v, y.blocks, y.ranges):
+            dev = qb.device
+            if dev not in columns:       # every row's keys and values
+                columns[dev] = tuple(torch.cat([to(t, dev) for t in r],
+                                               dim=1) for r in (k, v))
+            k_all, v_all = columns[dev]
+            # the pixel itself among its column's keys, at its global row
+            diag = (torch.arange(s, e, device=dev)[:, None]
+                    == torch.arange(h, device=dev)[None, :])[:, None, :]
+            e_h = torch.einsum("bijc,bajc->bija", qb, k_all)
+            e_h = e_h.masked_fill(diag[None], -1e9)
+            e_w = torch.einsum("bijc,biuc->biju", qb, kb)
+            attn = torch.softmax(torch.cat([e_h, e_w], -1), dim=-1)
+            out = (torch.einsum("bija,bajc->bijc", attn[..., :h], v_all)
+                   + torch.einsum("biju,biuc->bijc", attn[..., h:], vb))
+            blocks.append(yb + to(m.cca_gamma, dev) * out.permute(0, 3, 1, 2))
+        y = Rows(blocks, h)
+    return _cls_seg(m, run(m.conv1, spatial.cat([x, y]), ctx), ctx)
+
+
 def forward_rows(model: EncoderDecoder, x: Rows,
                  train: Optional[bool] = None, with_aux: bool = False,
                  generator=None):
@@ -245,8 +638,7 @@ def forward_rows(model: EncoderDecoder, x: Rows,
     parallelism)."""
     if type(model) is not EncoderDecoder:
         raise NotImplementedError(
-            f"{type(model).__name__} has no row-sharded forward: ROADMAP "
-            f"A14 part 3")
+            f"{type(model).__name__} has no row-sharded forward: {_LEFT}")
     if train is not None:
         model.train(train)
     ctx = _Context(next(model.parameters()).device, generator)

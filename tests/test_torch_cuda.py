@@ -996,6 +996,41 @@ def test_spatial_prediction_on_the_card(cuda):
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def test_spatial_zoo_upernet_on_the_card(cuda):
+    """The spatial axis over the zoo's UPerNet-R50 on the card: its config
+    at the CPU tests' widths (ResNetV1c base 16, the heads' channels a
+    quarter), seeded, in float64 at 128 x 96, forward_rows over
+    ``[cuda] * 2`` against the card's unsharded forward and the CPU's,
+    within 1e-10 of the largest |logit|."""
+    import copy
+    import os
+
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.sharded import forward_rows
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        root, "configs/upernet/upernet_r50_512x1024_80k_cityscapes.py"))[
+            "model"]
+    cfg["backbone"].update(base_channels=16, stem_channels=16)
+    cfg["decode_head"].update(in_channels=(64, 128, 256, 512), channels=128)
+    cfg["auxiliary_head"].update(in_channels=256, channels=64)
+    model = build_segmentor(cfg, seed=0).double()
+    x = torch.as_tensor(np.random.RandomState(13).rand(1, 3, 128, 96))
+    with torch.no_grad():
+        want = model(x)
+        card = copy.deepcopy(model).to(cuda)
+        unsharded = card(x.to(cuda)).cpu()
+        got = spatial.gather(forward_rows(
+            card, spatial.shard(x.to(cuda), [cuda] * 2), train=False)).cpu()
+    top = float(want.abs().max())
+    assert got.shape == want.shape == (1, 19, 128, 96)
+    assert float((got - unsharded).abs().max()) <= 1e-10 * top
+    assert float((got - want).abs().max()) <= 1e-10 * top
+
+
 def test_swin_on_the_card_matches_the_cpu(cuda):
     """UPerNet-Swin-T at its config's widths (150 classes), seeded, in
     float64 on the card and the CPU on a 96x160 input (its 24x40 patch

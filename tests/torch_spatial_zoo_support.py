@@ -1,0 +1,300 @@
+"""Shared by the spatial axis's zoo tests (tests/test_torch_spatial_zoo*.py):
+the ResNet families whose heads have row-sharded forms, their port models
+carried from seeded JAX variables (random batch statistics, non-zero
+gates), and the checks each file runs on its families."""
+
+import copy
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from peanut_tpu_torch.core import spatial
+from peanut_tpu_torch.core.mesh import make_mesh, row_ranges
+from peanut_tpu_torch.models.sharded import forward_rows
+
+from torch_zoo_support import carry, family_config, jax_and_port, rel_err
+
+# the families by what crosses the shards, each with the module types of
+# models/sharded.py its config builds beyond the backbone's
+CONVOLUTIONAL = {"upernet": ("UPerHead",),
+                 "sem_fpn": ("FPN", "FPNHead"),
+                 "deeplabv3": ("ASPPHead",),
+                 "deeplabv3plus": ("DepthwiseSeparableASPPHead",),
+                 "fastfcn": ("JPU", "PSPHead")}
+POOLED = {"apcnet": ("APCHead",), "dmnet": ("DMHead",),
+          "encnet": ("EncHead", "Encoding"), "ann": ("ANNHead",),
+          "gcnet": ("GCHead",), "emanet": ("EMAHead",)}
+ATTENTION = {"danet": ("DAHead", "PAM", "CAM"), "nonlocal_net": ("NLHead",),
+             "dnlnet": ("DNLHead",), "ccnet": ("CCHead",)}
+FAMILIES = {**CONVOLUTIONAL, **POOLED, **ATTENTION}
+# the families whose config has the auxiliary head the train step needs
+TRAINABLE = tuple(f for f in FAMILIES if f not in ("sem_fpn", "fastfcn"))
+SHARDS = range(1, 9)
+TOL = 1e-12
+# (H, W) inputs: 128^2 leaves 16 rows at 1/8 (uneven over 3, 5, 6 and 7
+# shards) and 4 at UPerNet's 1/32; 40 x 64 leaves 5 rows at 1/8 and 2 at
+# 1/32, so 6 to 8 shards hold shards of no rows
+SHAPES = {"128x128": (128, 128), "40x64": (40, 64)}
+
+
+def cpus(k):
+    return ["cpu"] * k
+
+
+@functools.lru_cache(maxsize=None)
+def port_model(family: str):
+    """The family's first config at the shrunk widths, the JAX model's
+    seeded float64 variables carried into the port's model (eval mode):
+    (config, JAX variables, port model)."""
+    cfg = family_config(family)
+    _, variables, model, _ = jax_and_port(cfg, (64, 64))
+    return cfg, variables, model
+
+
+def image(hw):
+    """A seeded (1, 3, H, W) float64 image."""
+    g = torch.Generator().manual_seed(0)
+    return torch.rand((1, 3) + tuple(hw), generator=g, dtype=torch.float64)
+
+
+def check_forward_rows(family: str, hw) -> None:
+    """The port's ``forward_rows`` over ``["cpu"] * k`` for k = 1 ... 8
+    against its unsharded ``model(x)`` in float64, eval mode: within
+    ``TOL`` of the largest |logit|, the logits split as the input is."""
+    _, _, model = port_model(family)
+    x = image(hw)
+    with torch.no_grad():
+        want = model(x, train=False)
+        for k in SHARDS:
+            got = forward_rows(model, spatial.shard(x, cpus(k)), train=False)
+            assert [b.shape[2] for b in got.blocks] == \
+                [e - s for s, e in row_ranges(hw[0], k)]
+            assert rel_err(spatial.gather(got).numpy(),
+                           want.numpy()) <= TOL, k
+
+
+@functools.lru_cache(maxsize=None)
+def train_variables(family: str):
+    """The family's config for the train step (PEANUT's 14 channels in, 6
+    classes, the heads' dropout 0) and the JAX model's seeded float64
+    variables: (config, variables)."""
+    cfg, _, _ = port_model(family)
+    cfg = dict(cfg, backbone=dict(cfg["backbone"], in_channels=14))
+    for head in ("decode_head", "auxiliary_head"):
+        cfg[head] = dict(cfg[head], num_classes=6, dropout_ratio=0.0)
+    _, variables, _, _ = jax_and_port(cfg, (64, 64))
+    return cfg, variables
+
+
+def train_model(family: str, dropout: float = 0.0) -> nn.Module:
+    """A fresh port model carrying ``train_variables``, its heads'
+    dropout at ``dropout``."""
+    from peanut_tpu_torch.models.builder import build_segmentor
+    cfg, variables = train_variables(family)
+    model = carry(variables, build_segmentor(cfg))
+    for head in (model.decode_head, model.auxiliary_head):
+        head.dropout_ratio = dropout
+    return model
+
+
+def train_batch(b=2, hw=(64, 64), seed=5):
+    rng = np.random.RandomState(seed)
+    return {"img": rng.rand(b, *hw, 14),
+            "gt": (rng.rand(b, *hw, 6) > 0.9) * 255.0}
+
+
+def nchw(batch):
+    return {k: torch.as_tensor(np.ascontiguousarray(v.transpose(0, 3, 1, 2)))
+            for k, v in batch.items()}
+
+
+def check_train_grads(family: str, k: int) -> None:
+    """One ``loss_and_grads`` in train mode (batch statistics, the heads'
+    dropout 0.1 from one generator), float64, batch 2 at 64^2 with
+    PEANUT's 14 channels and 6 classes, sharded over ``["cpu"] * k``
+    against unsharded: losses within 1e-12 relative, every gradient
+    within 1e-9 of its tensor's largest |value| plus 1e-12 of the model's
+    largest (a bias before a softmax has a gradient of rounding alone),
+    the running statistics within 1e-12 of the largest."""
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   loss_and_grads)
+    batch = nchw(train_batch())
+    tcfg = TrainConfig(lr=1e-3, max_iters=50, seed=3)
+    runs = []
+    for devices in (None, cpus(k)):
+        state = create_train_state(train_model(family, 0.1), tcfg,
+                                   device="cpu")
+        state.step = 2
+        losses = loss_and_grads(state, batch, tcfg, devices)
+        runs.append(({n: float(v) for n, v in losses.items()},
+                     {n: p.grad for n, p in state.model.named_parameters()},
+                     {n: v for n, v in state.model.state_dict().items()
+                      if "running" in n}))
+    (want_l, want_g, want_s), (got_l, got_g, got_s) = runs
+    for name, v in want_l.items():
+        assert got_l[name] == pytest.approx(v, rel=1e-12), name
+    # EncHead's SE-loss classifier is in no output: no gradient either way
+    assert {n for n, g in got_g.items() if g is None} == \
+        {n for n, g in want_g.items() if g is None}
+    want_g = {n: g for n, g in want_g.items() if g is not None}
+    top = max(float(g.abs().max()) for g in want_g.values())
+    for name, w in want_g.items():
+        err = float((got_g[name] - w).abs().max())
+        assert err <= 1e-9 * float(w.abs().max()) + 1e-12 * top, name
+    top = max(float(s.abs().max()) for s in want_s.values())
+    for name, w in want_s.items():
+        assert float((got_s[name] - w).abs().max()) <= 1e-12 * top, name
+
+
+def check_against_jax(family: str) -> None:
+    """JAX's ``PredictionModel(model_cfg=...).get_prediction_sharded`` over
+    the 8 virtual CPU devices (GSPMD's exchanges) against the port's
+    ``get_prediction_sharded`` over ``["cpu"] * 8``, float32, from the same
+    variables, at 128^2 and 120 x 96 (uneven rows): within 1e-4
+    (tests/test_torch_spatial_2.py's bar; the port's float32 sharded
+    prediction is up to ~1.3e-5 from its unsharded one, the float64
+    checks hold the port to 1e-12)."""
+    import jax
+
+    from peanut_tpu.config import NavConfig as JNavConfig
+    from peanut_tpu.core.mesh import make_mesh as jmake_mesh
+    from peanut_tpu.prediction import PredictionModel as JPrediction
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.prediction import PredictionModel
+
+    assert len(jax.devices()) == 8
+    cfg, variables, model = port_model(family)
+    jcfg = JNavConfig()
+    jpm = JPrediction(jcfg, variables=variables, model_cfg=cfg)
+    pm = PredictionModel(NavConfig(**dataclasses.asdict(jcfg)),
+                         model=copy.deepcopy(model), device="cpu")
+    classes = cfg["decode_head"]["num_classes"]
+    for hw in ((128, 128), (120, 96)):
+        full_map = np.random.RandomState(1).rand(3, *hw).astype(np.float32)
+        want = jpm.get_prediction_sharded(full_map,
+                                          jmake_mesh({"spatial": 8}))
+        got = pm.get_prediction_sharded(full_map,
+                                        make_mesh({"spatial": 8}, cpus(8)))
+        assert got.shape == want.shape == (classes,) + hw
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def gathered_inputs(model: nn.Module, run, hw) -> list:
+    """The inputs of full-map size that the ``nn.Conv2d`` and ``nn.Linear``
+    modules of ``model``'s neck and heads receive through their own
+    forward while ``run()`` runs: a (B, C, h, w) map of a level's full
+    height and width, or (B, h * w, C) tokens of one.  A pooled map, a
+    global vector and a shard's block are none; a sharded convolution
+    calls no module's forward."""
+    with torch.no_grad():
+        levels = model.backbone(image(hw))
+        if model.neck is not None:
+            levels = list(levels) + list(model.neck(levels))
+    sizes = {tuple(f.shape[-2:]) for f in levels}
+    tokens = {h * w for h, w in sizes}
+    seen = []
+
+    def hook(mod, args):
+        t = args[0]
+        full = (t.dim() == 4 and tuple(t.shape[-2:]) in sizes) or (
+            t.dim() == 3 and t.shape[1] in tokens)
+        if full:
+            seen.append((type(mod).__name__, tuple(t.shape)))
+
+    parts = [m for m in (model.neck, model.decode_head, model.auxiliary_head)
+             if m is not None]
+    handles = [m.register_forward_pre_hook(hook) for part in parts
+               for m in part.modules() if isinstance(m, (nn.Conv2d,
+                                                         nn.Linear))]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def check_no_gathered_head(family: str, k: int = 2) -> None:
+    """No module of the neck or the heads gets a full-height map in
+    ``forward_rows`` over k shards; the unsharded forward, where every
+    one does, shows that the hooks see such maps."""
+    _, _, model = port_model(family)
+    hw = (96, 128)
+    x = image(hw)
+    assert gathered_inputs(model, lambda: model(x), hw)
+    assert gathered_inputs(model, lambda: forward_rows(
+        model, spatial.shard(x, cpus(k)), train=False), hw) == []
+
+
+def check_train_step_against_jax(family: str, k: int) -> None:
+    """One train step of the family (``train_variables``: 14 channels in,
+    6 classes, dropout 0, the auxiliary FCNHead) in float64 on both sides,
+    batch 2 at 64^2, its height over k shards: JAX's GSPMD step
+    (``make_train_step(mesh={"data": 1, "spatial": k}, spatial_axis=
+    "spatial")`` over k of the virtual CPU devices) against the port's
+    ``make_train_step(spatial_axis="spatial", mesh=make_mesh({"spatial":
+    k}, ["cpu"] * k))``, both with plain SGD at rate 1 (the update is the
+    gradient; Adam's first update is lr x sign(g), which a rounding flips
+    where g is near 0): the losses within 1e-9 relative, every gradient
+    within 1e-9 of the largest |gradient|, the batch statistics after the
+    step within 1e-9 of the largest statistic."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from peanut_tpu.core.mesh import make_mesh as jmake_mesh
+    from peanut_tpu.models import build_segmentor as jbuild
+    from peanut_tpu.prediction.train import TrainConfig as JTrainConfig
+    from peanut_tpu.prediction.train import create_train_state as jcreate
+    from peanut_tpu.prediction.train import make_train_step as jmake_step
+    from peanut_tpu_torch.models.mmseg_import import flax_to_torch_state
+    from peanut_tpu_torch.prediction.train import (TrainConfig,
+                                                   create_train_state,
+                                                   make_train_step)
+    cfg, variables = train_variables(family)
+    data = train_batch()
+    mesh = jmake_mesh({"data": 1, "spatial": k}, devices=jax.devices()[:k])
+    with jax.enable_x64(True):
+        jmodel = jbuild(cfg)
+        state, tx = jcreate(jmodel, jax.tree.map(jnp.asarray, variables),
+                            JTrainConfig(batch_size=2), tx=optax.sgd(1.0))
+        with mesh:
+            step, _ = jmake_step(jmodel, JTrainConfig(batch_size=2), tx,
+                                 mesh=mesh, spatial_axis="spatial")
+            state, metrics = step(state, {n: jnp.asarray(v)
+                                          for n, v in data.items()})
+        want_l = {n: float(v) for n, v in metrics.items()}
+        grads = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b),
+                             variables["params"], state.params)
+        stats = jax.tree.map(np.asarray, state.batch_stats)
+
+    model = train_model(family)
+    tcfg = TrainConfig(lr=1.0, min_lr=1.0, max_iters=50)
+    port = create_train_state(model, tcfg, device="cpu")
+    port.optimizer = torch.optim.SGD(model.parameters(), lr=1.0)
+    got_l = make_train_step(tcfg, spatial_axis="spatial",
+                            mesh=make_mesh({"spatial": k}, cpus(k)))(
+        port, nchw(data))
+    for name, v in want_l.items():
+        assert float(got_l[name]) == pytest.approx(v, rel=1e-9), name
+    want = flax_to_torch_state({"params": grads, "batch_stats": stats},
+                               model)
+    params = dict(model.named_parameters())
+    top = max(np.abs(want[n]).max() for n in params)
+    for name, p in params.items():
+        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=0,
+                                   atol=1e-9 * top, err_msg=name)
+    sd = model.state_dict()
+    running = [n for n in want if n.endswith(("running_mean",
+                                              "running_var"))]
+    top = max(np.abs(want[n]).max() for n in running)
+    for name in running:
+        np.testing.assert_allclose(sd[name].numpy(), want[name], rtol=0,
+                                   atol=1e-9 * top, err_msg=name)
