@@ -446,14 +446,17 @@ class FPNHead(DecodeHead):
         return self.cls_seg(out, generator)
 
 
-def _psa_index(h: int, w: int, device) -> torch.Tensor:
+def _psa_index(h: int, w: int, device, first: int = 0,
+               last=None) -> torch.Tensor:
     """idx[p, q]: the channel of the (2H-1)(2W-1) relative-position mask
     stack that links output pixel p = (i, j) to source pixel q = (a, b),
-    the gather form of mmcv's PSAMask, made on ``device``."""
+    the gather form of mmcv's PSAMask, made on ``device``; the rows p of
+    ``first`` to ``last`` (flat indices, all by default)."""
     n = torch.arange(h * w, device=device)
     i, j = n // w, n % w
-    return ((i[None, :] - i[:, None] + h - 1) * (2 * w - 1)
-            + (j[None, :] - j[:, None] + w - 1))
+    pi, pj = i[first:last], j[first:last]
+    return ((i[None, :] - pi[:, None] + h - 1) * (2 * w - 1)
+            + (j[None, :] - pj[:, None] + w - 1))
 
 
 class MaskConv(InputShaped):
@@ -470,15 +473,19 @@ class MaskConv(InputShaped):
         super().__init__()
         self.in_channels = in_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[-2:]
+    def weight_for(self, h: int, w: int, like: torch.Tensor) -> torch.Tensor:
+        """The weight of an (h, w) feature map's masks, bound now (on
+        ``like``'s device, in its type) if it is unbound.  A row-sharded
+        map binds it by the whole map's (h, w), never a block's."""
         m = (2 * h - 1) * (2 * w - 1)
-        weight = self.bind(
-            "weight", (m, self.in_channels, 1, 1), x,
+        return self.bind(
+            "weight", (m, self.in_channels, 1, 1), like,
             lambda t, g: lecun_normal_(t, self.in_channels, g),
             f"PSAHead's masks were shaped for other relative positions "
             f"than a {h}x{w} feature map's {m}")
-        return F.conv2d(x, weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight_for(x.shape[-2], x.shape[-1], x))
 
 
 @HEADS.register()
@@ -718,18 +725,27 @@ def point_sample(feats: torch.Tensor, points: torch.Tensor,
     package's arithmetic (``_sample_axis``): the corner weights in
     float32, the corners clamped to the map."""
     b, c, h, w = feats.shape
-    x0, x1, fx = _sample_axis(points[..., 0], w, align_corners)
-    y0, y1, fy = _sample_axis(points[..., 1], h, align_corners)
     flat = feats.reshape(b, c, h * w)
 
     def gather(yy, xx):
         idx = (yy * w + xx).long()
         return torch.gather(flat, 2, idx[:, None, :].expand(b, c, -1))
 
+    return bilinear_points(gather, points, h, w, align_corners).to(
+        feats.dtype)
+
+
+def bilinear_points(gather, points: torch.Tensor, h: int, w: int,
+                    align_corners: bool) -> torch.Tensor:
+    """``point_sample``'s sum over the four corners of each point of an
+    (h, w) map: ``gather(rows, cols)``, (B, P) cells each, gives the
+    corners' values (B, C, P)."""
+    x0, x1, fx = _sample_axis(points[..., 0], w, align_corners)
+    y0, y1, fy = _sample_axis(points[..., 1], h, align_corners)
     return (gather(y0, x0) * ((1 - fy) * (1 - fx))[:, None]
             + gather(y0, x1) * ((1 - fy) * fx)[:, None]
             + gather(y1, x0) * (fy * (1 - fx))[:, None]
-            + gather(y1, x1) * (fy * fx)[:, None]).to(feats.dtype)
+            + gather(y1, x1) * (fy * fx)[:, None])
 
 
 @HEADS.register()
@@ -762,7 +778,13 @@ class PointHead(DecodeHead):
         fine = torch.cat([point_sample(fine_feats[i], points,
                                        self.align_corners)
                           for i in self.in_index], dim=1)
-        coarse = point_sample(coarse_logits, points, self.align_corners)
+        return self.classify(fine, point_sample(coarse_logits, points,
+                                                self.align_corners))
+
+    def classify(self, fine: torch.Tensor,
+                 coarse: torch.Tensor) -> torch.Tensor:
+        """The MLP over the points' sampled fine features (B, C, P) and
+        coarse logits (B, K, P) -> point logits (B, K, P)."""
         x = torch.cat([fine, coarse], dim=1)
         for i in range(self.num_fcs):
             x = F.relu(getattr(self, f"fc{i}")(x))

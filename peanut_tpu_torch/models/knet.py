@@ -77,14 +77,19 @@ class KernelUpdateHead(nn.Module):
         hard = (torch.sigmoid(masks) > self.mask_thr).to(feats.dtype)
         denom = torch.clamp(hard.sum(dim=(2, 3)), min=1.0)       # (B, K)
         group = torch.einsum("bkhw,bchw->bkc", hard, feats) / denom[..., None]
+        kernels, mask_feat = self.update(group, kernels)
+        new_masks = torch.einsum("bkc,bchw->bkhw", mask_feat, feats)
+        return kernels, new_masks / math.sqrt(c)
+
+    def update(self, group: torch.Tensor, kernels: torch.Tensor):
+        """The (B, K, C) group features and kernels -> the updated kernels
+        and the mask features the new masks are their product with."""
         kernels = self.kernel_update_conv(group, kernels)
         kernels = self.attention_norm(
             kernels + self.attention(kernels, kernels))
         y = self.ffn_fc2(gelu(self.ffn_fc1(kernels), approximate=True))
         kernels = self.ffn_norm(kernels + y)
-        mask_feat = F.relu(self.mask_fc_norm(self.mask_fc(kernels)))
-        new_masks = torch.einsum("bkc,bchw->bkhw", mask_feat, feats)
-        return kernels, new_masks / math.sqrt(c)
+        return kernels, F.relu(self.mask_fc_norm(self.mask_fc(kernels)))
 
 
 @HEADS.register()

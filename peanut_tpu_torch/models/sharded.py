@@ -3,12 +3,12 @@
 dry run's and the model zoo's ResNet families, whole-map inference and
 the train forward alike.
 
-``forward_rows(model, x)`` runs an ``EncoderDecoder`` over a ``Rows`` map
-with the same parameters and buffers as ``model(x)``: each module of the
-model runs over the row blocks through its sharded form below, a map made
-global by a pooling (PSPHead's pyramid) through the module's own forward
-on the model's device.  The result equals the unsharded forward in exact
-arithmetic:
+``forward_rows(model, x)`` runs an ``EncoderDecoder`` (or a cascade) over
+a ``Rows`` map with the same parameters and buffers as ``model(x)``: each
+module of the model runs over the row blocks through its sharded form
+below, a map made global by a pooling (PSPHead's pyramid) through the
+module's own forward on the model's device.  The result equals the
+unsharded forward in exact arithmetic:
 
 * convolutions and the stem's max pool take their halo rows from the
   shards that hold them (``spatial.conv2d``, ``spatial.max_pool2d``);
@@ -26,33 +26,41 @@ arithmetic:
 Only what GSPMD would also exchange crosses the shards: halo rows, global
 pools and what is computed from them (a pooled branch, region tokens,
 dynamic filters, a gate), partial sums over the pixels (a codebook's
-aggregation, CAM's energy, EMA's bases, the means of DNL's whitening),
-a softmax over all pixels as a partial log-sum-exp (GC's and DNL's
-unary pooling), and the keys and values of whole-map attention, which
-each shard reads for its own query rows only (PAM, NonLocal, DNL, CC's
-columns).  A global vector goes through its module's own forward on the
-model's device (``nn.Linear``, ``nn.LayerNorm``, EncHead's ``enc_bn``);
-global sums are taken in float32 or wider.  No head gathers a
-full-height map.
+aggregation, CAM's energy, EMA's bases, the means of DNL's whitening,
+OCR's class centroids, K-Net's group features, PSA's distribution), a
+softmax over all pixels as a partial log-sum-exp (GC's and DNL's unary
+pooling, OCR's soft regions), the keys and values of whole-map
+attention, which each shard reads for its own query rows only (PAM,
+NonLocal, DNL, CC's columns, ISA's row classes, PSA's collection), and
+PointRend's cells (each shard's most uncertain, merged; each point's
+corners from the shards that hold their rows).  A global vector goes
+through its module's own forward on the model's device (``nn.Linear``,
+``nn.LayerNorm``, EncHead's ``enc_bn``, K-Net's kernel update, the point
+head's MLP); global sums are taken in float32 or wider.  No head gathers
+a full-height map.
 
 Sharded forms exist for ``nn.Conv2d``, ``layers.Conv2d``, ``ConvModule``,
 ``BatchNorm``, ``nn.ReLU``, ``nn.Sequential``, ``ZooBottleneck``,
 ``BasicBlock``, ``ZooResNet`` / ``ResNetV1c`` / ``ResNeXt``,
-``AdaptiveAvgPool``, the necks ``FPN`` (a segmentor's, without P6) and
+``AdaptiveAvgPool``, the necks ``FPN`` (a segmentor's, P6 included) and
 ``JPU``, the heads ``PSPHead``, ``FCNHead``, ``UPerHead``, ``ASPPHead``,
 ``DepthwiseSeparableASPPHead``, ``FPNHead``, ``APCHead``, ``DMHead``,
 ``EncHead`` (its ``Encoding`` runs on each shard's block), ``ANNHead``,
 ``GCHead``, ``EMAHead``, ``DAHead`` with ``PAM`` and ``CAM``, ``NLHead``,
-``DNLHead`` and ``CCHead``, and ``EncoderDecoder``.  Any other module
-type raises NotImplementedError naming it: ISAHead, PSAHead, OCRHead with
-``CascadeEncoderDecoder``, then the transformer, light-CNN and cascade
-families over the spatial axis, are ROADMAP A14 part 3.  Nothing falls
-back to the unsharded model.
+``DNLHead``, ``CCHead``, ``ISAHead``, ``PSAHead`` (its masks bound by the
+whole map's size), ``OCRHead``, K-Net's ``IterativeDecodeHead`` and
+``PointHead`` (the subdivision and the training pass), and the segmentors
+``EncoderDecoder`` and ``CascadeEncoderDecoder``: every family of the
+zoo over its ResNets.  Any other module type raises NotImplementedError
+naming it: the transformer and light-CNN families, ``slide`` over a
+sharded map and ``layers.SameConv2d`` are ROADMAP A14 part 3.  Nothing
+falls back to the unsharded model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -61,27 +69,33 @@ from torch import nn
 
 from ..core import spatial
 from ..core.spatial import Rows, to
+from .boxes import top_k
+from .cascade import CascadeEncoderDecoder
 from .encoder_decoder import EncoderDecoder
 from .fpn import FPN
 from .heads import (AdaptiveAvgPool, ASPPHead, DepthwiseSeparableASPPHead,
-                    FCNHead, PSPHead, UPerHead, tokens, untokens)
+                    FCNHead, OCRHead, PSPHead, UPerHead, tokens, untokens)
 from .heads_attention import CAM, DAHead, GCHead, NLHead, PAM
 from .heads_zoo import (ANNHead, APCHead, CCHead, DMHead, DNLHead, EMAHead,
-                        EncHead, FPNHead, _attend, _bn_last, _l2norm)
+                        EncHead, FPNHead, ISAHead, PointHead, PSAHead,
+                        _attend, _bn_last, _l2norm, _psa_index,
+                        bilinear_points)
+from .knet import IterativeDecodeHead
 from .layers import BatchNorm, Conv2d, ConvModule, remat
 from .necks import JPU
 from .resnet import BasicBlock, ResNetV1c, ResNeXt, ZooBottleneck, ZooResNet
 
 # what the spatial axis still lacks, named by every refusal
-_LEFT = ("the spatial axis over ISAHead, PSAHead, OCRHead with "
-         "CascadeEncoderDecoder, then the transformer, light-CNN and "
-         "cascade families, is ROADMAP A14 part 3")
+_LEFT = ("the spatial axis over the transformer and light-CNN families "
+         "(their backbones, necks and heads), slide inference over a "
+         "sharded map and layers.SameConv2d is ROADMAP A14 part 3")
 
 
 @dataclasses.dataclass
 class _Context:
     home: torch.device              # the model's device: global maps
     generator: Optional[object]     # the heads' dropout stream
+    trace: Optional[dict] = None    # what the heads decided (forward_rows)
 
 
 _FORWARDS: Dict[type, Callable] = {}
@@ -279,16 +293,21 @@ def _fcn_head(m: FCNHead, inputs, ctx) -> Rows:
 
 @_sharded(FPN)
 def _fpn(m: FPN, feats, ctx) -> List[Rows]:
-    if m.bottom_up is not None or m.add_p6_pool:
+    if m.bottom_up is not None:
         raise NotImplementedError(
-            f"FPN with {'a bottom_up' if m.bottom_up is not None else 'P6'}"
-            f" has no row-sharded forward: {_LEFT}")
+            f"FPN with a bottom_up (Mask R-CNN's) has no row-sharded "
+            f"forward: {_LEFT}")
     lat = [run(getattr(m, f"{m.prefix}lateral{lvl}"), f, ctx)
            for lvl, f in zip(m.levels, feats)]
     for i in range(len(lat) - 2, -1, -1):
         lat[i] = lat[i] + spatial.upsample_nearest2(lat[i + 1], _hw(lat[i]))
-    return [run(getattr(m, f"{m.prefix}output{lvl}"), t, ctx)
+    outs = [run(getattr(m, f"{m.prefix}output{lvl}"), t, ctx)
             for lvl, t in zip(m.levels, lat)]
+    if m.add_p6_pool:
+        # P5's even global rows and columns: the pool's stride counts
+        # from the map's row 0, whichever shard holds it
+        outs.append(spatial.max_pool2d(outs[-1], 1, 2, 0))
+    return outs
 
 
 @_sharded(JPU)
@@ -462,29 +481,36 @@ def _ann_head(m: ANNHead, inputs, ctx) -> Rows:
 
 
 def _softmax_pool(logits: Rows, values: Rows, ctx) -> torch.Tensor:
-    """sum over all pixels n of softmax_n(logits) * values_n: (B, 1, h, W)
-    logits, (B, C, h, W) values -> (B, C) on the model's device, in the
-    values' type.  The softmax over every shard's pixels as a partial
-    log-sum-exp in float32 or wider: the global max, then each shard's
-    sum of exp(l - max) and of its weighted values."""
+    """For each of K logit maps, the sum over all pixels n of
+    softmax_n(logits) * values_n: (B, K, h, W) logits, (B, C, h, W)
+    values -> (B, K, C) on the model's device, in the values' type.  The
+    softmax over every shard's pixels as a partial log-sum-exp in float32
+    or wider: the global max, then each shard's sum of exp(l - max) and
+    of its weighted values."""
     dt = values.dtype
     wide = torch.promote_types(dt, torch.float32)
-    parts = [(lb.flatten(1).to(wide), vb.flatten(2).to(wide))
+    parts = [(lb.flatten(2).to(wide), vb.flatten(2).to(wide))
              for lb, vb in zip(logits.blocks, values.blocks)
              if lb.shape[2] > 0]
-    top = torch.stack([to(lb.amax(dim=1), ctx.home)
+    top = torch.stack([to(lb.amax(dim=2), ctx.home)
                        for lb, _ in parts]).amax(dim=0).detach()
-    norm = _sum_on([torch.exp(lb - to(top, lb.device)[:, None]).sum(dim=1)
-                    for lb, _ in parts], ctx.home)
-    pooled = _sum_on([torch.einsum("bn,bcn->bc", torch.exp(
-        lb - to(top, lb.device)[:, None]), vb) for lb, vb in parts], ctx.home)
-    return (pooled / norm[:, None]).to(dt)
+    weights = [torch.exp(lb - to(top, lb.device)[..., None])
+               for lb, _ in parts]
+    norm = _sum_on([e.sum(dim=2) for e in weights], ctx.home)
+    pooled = _sum_on([torch.einsum("bkn,bcn->bkc", e, vb)
+                      for e, (_, vb) in zip(weights, parts)], ctx.home)
+    return (pooled / norm[..., None]).to(dt)
+
+
+def _dense(lin: nn.Linear, t: torch.Tensor) -> torch.Tensor:
+    """``lin`` on a shard's tokens, its parameters read where they lie."""
+    return F.linear(t, to(lin.weight, t.device), to(lin.bias, t.device))
 
 
 @_sharded(GCHead)
 def _gc_head(m: GCHead, inputs, ctx) -> Rows:
     feats = run(m.conv0, inputs[m.in_index], ctx)
-    context = _softmax_pool(run(m.mask, feats, ctx), feats, ctx)
+    context = _softmax_pool(run(m.mask, feats, ctx), feats, ctx)[:, 0]
     t = m.up(F.relu(m.ln(m.down(context))))
     feats = feats.map(lambda b: b + to(t, b.device)[:, :, None, None])
     return _cls_seg(m, run(m.conv1, feats, ctx), ctx)
@@ -590,7 +616,7 @@ def _dnl_head(m: DNLHead, inputs, ctx) -> Rows:
     theta, phi, g = (run(c, feats, ctx) for c in (m.theta, m.phi, m.g))
     pairwise = _whole_map_attention(_centred(theta, ctx), _centred(phi, ctx),
                                     g, 1.0 / m.temperature)
-    unary = _softmax_pool(run(m.unary, feats, ctx), g, ctx)
+    unary = _softmax_pool(run(m.unary, feats, ctx), g, ctx)[:, 0]
     y = pairwise.map(lambda b: b + to(unary, b.device)[:, :, None, None])
     y = run(m.conv_out, y, ctx)
     return _cls_seg(m, run(m.conv1, feats + y, ctx), ctx)
@@ -628,24 +654,337 @@ def _cc_head(m: CCHead, inputs, ctx) -> Rows:
     return _cls_seg(m, run(m.conv1, spatial.cat([x, y]), ctx), ctx)
 
 
+# ---- region and kernel heads: partial sums over the pixels ---------------
+
+@_sharded(OCRHead)
+def _ocr_head(m: OCRHead, inputs, ctx, prev: Optional[Rows] = None) -> Rows:
+    """``prev``: a cascade's earlier stage's logits, the soft regions."""
+    feats = run(m.bottleneck, inputs[m.in_index], ctx)
+    regions = run(m.soft_regions, feats, ctx) if prev is None else prev
+    # the class centroids: a softmax over all pixels a class
+    context = _softmax_pool(regions.map(lambda b: b * m.scale), feats, ctx)
+    key, value = m.key(context), m.value(context)
+    norm = math.sqrt(float(m.ocr_channels))
+
+    def attend(b):
+        pixels = tokens(b)
+        sim = torch.einsum("bpc,bkc->bpk", _dense(m.query, pixels),
+                           to(key, b.device)) / norm
+        ocr = torch.einsum("bpk,bkc->bpc", torch.softmax(sim, dim=-1),
+                           to(value, b.device))
+        return _untokens_like(torch.cat([pixels, _dense(m.up_proj, ocr)],
+                                        dim=-1), b)
+    return _cls_seg(m, run(m.fuse, feats.map(attend), ctx), ctx)
+
+
+@_sharded(IterativeDecodeHead)
+def _knet_head(m: IterativeDecodeHead, inputs, ctx) -> Rows:
+    feats = run(m.generate_conv, inputs[m.in_index], ctx)
+    masks = _cls_seg(m, feats, ctx)
+    kernels = m.kernel_seed.expand(feats.shape[0], -1, -1)
+    dt, c = feats.dtype, feats.shape[1]
+    for i in range(m.num_stages):
+        stage = getattr(m, f"kernel_update_head{i}")
+        hard = masks.map(lambda b: (torch.sigmoid(b) > stage.mask_thr)
+                         .to(dt))
+        if ctx.trace is not None:
+            ctx.trace.setdefault("knet_hard", []).append(hard)
+        # each group's pixel sum and the global count under its hard mask
+        denom = torch.clamp(_sum_wide((hb.sum(dim=(2, 3))
+                                       for hb in hard.blocks), ctx.home, dt),
+                            min=1.0)
+        group = _sum_wide((torch.einsum("bkhw,bchw->bkc", hb, fb)
+                           for hb, fb in zip(hard.blocks, feats.blocks)),
+                          ctx.home, dt) / denom[..., None]
+        kernels, mask_feat = stage.update(group, kernels)
+        masks = feats.map(lambda b: torch.einsum(
+            "bkc,bchw->bkhw", to(mask_feat, b.device), b) / math.sqrt(c))
+    return masks
+
+
+# ---- ISA's and PSA's sparse and pointwise attention ------------------------
+
+@_sharded(ISAHead)
+def _isa_head(m: ISAHead, inputs, ctx) -> Rows:
+    """The map padded to a multiple of ``down_factor`` (zeros, ``pad_h //
+    2`` rows on top), in padded rows R = p qh + r: the global stage
+    attends within each row class r (rows r, qh + r, ...: the whole map),
+    the local stage within each band p of qh rows.  Each shard attends
+    with its queries over the whole bands its rows touch, against the
+    global stage's keys and values of every padded row (gathered once a
+    device; a padding row's are the projections' biases), so a band that
+    straddles a shard's edge is computed by both shards from the halo rows
+    of the input, and each keeps its own rows."""
+    feats = run(m.in_conv, inputs[m.in_index], ctx)
+    b, c, h, w = feats.shape
+    ph, pw = m.down_factor
+    qh, qw = -(-h // ph), -(-w // pw)
+    top, left = (qh * ph - h) // 2, (qw * pw - w) // 2
+    bottom, right = qh * ph - h - top, qw * pw - w - left
+    scale = m.isa_channels ** -0.5
+
+    def nhwc(t):                     # NCHW rows -> NHWC, columns padded
+        return F.pad(t, (left, right)).permute(0, 2, 3, 1)
+
+    def groups(t, bands, a, x):      # (B, bands qh, Wp, C) -> a stage's
+        t = t.reshape(b, bands, qh, pw, qw, t.shape[-1])
+        return t.permute(0, *a, 5).reshape(b * x[0], x[1], t.shape[-1])
+
+    def all_rows(lin, proj: Rows, dev, cache):
+        """``lin``'s projection of every padded row on dev (each shard's
+        rows ``proj``), grouped by row class."""
+        if dev not in cache:
+            pads = [_dense(lin, feats.blocks[0].new_zeros(
+                (b, n, qw * pw, c), device=dev)) for n in (top, bottom)]
+            full = torch.cat([pads[0], spatial.fetch_rows(
+                proj, 0, h, dev).permute(0, 2, 3, 1), pads[1]], dim=1)
+            cache[dev] = groups(full, ph, (2, 4, 1, 3), (qh * qw, ph * pw))
+        return cache[dev]
+
+    k_rows, v_rows = (Rows([_dense(lin, nhwc(blk)).permute(0, 3, 1, 2)
+                            for blk in feats.blocks], h)
+                      for lin in (m.global_k, m.global_v))
+    keys, values = {}, {}
+    blocks = []
+    for blk, (s, e) in zip(feats.blocks, feats.ranges):
+        dev = blk.device
+        if e == s:
+            blocks.append(blk)
+            continue
+        p0, p1 = (s + top) // qh, (e + top - 1) // qh + 1
+        nb = p1 - p0
+        x = nhwc(spatial.fetch_padded(feats, p0 * qh - top, p1 * qh - top,
+                                      dev))
+        q = groups(_dense(m.global_q, x), nb, (2, 4, 1, 3), (qh * qw,
+                                                            nb * pw))
+        g = _attend(q, all_rows(m.global_k, k_rows, dev, keys),
+                    all_rows(m.global_v, v_rows, dev, values), scale)
+        g = g.reshape(b, qh, qw, nb, pw, c).permute(0, 3, 1, 4, 2, 5)
+        t = groups(g.reshape(b, nb * qh, qw * pw, c), nb, (1, 3, 2, 4),
+                   (nb * pw, qh * qw))
+        t = _attend(*(_dense(getattr(m, f"local_{n}"), t) for n in "qkv"),
+                    scale)
+        y = t.reshape(b, nb, pw, qh, qw, c).permute(0, 1, 3, 2, 4, 5)
+        y = y.reshape(b, nb * qh, qw * pw, c)
+        r0 = s + top - p0 * qh
+        blocks.append(y[:, r0:r0 + e - s, left:left + w].permute(0, 3, 1, 2))
+    out = run(m.out_conv, spatial.cat([feats, Rows(blocks, h)]), ctx)
+    return _cls_seg(m, out, ctx)
+
+
+@_sharded(PSAHead)
+def _psa_head(m: PSAHead, inputs, ctx) -> Rows:
+    """Each pixel's (2H-1)(2W-1) masks lie at the pixel: the collect
+    branch's softmax over the source pixels is a shard's own, against the
+    values of every row (gathered once a device); the distribute branch's
+    sum over the mask's pixels is each shard's partial (B, N, C), those
+    added in float32 or wider on the shard that keeps the output rows.
+    The shards' masks are made one shard at a time, each consumed before
+    the next."""
+    x = inputs[m.in_index]
+    h, w = _hw(x)
+    n = x.shape[0]
+
+    def affinities(p: str):
+        y = run(getattr(m, f"{p}_attn0"), run(getattr(m, f"{p}_reduce"), x,
+                                                ctx), ctx)
+        # bound by the whole map's size, whatever a block's
+        weight = getattr(m, f"{p}_attn1").weight_for(
+            h, w, x.blocks[0].new_empty(0, device=ctx.home))
+        for blk, (s, e) in zip(y.blocks, y.ranges):
+            if e == s:
+                yield blk.new_zeros((n, 0, h * w))
+                continue
+            mask = tokens(F.conv2d(blk, to(weight, blk.device)))
+            idx = _psa_index(h, w, blk.device, s * w, e * w)
+            aff = torch.gather(mask, -1, idx[None].expand(n, -1, -1))
+            del mask, idx
+            yield torch.softmax(aff, dim=-1) if m.psa_softmax else aff
+
+    vals = {}
+    collect = [torch.einsum("bnm,bmc->bnc", a, _all_rows(x, blk.device,
+                                                          vals))
+               for a, blk in zip(affinities("collect"), x.blocks)]
+    parts = [torch.einsum("bmn,bmc->bnc", a, tokens(blk))
+             for a, blk in zip(affinities("distribute"), x.blocks)]
+    y = []
+    for col, blk, (s, e) in zip(collect, x.blocks, x.ranges):
+        dist = _sum_wide((p[:, s * w:e * w] for p in parts), blk.device,
+                         x.dtype)
+        y.append(_untokens_like(torch.cat([col, dist], dim=-1), blk))
+    y = run(m.proj, Rows(y, h), ctx)
+    return _cls_seg(m, run(m.bottleneck, spatial.cat([x, y]), ctx), ctx)
+
+
+# ---- PointRend's cascade: the point head over row-sharded maps -------------
+
+def _point_sample_rows(x: Rows, points: torch.Tensor, align_corners: bool,
+                       home) -> torch.Tensor:
+    """``heads_zoo.point_sample`` of a row-sharded map at global points
+    (B, P, 2) on ``home``: each corner's value from the shard that holds
+    its row (every other shard adds an exact zero), then the unsharded
+    corner sum -> (B, C, P) on ``home``."""
+    n, c, h, w = x.shape
+
+    def gather(yy, xx):
+        total = None
+        for blk, (s, e) in zip(x.blocks, x.ranges):
+            if e == s:
+                continue
+            dev = blk.device
+            yl, xl = to(yy, dev), to(xx, dev)
+            idx = ((yl.clamp(s, e - 1) - s) * w + xl).long()
+            got = torch.gather(blk.reshape(n, c, (e - s) * w), 2,
+                               idx[:, None, :].expand(n, c, -1))
+            got = to(torch.where(((yl >= s) & (yl < e))[:, None], got,
+                                 torch.zeros_like(got)), home)
+            total = got if total is None else total + got
+        return total
+
+    return bilinear_points(gather, points, h, w, align_corners).to(x.dtype)
+
+
+def _most_uncertain(logits: Rows, k: int, ctx):
+    """``boxes.top_k`` of PointHead.uncertainty over all shards' cells:
+    (B, k) global flat indices on the model's device, most uncertain
+    first, ties by the lower index.  Each shard's own top k, by global
+    index; in shard order a tie's candidates come in index order, so the
+    stable merge keeps it."""
+    n, _, h, w = logits.shape
+    vals, idx = [], []
+    for blk, (s, e) in zip(logits.blocks, logits.ranges):
+        if e == s:
+            continue
+        unc = PointHead.uncertainty(blk).reshape(n, (e - s) * w)
+        v, i = top_k(unc, min(k, unc.shape[1]))
+        vals.append(to(v, ctx.home))
+        idx.append(to(i, ctx.home) + s * w)
+    order = top_k(torch.cat(vals, dim=1), k)[1]
+    return torch.gather(torch.cat(idx, dim=1), 1, order)
+
+
+def _point_logits(head: PointHead, feats, coarse: Rows, idx, ctx):
+    """The point head at the cells ``idx`` (B, P) of ``coarse``'s grid:
+    point logits (B, K, P) and the points (B, P, 2)."""
+    h, w = _hw(coarse)
+    ys = torch.div(idx, w, rounding_mode="floor").float()
+    xs = (idx % w).float()
+    pts = torch.stack([(xs + 0.5) / w, (ys + 0.5) / h], dim=-1)
+    fine = torch.cat([_point_sample_rows(feats[i], pts, head.align_corners,
+                                         ctx.home)
+                      for i in head.in_index], dim=1)
+    return head.classify(fine, _point_sample_rows(
+        coarse, pts, head.align_corners, ctx.home)), pts
+
+
+def _write_cells(x: Rows, idx: torch.Tensor, values: torch.Tensor) -> Rows:
+    """x with the cells ``idx`` (B, P, global flat) set to ``values`` (B,
+    K, P), each shard writing those it holds (the others into a slot it
+    drops)."""
+    n, k, _, w = x.shape
+    out = []
+    for blk, (s, e) in zip(x.blocks, x.ranges):
+        cells = (e - s) * w
+        local = to(idx, blk.device) - s * w
+        local = torch.where((local >= 0) & (local < cells), local, cells)
+        flat = torch.cat([blk.reshape(n, k, cells),
+                          blk.new_zeros((n, k, 1))], dim=2)
+        flat = flat.scatter(2, local[:, None, :].expand(n, k, -1),
+                            to(values, blk.device).to(blk.dtype))
+        out.append(flat[..., :cells].reshape(blk.shape))
+    return Rows(out, x.height)
+
+
+def _subdivide(model: CascadeEncoderDecoder, feats, logits: Rows,
+               ctx) -> Rows:
+    """``CascadeEncoderDecoder.subdivide`` over row-sharded logits: each
+    round's x2 resize shard by shard, the most uncertain cells of the
+    whole map, the point head's logits written back by the shards that
+    hold the cells.  The chosen cells of each round go to ``ctx.trace``
+    (``point_cells``)."""
+    head = model.heads()[-1]
+    cfg = model.test_cfg
+    num_points = int(cfg.get("subdivision_num_points", 1024))
+    steps = int(cfg.get("subdivision_steps", 2))
+    scale = int(cfg.get("scale_factor", 2))
+    refined = logits
+    for _ in range(steps):
+        h2, w2 = refined.height * scale, refined.shape[3] * scale
+        refined = _resize_like(refined, (h2, w2), model.align_corners, None)
+        idx = _most_uncertain(refined, min(num_points, h2 * w2), ctx)
+        point_logits, _ = _point_logits(head, feats, refined, idx, ctx)
+        refined = _write_cells(refined, idx, point_logits)
+        if ctx.trace is not None:
+            ctx.trace.setdefault("point_cells", []).append(idx)
+    return refined
+
+
+def _cascade(model: CascadeEncoderDecoder, feats, hw, with_aux: bool,
+             with_points: bool, ctx):
+    """``CascadeEncoderDecoder.forward`` from the row-sharded features."""
+    stages, prev = [], None
+    for head in model.heads():
+        if isinstance(head, PointHead):
+            break
+        if prev is None:
+            prev = run(head, feats, ctx)
+        elif isinstance(head, OCRHead):
+            prev = _ocr_head(head, feats, ctx, prev)
+        else:
+            raise TypeError(f"{type(head).__name__} takes no prev_logits")
+        stages.append(prev)
+    pointed = isinstance(model.heads()[-1], PointHead)
+    if not model.training:
+        logits = stages[-1]
+        if pointed:
+            logits = _subdivide(model, feats, logits, ctx)
+        return spatial.resize(logits, hw, model.align_corners)
+    outs = [spatial.resize(o, hw, model.align_corners) for o in stages]
+    if with_aux and model.auxiliary_head is not None:
+        outs.append(spatial.resize(run(model.auxiliary_head, feats, ctx),
+                                   hw, model.align_corners))
+    out = tuple(outs) if len(outs) > 1 else outs[0]
+    if not with_points:
+        return out
+    if not pointed:
+        raise ValueError("with_points: the last stage is not a PointHead")
+    coarse = stages[-1]
+    k = min(int(model.train_cfg.get("num_points", 256)),
+            coarse.height * coarse.shape[3])
+    point_logits, points = _point_logits(
+        model.heads()[-1], feats, coarse, _most_uncertain(coarse, k, ctx),
+        ctx)
+    return out, {"point_logits": point_logits, "points": points}
+
+
 def forward_rows(model: EncoderDecoder, x: Rows,
                  train: Optional[bool] = None, with_aux: bool = False,
-                 generator=None):
+                 generator=None, with_points: bool = False,
+                 trace: Optional[dict] = None):
     """``model.forward`` over a row-sharded (B, C, H, W) map: the raw
     logits resized to the input, row-sharded as the input is, and the
     auxiliary head's alike with ``with_aux`` (a pair).  ``train`` and
     ``generator`` as there (a ``layers.BatchRows`` under data
-    parallelism)."""
-    if type(model) is not EncoderDecoder:
+    parallelism).  A ``CascadeEncoderDecoder`` gives what its forward
+    gives: in eval mode the last stage's logits (after PointRend's
+    subdivision), in train mode every stage's and the auxiliary head's,
+    and with ``with_points`` its point pass (global (B, K, P) logits and
+    (B, P, 2) points on the model's device).  ``trace``: a dict the heads
+    write their decisions into, K-Net's hard masks entering each stage
+    (``knet_hard``, row-sharded) and the cells each subdivision round
+    chose (``point_cells``, (B, P) global flat indices)."""
+    if type(model) not in (EncoderDecoder, CascadeEncoderDecoder):
         raise NotImplementedError(
             f"{type(model).__name__} has no row-sharded forward: {_LEFT}")
     if train is not None:
         model.train(train)
-    ctx = _Context(next(model.parameters()).device, generator)
+    ctx = _Context(next(model.parameters()).device, generator, trace)
     feats = run(model.backbone, x, ctx)
     if model.neck is not None:
         feats = run(model.neck, feats, ctx)
     hw = (x.height, x.shape[3])
+    if isinstance(model, CascadeEncoderDecoder):
+        return _cascade(model, feats, hw, with_aux, with_points, ctx)
     logits = spatial.resize(run(model.decode_head, feats, ctx), hw,
                             model.align_corners)
     if with_aux and model.auxiliary_head is not None:

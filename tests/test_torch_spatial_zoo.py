@@ -13,8 +13,8 @@ on the CPU, the port against itself in float64:
   variables carried in (random batch statistics, non-zero gates), at
   128^2 and at 40 x 64 (shards of no rows), within 1e-12 of the largest
   |logit|;
-* the types still without a sharded form (ISAHead, PSAHead, OCRHead,
-  ``CascadeEncoderDecoder``, the FPN neck with P6) raise
+* the types still without a sharded form (the transformer and light-CNN
+  backbones: MiT, BEiT, HRNet, MobileNetV3, CGNet) raise
   NotImplementedError naming themselves and ROADMAP A14 part 3.
 """
 
@@ -57,17 +57,15 @@ def test_forward_rows_matches_the_model(family, shape):
 
 
 # each type still without a sharded form, in the config that builds it
-UNPORTED = {"ISAHead": "isanet", "PSAHead": "psanet", "OCRHead": "ocrnet",
-            "CascadeEncoderDecoder": "point_rend", "FPN": "sem_fpn"}
+UNPORTED = {"MixVisionTransformer": "segformer", "BEiT": "beit",
+            "HRNet": "hrnet", "MobileNetV3": "mobilenet_v3",
+            "CGNet": "cgnet"}
 
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_a_type_without_a_sharded_form_raises(what):
     from peanut_tpu_torch.models.builder import build_segmentor
-    cfg = family_config(UNPORTED[what])
-    if what == "FPN":
-        cfg["neck"]["add_p6_pool"] = True      # no zoo config sets it
-    model = build_segmentor(cfg, seed=0)
+    model = build_segmentor(family_config(UNPORTED[what]), seed=0)
     x = spatial.shard(torch.rand(1, 3, 64, 64), cpus(2))
     with pytest.raises(NotImplementedError,
                        match=rf"{what}\b.*has no row-sharded.*A14 part 3"):
@@ -77,6 +75,5 @@ def test_a_type_without_a_sharded_form_raises(what):
 
 def test_the_refusal_names_what_is_left():
     from peanut_tpu_torch.models import sharded
-    for name in ("ISAHead", "PSAHead", "OCRHead", "CascadeEncoderDecoder",
-                 "transformer", "light-CNN"):
+    for name in ("transformer", "light-CNN", "slide", "SameConv2d"):
         assert name in sharded._LEFT

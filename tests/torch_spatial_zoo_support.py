@@ -1,7 +1,8 @@
 """Shared by the spatial axis's zoo tests (tests/test_torch_spatial_zoo*.py):
 the ResNet families whose heads have row-sharded forms, their port models
 carried from seeded JAX variables (random batch statistics, non-zero
-gates), and the checks each file runs on its families."""
+gates; PSANet's made at each input size, which shapes its masks), and the
+checks each file runs on its families."""
 
 import copy
 import dataclasses
@@ -33,6 +34,17 @@ ATTENTION = {"danet": ("DAHead", "PAM", "CAM"), "nonlocal_net": ("NLHead",),
 FAMILIES = {**CONVOLUTIONAL, **POOLED, **ATTENTION}
 # the families whose config has the auxiliary head the train step needs
 TRAINABLE = tuple(f for f in FAMILIES if f not in ("sem_fpn", "fastfcn"))
+# the last five ResNet families: region and kernel heads (partial sums
+# and softmaxes over all pixels), ISA's and PSA's sparse and pointwise
+# attention, PointRend's cascade (the FPN neck, FPNHead, the point head's
+# subdivision over every shard's cells)
+LAST = {"ocrnet": ("OCRHead",), "knet": ("IterativeDecodeHead",),
+        "isanet": ("ISAHead",), "psanet": ("PSAHead", "MaskConv"),
+        "point_rend": ("CascadeEncoderDecoder", "FPN", "FPNHead",
+                       "PointHead")}
+# the families whose variables are shaped by the input (PSAHead's masks):
+# their JAX variables are made at each input size
+SIZED = ("psanet",)
 SHARDS = range(1, 9)
 TOL = 1e-12
 # (H, W) inputs: 128^2 leaves 16 rows at 1/8 (uneven over 3, 5, 6 and 7
@@ -45,13 +57,19 @@ def cpus(k):
     return ["cpu"] * k
 
 
-@functools.lru_cache(maxsize=None)
-def port_model(family: str):
+def port_model(family: str, hw=None):
     """The family's first config at the shrunk widths, the JAX model's
     seeded float64 variables carried into the port's model (eval mode):
-    (config, JAX variables, port model)."""
+    (config, JAX variables, port model).  Made at 64^2, or at ``hw`` for
+    a family in ``SIZED``."""
+    return _port_model(family, tuple(hw) if hw and family in SIZED
+                       else (64, 64))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_model(family: str, hw):
     cfg = family_config(family)
-    _, variables, model, _ = jax_and_port(cfg, (64, 64))
+    _, variables, model, _ = jax_and_port(cfg, hw)
     return cfg, variables, model
 
 
@@ -65,7 +83,7 @@ def check_forward_rows(family: str, hw) -> None:
     """The port's ``forward_rows`` over ``["cpu"] * k`` for k = 1 ... 8
     against its unsharded ``model(x)`` in float64, eval mode: within
     ``TOL`` of the largest |logit|, the logits split as the input is."""
-    _, _, model = port_model(family)
+    _, _, model = port_model(family, hw)
     x = image(hw)
     with torch.no_grad():
         want = model(x, train=False)
@@ -168,13 +186,13 @@ def check_against_jax(family: str) -> None:
     from peanut_tpu_torch.prediction import PredictionModel
 
     assert len(jax.devices()) == 8
-    cfg, variables, model = port_model(family)
     jcfg = JNavConfig()
-    jpm = JPrediction(jcfg, variables=variables, model_cfg=cfg)
-    pm = PredictionModel(NavConfig(**dataclasses.asdict(jcfg)),
-                         model=copy.deepcopy(model), device="cpu")
-    classes = cfg["decode_head"]["num_classes"]
     for hw in ((128, 128), (120, 96)):
+        cfg, variables, model = port_model(family, hw)
+        jpm = JPrediction(jcfg, variables=variables, model_cfg=cfg)
+        pm = PredictionModel(NavConfig(**dataclasses.asdict(jcfg)),
+                             model=copy.deepcopy(model), device="cpu")
+        classes = model.num_classes
         full_map = np.random.RandomState(1).rand(3, *hw).astype(np.float32)
         want = jpm.get_prediction_sharded(full_map,
                                           jmake_mesh({"spatial": 8}))
@@ -183,6 +201,72 @@ def check_against_jax(family: str) -> None:
         assert got.shape == want.shape == (classes,) + hw
         assert got.dtype == np.float32
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        if family == "point_rend":
+            check_point_cells(jpm, pm, full_map)
+
+
+# PointRend's float32 near-ties: two cells whose uncertainties lie this
+# close (of the round's largest |uncertainty|) may come in either order,
+# or one for the other at the last place, as the two sides round them
+POINT_TIE = 1e-5
+
+
+def check_point_cells(jpm, pm, full_map) -> None:
+    """PointRend's cells chosen in each subdivision round, in order: the
+    port's over ``["cpu"] * 8`` (``forward_rows``'s trace) against those
+    of the JAX package's inference under jit over the 8 virtual devices,
+    its input sharded as ``get_prediction_sharded`` shards it (read back
+    from the points its point head is given).  In float32 the two sides
+    round each uncertainty apart (and the JAX package's sharded and
+    unsharded runs do so between themselves), so where the cells differ
+    at a place their uncertainties, as the JAX side computed them, must
+    be within ``POINT_TIE`` of the largest: a near-tie in either order
+    (ROADMAP queue C), never another cell."""
+    import jax
+    import jax.numpy as jnp
+    from flax import linen as jnn
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from peanut_tpu.core.mesh import make_mesh as jmake_mesh
+    from peanut_tpu.models.heads_zoo import PointHead as JPointHead
+
+    def cells(variables, x):
+        rounds = []
+
+        def catch(call, args, kwargs, context):
+            if (isinstance(context.module, JPointHead)
+                    and context.method_name == "__call__"):
+                rounds.append((args[2], JPointHead.uncertainty(args[1])))
+            return call(*args, **kwargs)
+
+        with jnn.intercept_methods(catch):
+            jpm.model.apply(variables, jnp.transpose(x, (0, 2, 3, 1)),
+                            method=jpm.model.inference)
+        return rounds
+
+    mesh = jmake_mesh({"spatial": 8})
+    x = jax.device_put(jnp.asarray(full_map)[None],
+                       NamedSharding(mesh, P(None, None, "spatial", None)))
+    with mesh:
+        rounds = jax.jit(cells)(jpm.variables, x)
+    trace = {}
+    with torch.no_grad():
+        forward_rows(pm.model, spatial.shard(torch.as_tensor(
+            full_map[None]).to(pm.dtype), cpus(8)), train=False,
+            trace=trace)
+    assert len(rounds) == len(trace["point_cells"]) > 0
+    for (pts, unc), got in zip(rounds, trace["point_cells"]):
+        h2, w2 = unc.shape[1:]
+        pts = np.asarray(pts, np.float64)
+        want = (np.rint(pts[..., 1] * h2 - 0.5) * w2
+                + np.rint(pts[..., 0] * w2 - 0.5)).astype(np.int64)
+        got = got.numpy()
+        unc = np.asarray(unc, np.float64).reshape(unc.shape[0], -1)
+        apart = got != want
+        gaps = np.abs(np.take_along_axis(unc, got, 1)
+                      - np.take_along_axis(unc, want, 1))
+        assert gaps[apart].max(initial=0.0) <= POINT_TIE * np.abs(unc).max(), (
+            int(apart.sum()), gaps[apart])
 
 
 def gathered_inputs(model: nn.Module, run, hw) -> list:
@@ -192,26 +276,35 @@ def gathered_inputs(model: nn.Module, run, hw) -> list:
     height and width, or (B, h * w, C) tokens of one.  A pooled map, a
     global vector and a shard's block are none; a sharded convolution
     calls no module's forward."""
+    from peanut_tpu_torch.models.heads_zoo import ISAHead, MaskConv
     with torch.no_grad():
         levels = model.backbone(image(hw))
         if model.neck is not None:
             levels = list(levels) + list(model.neck(levels))
     sizes = {tuple(f.shape[-2:]) for f in levels}
-    tokens = {h * w for h, w in sizes}
+    # a level's tokens, also as ISAHead pads them to its down factor,
+    # whether in one batch or in groups of tokens
+    pads = {m.down_factor for m in model.modules()
+            if isinstance(m, ISAHead)}
+    tokens = {h * w for h, w in sizes} | {
+        -(-h // ph) * ph * -(-w // pw) * pw
+        for h, w in sizes for ph, pw in pads}
     seen = []
 
     def hook(mod, args):
         t = args[0]
         full = (t.dim() == 4 and tuple(t.shape[-2:]) in sizes) or (
-            t.dim() == 3 and t.shape[1] in tokens)
+            t.dim() == 3 and t.shape[0] * t.shape[1] in tokens)
         if full:
             seen.append((type(mod).__name__, tuple(t.shape)))
 
-    parts = [m for m in (model.neck, model.decode_head, model.auxiliary_head)
+    heads = (model.heads() if hasattr(model, "heads")
+             else [model.decode_head])
+    parts = [m for m in (model.neck, *heads, model.auxiliary_head)
              if m is not None]
     handles = [m.register_forward_pre_hook(hook) for part in parts
-               for m in part.modules() if isinstance(m, (nn.Conv2d,
-                                                         nn.Linear))]
+               for m in part.modules()
+               if isinstance(m, (nn.Conv2d, nn.Linear, MaskConv))]
     try:
         with torch.no_grad():
             run()
@@ -221,12 +314,14 @@ def gathered_inputs(model: nn.Module, run, hw) -> list:
     return seen
 
 
-def check_no_gathered_head(family: str, k: int = 2) -> None:
+def check_no_gathered_head(family: str, k: int = 2, model=None) -> None:
     """No module of the neck or the heads gets a full-height map in
     ``forward_rows`` over k shards; the unsharded forward, where every
-    one does, shows that the hooks see such maps."""
-    _, _, model = port_model(family)
+    one does, shows that the hooks see such maps.  ``model``: another
+    than the family's."""
     hw = (96, 128)
+    if model is None:
+        _, _, model = port_model(family, hw)
     x = image(hw)
     assert gathered_inputs(model, lambda: model(x), hw)
     assert gathered_inputs(model, lambda: forward_rows(
@@ -298,3 +393,59 @@ def check_train_step_against_jax(family: str, k: int) -> None:
     for name in running:
         np.testing.assert_allclose(sd[name].numpy(), want[name], rtol=0,
                                    atol=1e-9 * top, err_msg=name)
+
+
+def ocr_cascade_config() -> dict:
+    """mmseg's OCRNet at the shrunk widths: a ``CascadeEncoderDecoder`` of
+    an FCNHead on the 1/8 level before the last, whose logits are the
+    OCRHead's soft regions."""
+    cfg = family_config("ocrnet")
+    ocr = cfg["decode_head"]
+    fcn = dict(type="FCNHead", in_channels=ocr["in_channels"] // 2,
+               in_index=2, channels=ocr["channels"] // 2, num_convs=1,
+               concat_input=False, num_classes=ocr["num_classes"],
+               dropout_ratio=0.1, align_corners=False)
+    cfg.update(type="CascadeEncoderDecoder", num_stages=2,
+               decode_head=[fcn, ocr])
+    cfg.pop("auxiliary_head", None)
+    return cfg
+
+
+def check_point_rend_train(k: int) -> None:
+    """PointRend in train mode (batch statistics), float64, batch 2 at
+    64^2, over ``["cpu"] * k`` against unsharded: the stage's logits and
+    the point pass's logits within ``TOL`` of their largest, its points
+    equal, and the gradients of a seeded sum of both within 1e-9 of each
+    tensor's largest |value| plus 1e-12 of the model's largest."""
+    _, _, model = port_model("point_rend")
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((2, 3, 64, 64), generator=g, dtype=torch.float64)
+    runs = []
+    for devices in (None, cpus(k)):
+        m = copy.deepcopy(model)
+        if devices is None:
+            logits, points = m(x, train=True, with_points=True)
+        else:
+            logits, points = forward_rows(m, spatial.shard(x, devices),
+                                          train=True, with_points=True)
+            logits = spatial.gather(logits)
+        if not runs:
+            gl = torch.Generator().manual_seed(5)
+            weights = [torch.randn(t.shape, generator=gl, dtype=t.dtype)
+                       for t in (logits, points["point_logits"])]
+        ((logits * weights[0]).sum()
+         + (points["point_logits"] * weights[1]).sum()).backward()
+        runs.append((logits.detach(), points,
+                     {n: p.grad for n, p in m.named_parameters()}))
+    (want, want_p, want_g), (got, got_p, got_g) = runs
+    assert rel_err(got.numpy(), want.numpy()) <= TOL
+    assert torch.equal(got_p["points"], want_p["points"])
+    assert rel_err(got_p["point_logits"].detach().numpy(),
+                   want_p["point_logits"].detach().numpy()) <= TOL
+    top = max(float(w.abs().max()) for w in want_g.values()
+              if w is not None)
+    for name, w in want_g.items():
+        assert (got_g[name] is None) == (w is None), name
+        if w is not None:
+            err = float((got_g[name] - w).abs().max())
+            assert err <= 1e-9 * float(w.abs().max()) + 1e-12 * top, name
