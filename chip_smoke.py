@@ -90,7 +90,7 @@ Phases (each prints one JSON line):
                ticks and warmup_rare_paths first: steps/s, median tick, the
                stages per tick, peak memory and the launches of B1, B2, B3
                and nms_keep (all > 0); then pred_parity: 8 envs with GT
-               semantics, 3 ticks of the serving profile and 1 of the
+               semantics, 2 ticks of the serving profile and 1 of the
                exact one (its plain solves take ~28 s a tick), the
                prediction branch's goal-weighting solve through the
                kernels and through the plain versions: equal actions and
@@ -114,11 +114,11 @@ Phases (each prints one JSON line):
                their plain versions;
  11. train  — PSPNet-R50-v1c training at the recipe's full width (batch 8,
                crop 960, 14 channels, remat=1) on synthetic 960^2 maps
-               written from --seed: cli.train_prediction_model for 4
-               iterations (checkpoints every 2), then again to 6, which
-               must resume from iter 4; iter_6 loaded into PredictionModel
+               written from --seed: cli.train_prediction_model for 2
+               iterations (checkpoints every 2), then again to 3, which
+               must resume from iter 2; iter_3 loaded into PredictionModel
                serves what the trained model computes (1e-5) and
-               cli.test evaluates it; ten steps on one fixed batch lower
+               cli.test evaluates it; five steps on one fixed batch lower
                the loss, timed (median step ms, forward + backward and
                Adam, maps/s, peak memory at remat=1; one step's peak at
                remat=0; then three steps with TF32 on, PyTorch's default
@@ -139,7 +139,7 @@ Phases (each prints one JSON line):
                (zoo_family; BEiT's tables and MAE's positional embedding
                bound by each model's first input, so at the size it runs);
                cli/serve.py's handler in a thread on the card serving
-               configs/upernet/upernet_r50_512x1024_80k_cityscapes.py, 5
+               configs/upernet/upernet_r50_512x1024_80k_cityscapes.py, 2
                POST /probs of a seeded 1024x2048x3 .npy: every reply 200,
                (19, 1024, 2048) and equal to inference_segmentor called
                directly (zoo_serve: ms per request, peak memory); the same
@@ -167,7 +167,7 @@ Phases (each prints one JSON line):
                (the last three iterations' mean below the first three's);
                iter_9 loaded by apis.init_segmentor serves what the
                trained model computes (1e-5 of the largest |logit|);
-               one batch from the loader (host, one worker), then 10
+               one batch from the loader (host, one worker), then 5
                steps after 2 warm-up ones on it, float32 with TF32 off and
                then on: median step ms split into forward + backward and
                Adam, maps/s, peak memory; then card against CPU, one train
@@ -195,7 +195,7 @@ Phases (each prints one JSON line):
                seconds, artifact MB, the reloaded program against the
                eager model (rtol = atol = 1e-5) and both forwards' median
                ms of 10 (CUDA events); cli.tools confusion_matrix with the
-               converted UPerNet-ConvNeXt-T over four seeded 512x512
+               converted UPerNet-ConvNeXt-T over two seeded 512x512
                images of a CustomDataset on the card and on the CPU: both
                overall accuracies, the pixels whose predictions differ,
                each a near-tie (the two largest logits within 1e-4);
@@ -217,8 +217,8 @@ Phases (each prints one JSON line):
                8, crop 960, 14 channels, remat=1, TF32 off) over two
                ranks of 4 on the card under gloo (NCCL refuses two ranks
                on one card), spawned from here, for 1 iteration, then
-               resumed to 4: rank 0's log (one record an iteration) and
-               checkpoints (iter_1, 2, 4), each step's
+               resumed to 2: rank 0's log (one record an iteration) and
+               checkpoints (iter_1, 2), each step's
                ms, each rank's peak memory; step 1 against one process at
                the global batch on the ranks' first batches from the same
                seed (the loss within 1e-4 relative; the parameters within
@@ -226,7 +226,7 @@ Phases (each prints one JSON line):
                1e-6 in at most 2 % of the elements), and with one card a
                one-rank NCCL step of the tiny PSPNet in float64 against
                the plain step (1e-10); ddp_eval, cli.test --distributed 1
-               over two ranks on iter_4: each rank's report equal to one
+               over two ranks on iter_2: each rank's report equal to one
                process's.
  16. spatial — the mesh's spatial axis, PSPNet's map height over shards
                that one process drives (run last): spatial_pred,
@@ -254,7 +254,8 @@ Phases (each prints one JSON line):
                whole-map prediction over {"spatial": 2}.  The spatial path
                launches no kernel of csrc/ (PSPNet has none); every gap is
                a gate with its bound printed beside it.
- 17. spatial_zoo — the spatial axis over the zoo's ResNet heads:
+ 17. spatial_zoo — the spatial axis over the zoo's ResNet heads and
+               hierarchical transformers:
                spatial_zoo_pred, get_prediction_sharded of UPerNet-R50
                (k = 2, 4; float32 and bfloat16), DeepLabV3-R50 (k = 4:
                dilation-36 halos past the neighbouring shard),
@@ -263,16 +264,24 @@ Phases (each prints one JSON line):
                shards' edges), PSANet-R50 (k = 2, 4), OCRNet-R50, K-Net-R50
                (the hard-mask pixels flipped) and PointRend-R50 (whether
                the subdivision chose the unsharded run's cells; a place
-               apart must be a near-tie) at k = 4, from their 80k
-               Cityscapes configs at published widths, random weights
-               from --seed, batch 1 at 512x1024, float32 but UPerNet's
-               bf16, over [cuda:0] * k against get_prediction, with ms, the
-               host's enqueue and the peak memory beside the unsharded
-               forward's; spatial_zoo_train, three steps of UPerNet-R50's
+               apart must be a near-tie) at k = 4, UPerNet-ConvNeXt-T
+               (k = 4), UPerNet-Swin-T (k = 3, 4: window bands across the
+               shards' edges, the shifted blocks' last band wrapped onto
+               shard 0), SegFormer-MiT-B0 (k = 4: keys and values of the
+               map reduced by a strided convolution), Twins-PCPVT-S (k = 4)
+               and Twins-SVT (k = 3; both the Twins config with the
+               backbone at its class defaults, PCPVT-S's and SVT's
+               published widths, where the config's own is narrow), from
+               their 80k Cityscapes configs at published widths, random
+               weights from --seed, batch 1 at 512x1024, float32 but
+               UPerNet's bf16, over [cuda:0] * k against get_prediction,
+               with ms, the host's enqueue and the peak memory beside the
+               unsharded forward's; spatial_zoo_train, three steps of UPerNet-R50's
                make_train_step(spatial_axis="spatial") at batch 2, crop
                512x1024, float32 (TF32 off) over 2 shards against three
                unsharded steps (step 1's loss gated); spatial_zoo_float64,
-               the twenty families at the CPU tests' widths at 128^2 in
+               the twenty ResNet families at the CPU tests' widths and
+               the five transformers at their configs' at 128^2 in
                float64 sharded over 2 and 3 shards against the card's
                unsharded forward and the CPU's sharded one (1e-10 of the
                largest |logit|).  No kernel of csrc/ on this path.
@@ -991,9 +1000,11 @@ PROFILE_TICKS = {"serve_16": 20, "exact_16": 10}
 PARITY_ENVS = 8
 # the plain goal-weighting solves are slow (the serving profile's ~5 s a
 # tick, the exact profile's order 2 at 8 x 960^2 ~28 s a tick on the H100),
-# and under random PSPNet weights every tick triggers: 3 and 1 ticks keep
-# the script well inside its time limit
-PARITY_TICKS = {"serve_16": 3, "exact_16": 1}
+# and under random PSPNet weights every tick triggers: 2 and 1 ticks keep
+# the script well inside its time limit (the third serving tick, ~6.5 s,
+# pays with ddp_train's steps and the zoo's requests for phase 17's
+# transformers)
+PARITY_TICKS = {"serve_16": 2, "exact_16": 1}
 SERVE_STAGES = ("env_phase", "dispatch", "tick_wait", "pred_dispatch",
                 "pred_goal_wait", "detect")
 
@@ -1579,8 +1590,8 @@ def wide_lines(args, dev) -> dict:
 # ---- the train phase: PSPNet-R50-v1c training and evaluation ----------
 TRAIN_MAP = 960          # the recipe's crop and the synthetic maps' size
 TRAIN_BATCH = 8
-TRAIN_ITERS = (4, 6)     # the first run, then the resumed one
-OVERFIT_STEPS = 10
+TRAIN_ITERS = (2, 3)     # the first run, then the resumed one
+OVERFIT_STEPS = 5
 TIMED_FROM = 2           # overfit steps before this one warm up
 PARITY_BASE = 8          # the CPU tests' tiny PSPNet (base width 8)
 PARITY_LOSS_TOL = 1e-5   # relative
@@ -1693,7 +1704,7 @@ def training_phase(args, dev, smi_line: str) -> dict:
                 str(TRAIN_MAP), "--checkpoint_interval", "2",
                 "--log_interval", "1", "--num_workers", "4", "--seed",
                 str(args.seed)]
-        # 1. full width through the CLI, then resumed to 6
+        # 1. full width through the CLI, then resumed
         runs = []
         for iters in TRAIN_ITERS:
             t0 = time.perf_counter()
@@ -1707,12 +1718,14 @@ def training_phase(args, dev, smi_line: str) -> dict:
         reading["log_iters"] = [r["iter"] for r in log]
         reading["log_loss"] = [r["loss"] for r in log]
         reading["checkpoints"] = sorted(os.listdir(work))
+        last = f"iter_{TRAIN_ITERS[1]}"
         if (state.step != TRAIN_ITERS[1]
-                or reading["log_iters"] != list(range(1, 7))
+                or reading["log_iters"] != list(range(1, TRAIN_ITERS[1] + 1))
                 or not all(np.isfinite(reading["log_loss"]))
-                or "iter_6" not in reading["checkpoints"]):
+                or last not in reading["checkpoints"]):
             emit(reading)
-            fail("train: the CLI did not resume from iter 4 to step 6")
+            fail(f"train: the CLI did not resume from iter "
+                 f"{TRAIN_ITERS[0]} to step {TRAIN_ITERS[1]}")
 
         # 4. the checkpoint into serving, and the evaluation CLI
         maps_t = upload_batch(
@@ -1723,25 +1736,25 @@ def training_phase(args, dev, smi_line: str) -> dict:
         with torch.no_grad():
             want = torch.sigmoid(state.model(maps_t, train=False).float())
         pm = PredictionModel(NavConfig(pred_model_wts=os.path.join(
-            work, "iter_6", "model.pth")))
+            work, last, "model.pth")))
         got = pm.infer(maps_t)
         reading["serve_max_abs_err"] = float((got - want).abs().max())
         reading["serve_bit_equal"] = bool(torch.equal(got, want))
         report = test_cli.main(["--data_root", tmp, "--img_dir",
                                 "train_80", "--checkpoint",
-                                os.path.join(work, "iter_6"),
+                                os.path.join(work, last),
                                 "--max_samples", "2", "--argmax"])
         reading["test_cli"] = report
         del state, pm, want, got
         if (reading["serve_max_abs_err"] > SERVE_TOL
                 or not np.isfinite(report["bce"])):
             emit(reading)
-            fail("train: iter_6 does not serve what was trained, or its "
+            fail(f"train: {last} does not serve what was trained, or its "
                  "evaluation is not finite")
 
-        # 2 and 5. ten steps on one fixed full-width batch: the loss falls;
-        # the time a step (split into forward + backward and Adam) and
-        # the peak memory at remat=1, then one step's peak at remat=0
+        # 2 and 5. OVERFIT_STEPS on one fixed full-width batch: the loss
+        # falls; the time a step (split into forward + backward and Adam)
+        # and the peak memory at remat=1, then one step's peak at remat=0
         t0 = time.perf_counter()
         ds = SemMapDataset(tmp, "train_80", pipeline=training_pipeline(
             TRAIN_MAP, rng=np.random.RandomState(args.seed)))
@@ -1827,7 +1840,7 @@ def training_phase(args, dev, smi_line: str) -> dict:
         if not (all(np.isfinite(r1["losses"]))
                 and r1["losses"][-1] < r1["losses"][0]):
             emit(reading)
-            fail("train: ten steps on one batch did not lower the loss")
+            fail("train: the steps on one batch did not lower the loss")
 
     # 3. the card against the CPU
     reading["card_vs_cpu"] = card_against_cpu(dev, args.seed)
@@ -1975,7 +1988,7 @@ ZOO_SERVE_HRNET = "configs/hrnet/fcn_hr18_512x1024_80k_cityscapes.py"
 ZOO_SERVE_SWIN = "configs/swin/upernet_swin-t_512x512_160k_ade20k.py"
 # ADE20K's test scale (2048, 512), keep-ratio, on a 4:3 image
 ZOO_IMAGE_SWIN = (512, 683)
-ZOO_REQUESTS = 5
+ZOO_REQUESTS = 2              # each request ~0.6-0.85 s of the script
 ZOO_TIMED = (512, 1024)       # the families' training crop
 ZOO_CHECK = (128, 256)        # card against CPU in float64
 # UPerNet's slide windows at ZOO_IMAGE, and at ZOO_CHECK
@@ -2121,9 +2134,9 @@ def zoo_forward_ms(model, x, reps: int = 3) -> float:
 def zoo_phase(args, dev, smi_line: str) -> dict:
     """Phase 12: every family the port builds at its config's widths
     (card against CPU in float64 at 128x256; one 512x1024 forward timed
-    in float32, TF32 off, and in bfloat16), cli/serve.py answering 5
-    /probs requests for UPerNet-R50 and FCN-HRNet-W18 at 1024x2048 and for
-    UPerNet-Swin-T at 512x683, UPerNet's slide inference, and
+    in float32, TF32 off, and in bfloat16), cli/serve.py answering
+    ZOO_REQUESTS /probs requests for UPerNet-R50 and FCN-HRNet-W18 at
+    1024x2048 and for UPerNet-Swin-T at 512x683, UPerNet's slide inference, and
     cli/benchmark.py at its defaults in both types."""
     import copy
     import io
@@ -2709,7 +2722,7 @@ def export_reading(config: str, shape, tmp: str, dev,
             "eager_ms": eager_ms, "exported_ms": exported_ms}
 
 
-def write_image_dataset(root: str, seed: int, n: int = 4, hw=(512, 512),
+def write_image_dataset(root: str, seed: int, n: int = 2, hw=(512, 512),
                         classes: int = 150) -> None:
     """``n`` seeded images (jpg) and label maps (png) of ``hw`` in
     CustomDataset's layout (img_dir/, ann_dir/)."""
@@ -2833,8 +2846,10 @@ MESH_KERNELS = ("fused_eikonal", "block_sweep2", "roi_window_pool",
                 "nms_keep")
 DDP_WORLD = 2
 # --max_iters of the two runs (the second resumes); a third run would
-# cost ~30 s of the script's time limit, which the spatial phase uses
-DDP_RUNS = (1, 4)
+# cost ~30 s of the script's time limit, which the spatial phase uses,
+# and the second resumes for one step, not three: the spatial_zoo
+# phase's transformers take the ~6 s that saves
+DDP_RUNS = (1, 2)
 DDP_LOSS_TOL = 1e-4      # step 1's losses, 2 ranks x 4 against 1 x 8
 # Adam's first step moves every parameter by +-lr (m / sqrt(v) = sign(g)):
 # the two runs' parameters after it differ by up to 2 lr where a gradient
@@ -3241,11 +3256,11 @@ def ddp_phases(args, dev, smi_line: str) -> dict:
         emit(reading)
         s1 = reading["step1"]
         if (reading["log_iters"] != list(range(1, DDP_RUNS[-1] + 1))
-                or reading["checkpoints"] != ["iter_1", "iter_2", "iter_4"]
+                or reading["checkpoints"] != ["iter_1", "iter_2"]
                 or any(r["steps"] != [r["max_iters"]] * DDP_WORLD
                        for r in runs)
                 or not all(np.isfinite(reading["log_loss"]))):
-            fail("ddp_train: the runs did not resume 1 -> 4 with one "
+            fail("ddp_train: the runs did not resume 1 -> 2 with one "
                  "log record an iteration and rank 0's checkpoints")
         # the log rounds losses to 5 decimals: the bar sees that too
         if (s1["loss_rel_err"] > DDP_LOSS_TOL
@@ -3259,9 +3274,10 @@ def ddp_phases(args, dev, smi_line: str) -> dict:
             fail(f"ddp_train: the NCCL world-1 step differs from the "
                  f"plain one: {w1}")
 
-        # ddp_eval: cli.test over the ranks on iter_4, against one process
+        # ddp_eval: cli.test over the ranks on the last checkpoint, against
+        # one process
         ev = ["--data_root", tmp, "--img_dir", "train_80", "--checkpoint",
-              os.path.join(work, "iter_4"), "--max_samples", "4",
+              os.path.join(work, "iter_2"), "--max_samples", "4",
               "--argmax"]
         t0 = time.perf_counter()
         recs = run_ddp("test", ev, tmp)
@@ -3620,12 +3636,35 @@ SPATIAL_ZOO_CASES = (
      ("float32",)),
     ("pointrend_r50",
      "configs/point_rend/pointrend_r50_512x1024_80k_cityscapes.py", (4,),
-     ("float32",)))
+     ("float32",)),
+    # the hierarchical transformers: ConvNeXt's 7x7 depthwise halos,
+    # Swin's bands of 7 rows across every edge of 3 shards (128 rows at
+    # 1/4: 43 / 43 / 42) and of 4 (32 each), the shifted blocks' last
+    # band wrapped onto shard 0, MiT's and Twins' keys and values of a
+    # reduced map, SVT's windows across the edges of 3 shards
+    ("convnext_t",
+     "configs/convnext/upernet_convnext_512x1024_80k_cityscapes.py", (4,),
+     ("float32",)),
+    ("swin_t", "configs/swin/upernet_swin-t_512x1024_80k_cityscapes.py",
+     (3, 4), ("float32",)),
+    ("segformer_b0",
+     "configs/segformer/segformer_mit-b0_512x1024_80k_cityscapes.py", (4,),
+     ("float32",)),
+    ("twins_pcpvt", "pcpvt", (4,), ("float32",)),
+    ("twins_svt", "svt", (3,), ("float32",)))
+# the Twins config with its backbone at the class defaults: PCPVT-S's
+# published widths (64, 128, 320, 512; depths 3, 4, 6, 3), where the
+# config's own are the repo's narrow ones, and SVT, which has no config
+SPATIAL_ZOO_TWINS = ("configs/twins/"
+                     "twins_pcpvt-s_fpn_512x1024_80k_cityscapes.py")
+SPATIAL_ZOO_WRITTEN = {"pcpvt": (SPATIAL_ZOO_TWINS, dict(type="PCPVT")),
+                       "svt": (SPATIAL_ZOO_TWINS, dict(type="SVT"))}
 SPATIAL_ZOO_FAMILIES = ("upernet", "sem_fpn", "deeplabv3", "deeplabv3plus",
                         "fastfcn", "apcnet", "dmnet", "encnet", "ann",
                         "gcnet", "emanet", "danet", "nonlocal_net", "dnlnet",
                         "ccnet", "isanet", "psanet", "ocrnet", "knet",
-                        "point_rend")
+                        "point_rend", "convnext", "swin", "segformer",
+                        "twins", "svt")
 SPATIAL_ZOO_F64_SHARDS = (2, 3)
 SPATIAL_ZOO_F64_SIZE = 128
 # |sharded - unsharded| of the probabilities (get_prediction_sharded
@@ -3643,12 +3682,25 @@ SPATIAL_ZOO_LOSS_BOUND = 1e-5
 SPATIAL_ZOO_POINT_TIE = 1e-5
 
 
+def spatial_zoo_config(config: str) -> dict:
+    """The model config of a SPATIAL_ZOO_CASES entry: a config file's, or
+    a SPATIAL_ZOO_WRITTEN one's (its file's with its backbone)."""
+    from peanut_tpu_torch.core.config_file import load_config
+    path, backbone = SPATIAL_ZOO_WRITTEN.get(config, (config, None))
+    cfg = load_config(path)["model"]
+    if backbone is not None:
+        cfg["backbone"] = dict(backbone)
+    return cfg
+
+
 def zoo_test_widths(cfg: dict) -> dict:
-    """tests/test_zoo_forward.py's shrunk widths of a ResNetV1c config:
-    base and stem 16, the heads' channels a quarter (at least 8)."""
+    """tests/test_zoo_forward.py's shrunk widths of a ResNet config: base
+    and stem 16, the heads' channels a quarter (at least 8); any other
+    backbone's config as it is."""
     import copy
     cfg = copy.deepcopy(cfg)
-    if "base_channels" not in cfg["backbone"]:
+    if (cfg["backbone"].get("type") in ("ResNetV1c", "ResNet")
+            and "base_channels" not in cfg["backbone"]):
         cfg["backbone"].update(base_channels=16, stem_channels=16)
         for key in ("decode_head", "auxiliary_head"):
             h = cfg.get(key)
@@ -3733,12 +3785,12 @@ def spatial_zoo_forwards(args, dev) -> dict:
     over make_mesh({"spatial": k}, [cuda:0] * k) against get_prediction
     at 512x1024; each forward's ms (CUDA events, forward_rows against
     model(x)), the host's enqueue of it, the peak memory above the
-    weights (all shards, then per shard) and the logits' gap."""
+    weights (all shards, then per shard), the logits' gap and the
+    seconds of the script from the case's model build (case_s)."""
     import copy
 
     from peanut_tpu_torch.config import NavConfig
     from peanut_tpu_torch.core import spatial
-    from peanut_tpu_torch.core.config_file import load_config
     from peanut_tpu_torch.core.mesh import make_mesh
     from peanut_tpu_torch.models.builder import build_segmentor
     from peanut_tpu_torch.models.sharded import forward_rows
@@ -3748,7 +3800,8 @@ def spatial_zoo_forwards(args, dev) -> dict:
         3, *SPATIAL_ZOO_HW).astype(np.float32)
     out = {}
     for case, config, shards, dtypes in SPATIAL_ZOO_CASES:
-        model = zoo_weights(build_segmentor(load_config(config)["model"],
+        t_case = time.perf_counter()
+        model = zoo_weights(build_segmentor(spatial_zoo_config(config),
                                             seed=args.seed), args.seed)
         for dtype in dtypes:
             pm = PredictionModel(NavConfig(serve_bf16=dtype == "bfloat16"),
@@ -3767,7 +3820,8 @@ def spatial_zoo_forwards(args, dev) -> dict:
                     t0 = time.perf_counter()
                     fn()
                     host = (time.perf_counter() - t0) * 1e3
-                    ms = cuda_ms(fn, reps=3)
+                    # the two calls above warmed it up
+                    ms = cuda_ms(fn, reps=3, warmup=0)
                 return y, {"ms": ms, "host_enqueue_ms": host,
                            "peak_mib_all_shards": peak,
                            "peak_mib_a_shard_est": peak / k}
@@ -3792,7 +3846,9 @@ def spatial_zoo_forwards(args, dev) -> dict:
                     "row_blocks": [b.shape[2] for b in rows.blocks],
                     **timing,
                     **spatial_zoo_decisions(pm.model, x, dev, k)}
-            out[f"{case}_{dtype}"] = dict(res, config=config)
+            out[f"{case}_{dtype}"] = dict(
+                res, config=SPATIAL_ZOO_WRITTEN.get(config, config),
+                case_s=time.perf_counter() - t_case)
             del pm, logits, x
             torch.cuda.empty_cache()
     emit({"phase": "spatial_zoo_pred", "input": [3, *SPATIAL_ZOO_HW],
@@ -3877,8 +3933,9 @@ def spatial_zoo_training(args, dev) -> dict:
 
 
 def spatial_zoo_float64(args, dev) -> dict:
-    """spatial_zoo_float64: the twenty families (every sharded module
-    type of the zoo's ResNet heads) at the CPU tests' widths, batch 1 at
+    """spatial_zoo_float64: the twenty ResNet families (every sharded
+    module type of the zoo's ResNet heads) at the CPU tests' widths and
+    the five hierarchical transformers at their configs', batch 1 at
     SPATIAL_ZOO_F64_SIZE^2 in float64: forward_rows over [cuda:0] * k for
     k in SPATIAL_ZOO_F64_SHARDS against the card's unsharded forward, and
     over 2 shards against the CPU's sharded forward over ["cpu"] * 2;
@@ -3886,7 +3943,6 @@ def spatial_zoo_float64(args, dev) -> dict:
     import copy
 
     from peanut_tpu_torch.core import spatial
-    from peanut_tpu_torch.core.config_file import load_config
     from peanut_tpu_torch.models.builder import build_segmentor
     from peanut_tpu_torch.models.sharded import forward_rows
     s = SPATIAL_ZOO_F64_SIZE
@@ -3894,7 +3950,8 @@ def spatial_zoo_float64(args, dev) -> dict:
         1, 3, s, s))
     errors = {}
     for fam in SPATIAL_ZOO_FAMILIES:
-        cfg = zoo_test_widths(load_config(zoo_config_path(fam))["model"])
+        cfg = zoo_test_widths(spatial_zoo_config(
+            fam if fam in SPATIAL_ZOO_WRITTEN else zoo_config_path(fam)))
         cpu = zoo_weights(build_segmentor(cfg, seed=args.seed),
                           args.seed).double()
         card = copy.deepcopy(cpu).to(dev)

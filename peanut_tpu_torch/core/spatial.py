@@ -14,10 +14,11 @@ needed, so the shards may share a card (``["cuda:0"] * k``) or the CPU.
 
 The sharded ops, each built on ``fetch_rows``:
 
-* ``conv2d`` and ``max_pool2d``: each shard computes its output rows from
-  the input rows they reach; the padding (zeros, -inf) applies only at
-  the map's top and bottom, never at a shard's edge, though the op runs
-  with the unsharded one's padding (``_rowwise``);
+* ``conv2d``, ``conv2d_same`` and ``max_pool2d``: each shard computes its
+  output rows from the input rows they reach; the padding (zeros, -inf)
+  applies only at the map's top and bottom, never at a shard's edge,
+  though the op runs with the unsharded one's padding (``_rowwise``);
+  flax's "SAME" padding is split from the whole map's height;
 * ``adaptive_avg_pool``: each shard's columns of the bin matrix times its
   rows, the contributions summed on one device (a global map);
 * ``resize``: each shard's output rows of the bilinear matrix times the
@@ -139,28 +140,35 @@ def fetch_padded(x: Rows, a: int, b: int, device,
                  value: float = 0.0) -> torch.Tensor:
     """Global rows [a, b) of ``x`` on ``device``, the rows above row 0 and
     below row H filled with ``value``: the padding of the whole map."""
-    got = fetch_rows(x, min(max(a, 0), x.height), max(min(b, x.height), 0),
-                     device)
-    top, bottom = max(-a, 0), max(b - x.height, 0)
+    lo, hi = min(max(a, 0), x.height), max(min(b, x.height), 0)
+    got = fetch_rows(x, lo, max(hi, lo), device)
+    top = max(min(b, 0) - a, 0)
+    bottom = max(b - max(a, x.height), 0)
     if top or bottom:
         got = F.pad(got, (0, 0, top, bottom), value=value)
     return got
 
 
-def _rowwise(x: Rows, op, kernel: int, stride: int, padding: int,
-             dilation: int, channels: int, w_out: int, fill: float) -> Rows:
+def _rowwise(x: Rows, op, kernel: int, stride: int, padding, dilation: int,
+             channels: int, w_out: int, fill: float,
+             op_padding: Optional[int] = None) -> Rows:
     """``op(window, device)``, a convolution or a pool that pads
-    ``padding`` rows itself, over each shard's output rows.  The window is
-    the input rows they reach, from whichever shards hold them (``fill``
-    beyond the map's edges), begun ``lead`` output rows early so that the
-    op's own padding falls only on rows it computes and drops: the op runs
-    with the unsharded one's padding, as cuDNN chooses its algorithm by
-    it (a 3x3 convolution of 64 channels at 122 x 240 rows, float32,
+    ``op_padding`` rows itself on each side (``padding``'s by default),
+    over each shard's output rows.  ``padding``: the rows of ``fill`` the
+    whole map has above and below, an int or a (top, bottom) pair, the top
+    ones reached only from shard 0 and the bottom ones only from the last
+    shard.  The window is the input rows the shard's outputs reach, from
+    whichever shards hold them, begun ``lead`` output rows early so that
+    the op's own padding falls only on rows it computes and drops: the op
+    runs with the unsharded one's padding, as cuDNN chooses its algorithm
+    by it (a 3x3 convolution of 64 channels at 122 x 240 rows, float32,
     padded (0, 1), takes ~28x the time and 2 GiB of workspace that the
     same padded (1, 1) takes on the H100)."""
+    top, bottom = _pair(padding)
+    op_padding = top if op_padding is None else op_padding
     reach = dilation * (kernel - 1) + 1
-    h_out = (x.height + 2 * padding - reach) // stride + 1
-    lead = -(-padding // stride)
+    h_out = (x.height + top + bottom - reach) // stride + 1
+    lead = -(-op_padding // stride)
     n = x.shape[0]
     blocks = []
     for (o0, o1), dev in zip(row_ranges(h_out, len(x.blocks)), x.devices):
@@ -168,8 +176,8 @@ def _rowwise(x: Rows, op, kernel: int, stride: int, padding: int,
             blocks.append(x.blocks[0].new_zeros((n, channels, 0, w_out),
                                                 device=dev))
             continue
-        a = (o0 - lead) * stride
-        b = a + (lead + o1 - o0 - 1) * stride - padding + reach
+        a = (o0 - lead) * stride - top + op_padding
+        b = (o1 - 1) * stride - top + reach
         y = op(fetch_padded(x, a, b, dev, fill), dev)
         blocks.append(y[:, :, lead:lead + o1 - o0])
     return Rows(blocks, h_out)
@@ -188,6 +196,27 @@ def conv2d(x: Rows, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
         x, lambda win, dev: F.conv2d(win, to(weight, dev), to(bias, dev),
                                      (sh, sw), (ph, pw), (dh, dw), groups),
         kh, sh, ph, dh, weight.shape[0], w_out, 0.0)
+
+
+def conv2d_same(x: Rows, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, stride=1, dilation=1,
+                groups: int = 1) -> Rows:
+    """``layers.SameConv2d`` (flax's "SAME" padding) of a row-sharded map:
+    the rows' padding split from the whole map's height
+    (``layers.same_pads``, the odd row at the bottom), zeros above shard
+    0's rows and below the last shard's, the columns' padded by each
+    shard as the unsharded module pads them."""
+    from ..models.layers import same_pads
+    (sh, sw), (dh, dw) = _pair(stride), _pair(dilation)
+    kh, kw = weight.shape[2:]
+    rows = same_pads(x.height, kh, sh)
+    cols = same_pads(x.shape[3], kw, sw)
+    w_out = (x.shape[3] + sum(cols) - dw * (kw - 1) - 1) // sw + 1
+    return _rowwise(
+        x, lambda win, dev: F.conv2d(F.pad(win, (*cols, 0, 0)),
+                                     to(weight, dev), to(bias, dev),
+                                     (sh, sw), 0, (dh, dw), groups),
+        kh, sh, rows, dh, weight.shape[0], w_out, 0.0, op_padding=0)
 
 
 def max_pool2d(x: Rows, kernel_size: int, stride: int,

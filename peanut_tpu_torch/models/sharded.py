@@ -1,7 +1,7 @@
 """The forward of a segmentor with the map's height sharded over devices
 (``core.spatial``): the mesh's ``spatial`` axis for PEANUT's PSPNet, the
-dry run's and the model zoo's ResNet families, whole-map inference and
-the train forward alike.
+dry run's and the model zoo's ResNet families and hierarchical
+transformers, whole-map inference and the train forward alike.
 
 ``forward_rows(model, x)`` runs an ``EncoderDecoder`` (or a cascade) over
 a ``Rows`` map with the same parameters and buffers as ``model(x)``: each
@@ -12,6 +12,8 @@ unsharded forward in exact arithmetic:
 
 * convolutions and the stem's max pool take their halo rows from the
   shards that hold them (``spatial.conv2d``, ``spatial.max_pool2d``);
+  flax's "SAME" padding (``layers.SameConv2d``) is split from the whole
+  map's height (``spatial.conv2d_same``);
 * train-mode batch norms add each shard's sums of x and x^2 and its
   count, then all-reduce them over the data group where there is one
   (``layers.BatchNorm.moments``), and move the running statistics once
@@ -31,35 +33,49 @@ OCR's class centroids, K-Net's group features, PSA's distribution), a
 softmax over all pixels as a partial log-sum-exp (GC's and DNL's unary
 pooling, OCR's soft regions), the keys and values of whole-map
 attention, which each shard reads for its own query rows only (PAM,
-NonLocal, DNL, CC's columns, ISA's row classes, PSA's collection), and
+NonLocal, DNL, CC's columns, ISA's row classes, PSA's collection; MiT's
+and Twins' keys and values of the map reduced by a strided convolution,
+each shard reducing and projecting its own rows), the rows of a window
+band that straddles a shard's edge, which each shard that outputs rows
+of it computes (ISA's local stage, Twins-SVT's windows, Swin's windows,
+whose shifted blocks' last band wraps onto the map's first rows), and
 PointRend's cells (each shard's most uncertain, merged; each point's
 corners from the shards that hold their rows).  A global vector goes
 through its module's own forward on the model's device (``nn.Linear``,
 ``nn.LayerNorm``, EncHead's ``enc_bn``, K-Net's kernel update, the point
-head's MLP); global sums are taken in float32 or wider.  No head gathers
-a full-height map.
+head's MLP); global sums are taken in float32 or wider.  Every
+``nn.Linear`` and ``nn.Conv2d`` of a backbone runs on a shard's rows
+with their halo or bands; no head gathers a full-height map.
 
-Sharded forms exist for ``nn.Conv2d``, ``layers.Conv2d``, ``ConvModule``,
-``BatchNorm``, ``nn.ReLU``, ``nn.Sequential``, ``ZooBottleneck``,
-``BasicBlock``, ``ZooResNet`` / ``ResNetV1c`` / ``ResNeXt``,
+Sharded forms exist for ``nn.Conv2d``, ``layers.Conv2d``,
+``layers.SameConv2d``, ``ConvModule``, ``BatchNorm``, ``nn.ReLU``,
+``nn.Sequential``, ``ZooBottleneck``, ``BasicBlock``, ``ZooResNet`` /
+``ResNetV1c`` / ``ResNeXt``, the hierarchical transformers ``ConvNeXt``
+(``ConvNeXtBlock``), ``SwinTransformer`` (``SwinBlock``),
+``MixVisionTransformer`` / ``MITB0`` / ``MITB2`` (``MiTBlock``,
+``EfficientAttention``, ``MixFFN``) and ``PCPVT`` / ``SVT``
+(``_TwinsBlock``, ``_SRAttention``, ``_LocalAttention``),
 ``AdaptiveAvgPool``, the necks ``FPN`` (a segmentor's, P6 included) and
 ``JPU``, the heads ``PSPHead``, ``FCNHead``, ``UPerHead``, ``ASPPHead``,
-``DepthwiseSeparableASPPHead``, ``FPNHead``, ``APCHead``, ``DMHead``,
-``EncHead`` (its ``Encoding`` runs on each shard's block), ``ANNHead``,
-``GCHead``, ``EMAHead``, ``DAHead`` with ``PAM`` and ``CAM``, ``NLHead``,
-``DNLHead``, ``CCHead``, ``ISAHead``, ``PSAHead`` (its masks bound by the
-whole map's size), ``OCRHead``, K-Net's ``IterativeDecodeHead`` and
-``PointHead`` (the subdivision and the training pass), and the segmentors
-``EncoderDecoder`` and ``CascadeEncoderDecoder``: every family of the
-zoo over its ResNets.  Any other module type raises NotImplementedError
-naming it: the transformer and light-CNN families, ``slide`` over a
-sharded map and ``layers.SameConv2d`` are ROADMAP A14 part 3.  Nothing
-falls back to the unsharded model.
+``DepthwiseSeparableASPPHead``, ``FPNHead``, ``SegFormerHead``,
+``APCHead``, ``DMHead``, ``EncHead`` (its ``Encoding`` runs on each
+shard's block), ``ANNHead``, ``GCHead``, ``EMAHead``, ``DAHead`` with
+``PAM`` and ``CAM``, ``NLHead``, ``DNLHead``, ``CCHead``, ``ISAHead``,
+``PSAHead`` (its masks bound by the whole map's size), ``OCRHead``,
+K-Net's ``IterativeDecodeHead`` and ``PointHead`` (the subdivision and
+the training pass), and the segmentors ``EncoderDecoder`` and
+``CascadeEncoderDecoder``: every family of the zoo over its ResNets, and
+ConvNeXt, Swin, SegFormer and Twins.  Any other module type raises
+NotImplementedError naming it: the plain-ViT and light-CNN families,
+``slide`` over a sharded map and ``nn.Conv2d`` with a string padding or
+another padding mode are ROADMAP A14 part 3 (``_LEFT``).  Nothing falls
+back to the unsharded model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional
 
@@ -67,28 +83,42 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import upload
 from ..core import spatial
+from ..core.mesh import row_ranges
 from ..core.spatial import Rows, to
+from .backbones_zoo import (PCPVT, SVT, _LocalAttention, _SRAttention,
+                            _TwinsBlock)
 from .boxes import top_k
 from .cascade import CascadeEncoderDecoder
+from .convnext import ConvNeXt, ConvNeXtBlock
 from .encoder_decoder import EncoderDecoder
 from .fpn import FPN
 from .heads import (AdaptiveAvgPool, ASPPHead, DepthwiseSeparableASPPHead,
-                    FCNHead, OCRHead, PSPHead, UPerHead, tokens, untokens)
+                    FCNHead, OCRHead, PSPHead, SegFormerHead, UPerHead,
+                    tokens, untokens)
 from .heads_attention import CAM, DAHead, GCHead, NLHead, PAM
 from .heads_zoo import (ANNHead, APCHead, CCHead, DMHead, DNLHead, EMAHead,
                         EncHead, FPNHead, ISAHead, PointHead, PSAHead,
                         _attend, _bn_last, _l2norm, _psa_index,
                         bilinear_points)
 from .knet import IterativeDecodeHead
-from .layers import BatchNorm, Conv2d, ConvModule, remat
+from .layers import (BatchNorm, Conv2d, ConvModule, SameConv2d, attend,
+                     gelu, heads_merge, heads_split, remat)
+from .mit import (MITB0, MITB2, EfficientAttention, MiTBlock, MixFFN,
+                  MixVisionTransformer)
 from .necks import JPU
 from .resnet import BasicBlock, ResNetV1c, ResNeXt, ZooBottleneck, ZooResNet
+from .vit import (SwinBlock, SwinTransformer, _shift_attn_mask,
+                  _window_partition, _window_reverse)
 
 # what the spatial axis still lacks, named by every refusal
-_LEFT = ("the spatial axis over the transformer and light-CNN families "
+_LEFT = ("the spatial axis over the plain-ViT transformer families (ViT, "
+         "MAE, BEiT, SETR, Segmenter, DPT; the necks MLANeck, "
+         "MultiLevelNeck, Feature2Pyramid) and the light-CNN families "
          "(their backbones, necks and heads), slide inference over a "
-         "sharded map and layers.SameConv2d is ROADMAP A14 part 3")
+         "sharded map and nn.Conv2d with a string padding or another "
+         "padding mode than zeros is ROADMAP A14 part 3")
 
 
 @dataclasses.dataclass
@@ -148,6 +178,12 @@ def _conv(m: nn.Conv2d, x: Rows, ctx) -> Rows:
             f"row-sharded forward: {_LEFT}")
     return spatial.conv2d(x, m.weight, m.bias, m.stride, m.padding,
                           m.dilation, m.groups)
+
+
+@_sharded(SameConv2d)
+def _same_conv(m: SameConv2d, x: Rows, ctx) -> Rows:
+    return spatial.conv2d_same(x, m.weight, m.bias, m.stride, m.dilation,
+                               m.groups)
 
 
 @_sharded(Conv2d)
@@ -390,6 +426,16 @@ def _fpn_head(m: FPNHead, inputs, ctx) -> Rows:
         y = _resize_like(y, (h0, w0), m.align_corners, None)
         out = y if out is None else out + y
     return _cls_seg(m, out, ctx)
+
+
+@_sharded(SegFormerHead)
+def _segformer_head(m: SegFormerHead, inputs, ctx) -> Rows:
+    feats = [inputs[i] for i in m.in_index]
+    hw0 = _hw(feats[0])
+    projected = [_resize_like(_pixelwise(f, functools.partial(
+        _dense, getattr(m, f"linear{i}"))), hw0, m.align_corners, None)
+        for i, f in enumerate(feats)]
+    return _cls_seg(m, run(m.fuse, spatial.cat(projected), ctx), ctx)
 
 
 # ---- the pooled-context heads: global pools and partial sums --------------
@@ -814,6 +860,278 @@ def _psa_head(m: PSAHead, inputs, ctx) -> Rows:
         y.append(_untokens_like(torch.cat([col, dist], dim=-1), blk))
     y = run(m.proj, Rows(y, h), ctx)
     return _cls_seg(m, run(m.bottleneck, spatial.cat([x, y]), ctx), ctx)
+
+
+# ---- the hierarchical transformers: each shard's tokens ---------------------
+
+def _nhwc(b: torch.Tensor) -> torch.Tensor:
+    return b.permute(0, 2, 3, 1)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+def _pixelwise(x: Rows, fn) -> Rows:
+    """``fn`` on each shard's (B, h, W, C) pixels: an op of each pixel's
+    channels (a dense, a LayerNorm, a GELU)."""
+    return x.map(lambda b: _nchw(fn(_nhwc(b))))
+
+
+def _layer_norm(norm: nn.LayerNorm, t: torch.Tensor) -> torch.Tensor:
+    """``norm`` over t's last axis, its parameters read where they lie."""
+    return F.layer_norm(t, norm.normalized_shape, to(norm.weight, t.device),
+                        to(norm.bias, t.device), norm.eps)
+
+
+def _ln_rows(norm: nn.LayerNorm, x: Rows) -> Rows:
+    """``layers.ln_nchw`` of a row-sharded map."""
+    return _pixelwise(x, functools.partial(_layer_norm, norm))
+
+
+def _mlp(x: Rows, norm, fc1, fc2, approximate: bool) -> Rows:
+    """fc2(gelu(fc1(norm(x)))) of each pixel."""
+    return _pixelwise(x, lambda t: _dense(fc2, gelu(
+        _dense(fc1, _layer_norm(norm, t)), approximate)))
+
+
+@_sharded(ConvNeXtBlock)
+def _convnext_block(m: ConvNeXtBlock, x: Rows, ctx) -> Rows:
+    y = _mlp(run(m.depthwise_conv, x, ctx), m.norm, m.pointwise_conv1,
+             m.pointwise_conv2, approximate=False)
+    if m.gamma is not None:
+        y = y.map(lambda b: b * to(m.gamma, b.device)[:, None, None])
+    return x + y
+
+
+@_sharded(ConvNeXt)
+def _convnext(m: ConvNeXt, x: Rows, ctx) -> List[Rows]:
+    outs = []
+    for i in range(4):
+        if i == 0:
+            x = _ln_rows(m.downsample0_norm, run(m.downsample0_conv, x, ctx))
+        else:
+            x = run(getattr(m, f"downsample{i}_conv"), _ln_rows(
+                getattr(m, f"downsample{i}_norm"), x), ctx)
+        for j in range(m.depths[i]):
+            x = run(getattr(m, f"stage{i}_block{j}"), x, ctx)
+        if i in m.out_indices:
+            outs.append(_ln_rows(getattr(m, f"out_norm{i}"), x))
+    return outs
+
+
+@_sharded(EfficientAttention, _SRAttention)
+def _reduced_attention(m, x: Rows, ctx) -> Rows:
+    """MiT's and Twins' attention over keys and values reduced by a
+    strided convolution (``sr``, + LN): each shard reduces and projects
+    (``kv``) its own rows, the projections are gathered once a device,
+    and each shard's queries attend to all of them."""
+    src = x if m.sr is None else _ln_rows(m.sr_norm, run(m.sr, x, ctx))
+    kv = _pixelwise(src, functools.partial(_dense, m.kv))
+    nh = m.num_heads
+    cache = {}
+
+    def attend_block(b):
+        k, v = _all_rows(kv, b.device, cache).chunk(2, dim=-1)
+        q = heads_split(_dense(m.q, tokens(b)), nh)
+        out = attend(q, heads_split(k, nh), heads_split(v, nh),
+                     divisor=math.sqrt(q.shape[-1]))
+        return _untokens_like(_dense(m.proj, heads_merge(out)), b)
+    return x.map(attend_block)
+
+
+@_sharded(MixFFN)
+def _mix_ffn(m: MixFFN, x: Rows, ctx) -> Rows:
+    y = run(m.dwconv, _pixelwise(x, functools.partial(_dense, m.fc1)), ctx)
+    return _pixelwise(y, lambda t: _dense(m.fc2, gelu(t, approximate=True)))
+
+
+@_sharded(MiTBlock)
+def _mit_block(m: MiTBlock, x: Rows, ctx) -> Rows:
+    x = x + run(m.attn, _ln_rows(m.norm1, x), ctx)
+    return x + run(m.ffn, _ln_rows(m.norm2, x), ctx)
+
+
+@_sharded(MixVisionTransformer, MITB0, MITB2)
+def _mit(m: MixVisionTransformer, x: Rows, ctx) -> List[Rows]:
+    outs = []
+    for i, depth in enumerate(m.num_layers):
+        x = _ln_rows(getattr(m, f"embed_norm{i + 1}"),
+                     run(getattr(m, f"patch_embed{i + 1}"), x, ctx))
+        for j in range(depth):
+            x = run(getattr(m, f"stage{i + 1}_block{j}"), x, ctx)
+        x = _ln_rows(getattr(m, f"out_norm{i + 1}"), x)
+        if i in m.out_indices:
+            outs.append(x)
+    return outs
+
+
+@functools.lru_cache(maxsize=512)
+def _band_plan(hp: int, ws: int, shift: int, s: int, e: int):
+    """The window bands (ws rows of a map padded to ``hp`` rows, rolled by
+    -``shift``) that output rows [s, e) lie in: their indices, their
+    padded rows in rolled order as contiguous runs [a, b) (a band's
+    rolled rows are padded rows (p ws + shift + i) mod hp: the last band
+    wraps onto the map's first rows), and each output row's place among
+    those rows."""
+    bands = tuple(sorted({((r - shift) % hp) // ws for r in range(s, e)}))
+    rows = [(p * ws + shift + i) % hp for p in bands for i in range(ws)]
+    runs, start = [], 0
+    for i in range(1, len(rows) + 1):
+        if i == len(rows) or rows[i] != rows[i - 1] + 1:
+            runs.append((rows[start], rows[i - 1] + 1))
+            start = i
+    at = {p: i * ws for i, p in enumerate(bands)}
+    keep = tuple(at[((r - shift) % hp) // ws] + (r - shift) % hp % ws
+                 for r in range(s, e))
+    return bands, tuple(runs), keep
+
+
+def _band_rows(x: Rows, runs, dev) -> torch.Tensor:
+    """The (B, C, rows, W) map of x's padded rows ``runs`` on ``dev``,
+    zeros below the map."""
+    pieces = [spatial.fetch_padded(x, a, b, dev) for a, b in runs]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=2)
+
+
+@functools.lru_cache(maxsize=512)
+def _keep_index(hp: int, ws: int, shift: int, s: int, e: int,
+                device: torch.device) -> torch.Tensor:
+    """``_band_plan``'s output rows' places as an index tensor on
+    ``device``: uploaded once a geometry, not a block."""
+    return upload(list(_band_plan(hp, ws, shift, s, e)[2]), device)
+
+
+@functools.lru_cache(maxsize=512)
+def _window_mask(hp: int, wp: int, ws: int, shift: int, s: int, e: int,
+                 device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The seam mask (``vit._shift_attn_mask`` of the whole padded map) of
+    ``_band_plan``'s windows, taken at their global indices p (wp / ws) +
+    q: (windows, 1, ws^2, ws^2) on ``device``."""
+    per_band = wp // ws
+    windows = [p * per_band + q for p in _band_plan(hp, ws, shift, s, e)[0]
+               for q in range(per_band)]
+    full = upload(_shift_attn_mask(hp, wp, ws, shift), device).to(dtype)
+    return full[upload(windows, device), None]
+
+
+@_sharded(_LocalAttention)
+def _local_attention(m: _LocalAttention, x: Rows, ctx) -> Rows:
+    """Twins-SVT's windows of ``min(window, h, w)`` cells a side of the
+    whole map, padded at its bottom and right with zeros before ``qkv``:
+    each shard attends within the bands its rows touch, a band across a
+    shard's edge computed by both, and keeps its own rows."""
+    n, _, h, w = x.shape
+    ws = min(m.window, h, w)
+    hp, wp = h + (-h) % ws, w + (-w) % ws
+    nh = m.num_heads
+    blocks = []
+    for blk, (s, e) in zip(x.blocks, x.ranges):
+        if e == s:
+            blocks.append(blk)
+            continue
+        bands, runs, _ = _band_plan(hp, ws, 0, s, e)
+        g = F.pad(_nhwc(_band_rows(x, runs, blk.device)), (0, 0, 0, wp - w))
+        q, k, v = (heads_split(t, nh) for t in _dense(
+            m.qkv, _window_partition(g, ws)).chunk(3, dim=-1))
+        out = _dense(m.proj, heads_merge(attend(
+            q, k, v, divisor=math.sqrt(q.shape[-1]))))
+        out = _window_reverse(out, ws, n, g.shape[1], wp)
+        r0 = s - bands[0] * ws
+        blocks.append(_nchw(out[:, r0:r0 + e - s, :w]))
+    return Rows(blocks, h)
+
+
+@_sharded(_TwinsBlock)
+def _twins_block(m: _TwinsBlock, x: Rows, ctx) -> Rows:
+    x = x + run(m.attn, _ln_rows(m.norm1, x), ctx)
+    return x + _mlp(x, m.norm2, m.fc1, m.fc2, approximate=True)
+
+
+@_sharded(PCPVT, SVT)
+def _twins(m: PCPVT, x: Rows, ctx) -> List[Rows]:
+    outs = []
+    for s, depth in enumerate(m.depths):
+        x = _ln_rows(getattr(m, f"embed_norm{s}"),
+                     run(getattr(m, f"patch_embed{s}"), x, ctx))
+        for j in range(depth):
+            x = run(getattr(m, f"block{s}_{j}"), x, ctx)
+            if j == 0:                          # the PEG
+                x = x + run(getattr(m, f"peg{s}"), x, ctx)
+        x = _ln_rows(getattr(m, f"out_norm{s}"), x)
+        if s in m.out_indices:
+            outs.append(x)
+    return outs
+
+
+@_sharded(SwinBlock)
+def _swin_block(m: SwinBlock, x: Rows, ctx) -> Rows:
+    """A Swin block over the map padded to whole windows at its bottom and
+    right (zeros after ``norm1``) and rolled by -shift: each shard
+    attends within the bands its rows lie in after the roll (the last
+    band holds the padded map's last ws - shift rows and its first
+    shift rows), with the seam mask of the whole padded map at each
+    window's global index, and keeps its own rows."""
+    n, _, h, w = x.shape
+    ws, sh = m.window, m.shift
+    hp, wp = h + (-h) % ws, w + (-w) % ws
+    y = _ln_rows(m.norm1, x)
+    blocks = []
+    for blk, (s, e) in zip(x.blocks, x.ranges):
+        if e == s:
+            blocks.append(blk)
+            continue
+        dev = blk.device
+        _, runs, _ = _band_plan(hp, ws, sh, s, e)
+        keep = _keep_index(hp, ws, sh, s, e, dev)
+        g = F.pad(_nhwc(_band_rows(y, runs, dev)), (0, 0, 0, wp - w))
+        mask = None
+        if sh:
+            g = torch.roll(g, -sh, dims=2)
+            mask = _window_mask(hp, wp, ws, sh, s, e, dev, x.dtype)
+        wins = m.attn(_window_partition(g, ws), mask,
+                      param=lambda p: to(p, dev))
+        out = _window_reverse(wins, ws, n, g.shape[1], wp)
+        if sh:
+            out = torch.roll(out, sh, dims=2)
+        # row r's output: rolled row (r - shift) mod hp, in its band
+        blocks.append(_nchw(out[:, keep, :w]))
+    x = x + Rows(blocks, h)
+    return x + _mlp(x, m.norm2, m.mlp.fc1, m.mlp.fc2, approximate=False)
+
+
+def _patch_merge(x: Rows, norm: nn.LayerNorm, lin: nn.Linear) -> Rows:
+    """Swin's 2x2 patch merging: the map padded at its bottom and right
+    to even sizes, each output row from global input rows 2i and 2i + 1
+    ([x00, x10, x01, x11] on the channels), then ``norm`` and ``lin``;
+    the output rows split over the shards as ``row_ranges`` splits
+    them."""
+    h, w = _hw(x)
+    h2 = -(-h // 2)
+    blocks = []
+    for (o0, o1), dev in zip(row_ranges(h2, len(x.blocks)), x.devices):
+        t = F.pad(_nhwc(spatial.fetch_padded(x, 2 * o0, 2 * o1, dev)),
+                  (0, 0, 0, w % 2))
+        t = torch.cat([t[:, 0::2, 0::2], t[:, 1::2, 0::2], t[:, 0::2, 1::2],
+                       t[:, 1::2, 1::2]], dim=-1)
+        blocks.append(_nchw(_dense(lin, _layer_norm(norm, t))))
+    return Rows(blocks, h2)
+
+
+@_sharded(SwinTransformer)
+def _swin(m: SwinTransformer, x: Rows, ctx) -> List[Rows]:
+    x = run(m.patch_embed, x, ctx)
+    if m.patch_norm_ln is not None:
+        x = _ln_rows(m.patch_norm_ln, x)
+    outs = []
+    for s, depth in enumerate(m.depths):
+        for i in range(depth):
+            x = run(getattr(m, f"stage{s}_block{i}"), x, ctx)
+        outs.append(_ln_rows(getattr(m, f"out_norm{s}"), x))
+        if s < len(m.depths) - 1:
+            x = _patch_merge(x, getattr(m, f"merge_norm{s}"),
+                             getattr(m, f"merge{s}"))
+    return outs
 
 
 # ---- PointRend's cascade: the point head over row-sharded maps -------------

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -77,22 +77,27 @@ class Attention(nn.Module):
         if self.window_size:
             normal_(self.rel_pos_bias_table, 0.02, generator)
 
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None,
+                param: Callable = lambda p: p) -> torch.Tensor:
         """x (B, N, C); ``mask`` an additive (nW, 1, N, N) shift mask, B a
-        multiple of nW (the windows of each image in turn)."""
+        multiple of nW (the windows of each image in turn); ``param``
+        gives the tensor read for each parameter and buffer (the sharded
+        forward's copy where the tokens lie)."""
         b, n, _ = x.shape
         h = self.num_heads
-        q, k, v = (heads_split(t, h) for t in self.qkv(x).chunk(3, dim=-1))
+        qkv = F.linear(x, param(self.qkv.weight), param(self.qkv.bias))
+        q, k, v = (heads_split(t, h) for t in qkv.chunk(3, dim=-1))
         attn = torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(q.shape[-1])
         if self.window_size:
-            rel = self.rel_pos_bias_table[self.rel_index].reshape(n, n, h)
-            attn = attn + rel.permute(2, 0, 1)[None]
+            rel = param(self.rel_pos_bias_table)[param(self.rel_index)]
+            attn = attn + rel.reshape(n, n, h).permute(2, 0, 1)[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = (attn.reshape(b // nw, nw, *attn.shape[1:])
                     + mask[None]).reshape(attn.shape)
         out = torch.einsum("bhnm,bhmd->bhnd", torch.softmax(attn, dim=-1), v)
-        return self.proj(heads_merge(out))
+        return F.linear(heads_merge(out), param(self.proj.weight),
+                        param(self.proj.bias))
 
 
 class ViTBlock(nn.Module):

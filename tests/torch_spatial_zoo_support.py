@@ -42,6 +42,28 @@ LAST = {"ocrnet": ("OCRHead",), "knet": ("IterativeDecodeHead",),
         "isanet": ("ISAHead",), "psanet": ("PSAHead", "MaskConv"),
         "point_rend": ("CascadeEncoderDecoder", "FPN", "FPNHead",
                        "PointHead")}
+# the hierarchical transformers (ROADMAP A14 part 3b): the module types
+# each builds (its heads and necks beyond SegFormerHead had sharded forms
+# already); SVT and MiT-B2 have no config of their own and are written
+# over the Twins and SegFormer configs (``WRITTEN``)
+TRANSFORMERS = {
+    "convnext": ("ConvNeXt", "ConvNeXtBlock", "UPerHead", "FCNHead"),
+    "swin": ("SwinTransformer", "SwinBlock", "UPerHead"),
+    "segformer": ("MixVisionTransformer", "MiTBlock", "EfficientAttention",
+                  "MixFFN", "SegFormerHead"),
+    "twins": ("PCPVT", "_TwinsBlock", "_SRAttention", "SameConv2d", "FPN",
+              "FPNHead"),
+    "svt": ("SVT", "_TwinsBlock", "_LocalAttention", "_SRAttention",
+            "SameConv2d", "FPN", "FPNHead")}
+# family: (the family whose config it is written over, its backbone, its
+# decode head's overrides); SVT at the Twins config's widths, two blocks
+# a stage (a local and a global one), its windows of 7
+WRITTEN = {
+    "svt": ("twins", dict(type="SVT", embed_dims=(16, 32, 64, 128),
+                          num_heads=(1, 2, 4, 8), depths=(2, 2, 2, 2),
+                          mlp_ratios=(2, 2, 2, 2)), {}),
+    "mitb2": ("segformer", dict(type="MITB2"),
+              dict(in_channels=(64, 128, 320, 512)))}
 # the families whose variables are shaped by the input (PSAHead's masks):
 # their JAX variables are made at each input size
 SIZED = ("psanet",)
@@ -66,9 +88,21 @@ def port_model(family: str, hw=None):
                        else (64, 64))
 
 
+def zoo_config(family: str) -> dict:
+    """``family_config`` of the family, or of the one a ``WRITTEN`` family
+    is written over, with its backbone and decode head."""
+    if family not in WRITTEN:
+        return family_config(family)
+    base, backbone, head = WRITTEN[family]
+    cfg = family_config(base)
+    cfg["backbone"] = dict(backbone)
+    cfg["decode_head"] = dict(cfg["decode_head"], **head)
+    return cfg
+
+
 @functools.lru_cache(maxsize=None)
 def _port_model(family: str, hw):
-    cfg = family_config(family)
+    cfg = zoo_config(family)
     _, variables, model, _ = jax_and_port(cfg, hw)
     return cfg, variables, model
 
@@ -104,7 +138,11 @@ def train_variables(family: str):
     cfg = dict(cfg, backbone=dict(cfg["backbone"], in_channels=14))
     for head in ("decode_head", "auxiliary_head"):
         cfg[head] = dict(cfg[head], num_classes=6, dropout_ratio=0.0)
-    _, variables, _, _ = jax_and_port(cfg, (64, 64))
+    jax_cfg = cfg
+    if family in TRANSFORMERS:         # flax infers the input's channels
+        jax_cfg = dict(cfg, backbone={k: v for k, v in cfg["backbone"].items()
+                                      if k != "in_channels"})
+    _, variables, _, _ = jax_and_port(cfg, (64, 64), jax_cfg=jax_cfg)
     return cfg, variables
 
 
@@ -156,7 +194,31 @@ def check_train_grads(family: str, k: int) -> None:
     (want_l, want_g, want_s), (got_l, got_g, got_s) = runs
     for name, v in want_l.items():
         assert got_l[name] == pytest.approx(v, rel=1e-12), name
-    # EncHead's SE-loss classifier is in no output: no gradient either way
+    assert_grads_close(got_g, want_g)
+    top = max(float(s.abs().max()) for s in want_s.values())
+    for name, w in want_s.items():
+        assert float((got_s[name] - w).abs().max()) <= 1e-12 * top, name
+
+
+# where the JAX package's GSPMD prediction over the 8 virtual CPU devices
+# is not its own unsharded prediction (the transformers' levels of fewer
+# rows than devices: apart by 0.04 to 0.15 in probability; ROADMAP queue
+# C's reference-side differences, read with the jax below, cause not
+# isolated): there the port's sharded prediction is held to JAX's
+# unsharded one
+JAX_GSPMD_APART = {("convnext", (128, 128)), ("segformer", (128, 128)),
+                   ("segformer", (120, 96)), ("svt", (128, 128)),
+                   ("svt", (120, 96)), ("twins", (128, 128)),
+                   ("twins", (120, 96))}
+JAX_GSPMD_APART_READ_ON = "0.9.0"
+
+
+def assert_grads_close(got_g: dict, want_g: dict) -> None:
+    """``check_train_grads``' bounds: the same parameters without a
+    gradient (EncHead's SE-loss classifier is in no output), every other
+    gradient within 1e-9 of its tensor's largest |value| plus 1e-12 of
+    the model's largest (a bias before a softmax has a gradient of
+    rounding alone)."""
     assert {n for n, g in got_g.items() if g is None} == \
         {n for n, g in want_g.items() if g is None}
     want_g = {n: g for n, g in want_g.items() if g is not None}
@@ -164,19 +226,118 @@ def check_train_grads(family: str, k: int) -> None:
     for name, w in want_g.items():
         err = float((got_g[name] - w).abs().max())
         assert err <= 1e-9 * float(w.abs().max()) + 1e-12 * top, name
-    top = max(float(s.abs().max()) for s in want_s.values())
-    for name, w in want_s.items():
-        assert float((got_s[name] - w).abs().max()) <= 1e-12 * top, name
 
 
-def check_against_jax(family: str) -> None:
+def check_train_mode_grads(family: str, k: int) -> None:
+    """``forward_rows(train=True)`` of the family's model (batch
+    statistics, its heads' dropout 0.1 from one seeded generator),
+    float64, batch 2 at 64^2, over ``["cpu"] * k`` against the unsharded
+    ``model(x, train=True)``: the logits within ``TOL`` of their largest,
+    and the gradients of one seeded weighted sum of them within
+    ``assert_grads_close``' bounds."""
+    _, _, model = port_model(family)
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(4),
+                   dtype=torch.float64)
+    runs = []
+    for devices in (None, cpus(k)):
+        m = copy.deepcopy(model)
+        gen = torch.Generator().manual_seed(6)
+        if devices is None:
+            logits = m(x, train=True, generator=gen)
+        else:
+            logits = spatial.gather(forward_rows(
+                m, spatial.shard(x, devices), train=True, generator=gen))
+        if not runs:
+            weights = torch.randn(logits.shape, dtype=logits.dtype,
+                                  generator=torch.Generator().manual_seed(5))
+        (logits * weights).sum().backward()
+        runs.append((logits.detach(),
+                     {n: p.grad for n, p in m.named_parameters()}))
+    (want, want_g), (got, got_g) = runs
+    assert rel_err(got.numpy(), want.numpy()) <= TOL
+    assert_grads_close(got_g, want_g)
+
+
+def backbone_rows_seen(family: str, k: int, hw) -> tuple:
+    """The pixels (``F.conv2d``) or tokens (``F.linear``) each
+    ``nn.Conv2d`` and ``nn.Linear`` of the family's backbone, and of a
+    SegFormerHead, receives in each call, however it is called: in the
+    unsharded forward and in the forward over ``["cpu"] * k`` (the
+    backbone alone, ``sharded.run``, or the whole ``forward_rows`` with a
+    SegFormerHead).  Two dicts, module name -> counts."""
+    import torch.nn.functional as F
+
+    from peanut_tpu_torch.models import sharded
+    from peanut_tpu_torch.models.heads import SegFormerHead
+    _, _, model = port_model(family)
+    whole = isinstance(model.decode_head, SegFormerHead)
+    parts = {"backbone": model.backbone}
+    if whole:
+        parts["decode_head"] = model.decode_head
+    names = {id(m.weight): f"{p}.{n}" for p, part in parts.items()
+             for n, m in part.named_modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))}
+    x = image(hw)
+    runs = []
+    for k_run in (None, k):
+        seen = {}
+
+        def counting(fn, channels):
+            def call(inp, weight, *args, **kw):
+                if id(weight) in names:
+                    seen.setdefault(names[id(weight)], []).append(
+                        inp.numel() // inp.shape[channels])
+                return fn(inp, weight, *args, **kw)
+            return call
+
+        conv2d, linear = F.conv2d, F.linear
+        F.conv2d, F.linear = counting(conv2d, 1), counting(linear, -1)
+        try:
+            with torch.no_grad():
+                if k_run is None:
+                    model(x) if whole else model.backbone(x)
+                elif whole:
+                    forward_rows(model, spatial.shard(x, cpus(k)),
+                                 train=False)
+                else:
+                    sharded.run(model.backbone, spatial.shard(x, cpus(k)),
+                                sharded._Context(torch.device("cpu"), None))
+        finally:
+            F.conv2d, F.linear = conv2d, linear
+        runs.append(seen)
+    assert set(runs[0]) == set(runs[1]) == set(names.values())
+    return runs[0], runs[1]
+
+
+def check_no_gathered_backbone(family: str, k: int = 8,
+                               hw=(896, 32)) -> None:
+    """No ``nn.Conv2d`` or ``nn.Linear`` of the backbone (or of a
+    SegFormerHead) receives a whole level's map in ``forward_rows`` over
+    k shards: each of its calls gets fewer pixels or tokens than its call
+    in the unsharded forward.  At 896 x 32 over 8 shards a shard's rows
+    with their halo or window bands (Swin's wrapped band included) are
+    fewer than every level's rows, down to the 28 of 1/32, so a shard
+    that gathered a map (the rows before a reduction, the keys' or
+    values' projections, a band of the whole height) would show."""
+    full, parts = backbone_rows_seen(family, k, hw)
+    for name, counts in full.items():
+        assert max(parts[name]) < min(counts), (name, parts[name], counts)
+
+
+def check_against_jax(family: str,
+                      sizes=((128, 128), (120, 96))) -> None:
     """JAX's ``PredictionModel(model_cfg=...).get_prediction_sharded`` over
     the 8 virtual CPU devices (GSPMD's exchanges) against the port's
     ``get_prediction_sharded`` over ``["cpu"] * 8``, float32, from the same
     variables, at 128^2 and 120 x 96 (uneven rows): within 1e-4
     (tests/test_torch_spatial_2.py's bar; the port's float32 sharded
     prediction is up to ~1.3e-5 from its unsharded one, the float64
-    checks hold the port to 1e-12)."""
+    checks hold the port to 1e-12).  At the sizes of
+    ``JAX_GSPMD_APART`` the port is held to JAX's unsharded
+    ``get_prediction``; with the jax the gap was read on, JAX's GSPMD
+    prediction must still lie more than 1e-4 from that one (else the
+    list is stale), with another it is only reported.  ``sizes``: the
+    (H, W) inputs."""
     import jax
 
     from peanut_tpu.config import NavConfig as JNavConfig
@@ -187,7 +348,7 @@ def check_against_jax(family: str) -> None:
 
     assert len(jax.devices()) == 8
     jcfg = JNavConfig()
-    for hw in ((128, 128), (120, 96)):
+    for hw in sizes:
         cfg, variables, model = port_model(family, hw)
         jpm = JPrediction(jcfg, variables=variables, model_cfg=cfg)
         pm = PredictionModel(NavConfig(**dataclasses.asdict(jcfg)),
@@ -200,9 +361,52 @@ def check_against_jax(family: str) -> None:
                                         make_mesh({"spatial": 8}, cpus(8)))
         assert got.shape == want.shape == (classes,) + hw
         assert got.dtype == np.float32
+        if (family, hw) in JAX_GSPMD_APART:
+            plain = jpm.get_prediction(full_map)
+            gap = float(np.abs(want - plain).max())
+            print(f"{family} {hw}: JAX's GSPMD prediction {gap:.3g} from "
+                  f"its unsharded one (jax {jax.__version__})")
+            assert gap > 1e-4 or jax.__version__ != JAX_GSPMD_APART_READ_ON, (
+                f"{family} {hw}: JAX's GSPMD prediction now agrees with its "
+                f"unsharded one; take it from JAX_GSPMD_APART and ROADMAP C")
+            want = plain
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
         if family == "point_rend":
             check_point_cells(jpm, pm, full_map)
+
+
+def jax_gspmd_levels(family: str, hw) -> list:
+    """Of each backbone level of the family's JAX model (the CPU tests'
+    widths, float32), the largest gap between its GSPMD program over the
+    8 virtual CPU devices, the input's height sharded as
+    ``get_prediction_sharded`` shards it, and its unsharded program, over
+    the level's largest |value|: where ``JAX_GSPMD_APART``'s gaps begin
+    (ROADMAP C).  Not a test: a reading, e.g.
+    ``python -c "import sys; sys.path[:0] = ['tests']; import conftest,
+    torch_spatial_zoo_support as s; print(s.jax_gspmd_levels('convnext',
+    (128, 128)))"``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from peanut_tpu.config import NavConfig as JNavConfig
+    from peanut_tpu.core.mesh import make_mesh as jmake_mesh
+    from peanut_tpu.prediction import PredictionModel as JPrediction
+
+    cfg, variables, _ = port_model(family, hw)
+    jpm = JPrediction(JNavConfig(), variables=variables, model_cfg=cfg)
+    x = np.random.RandomState(1).rand(3, *hw).astype(np.float32)
+    x = np.transpose(x[None], (0, 2, 3, 1))     # check_against_jax's map
+    v = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), variables)
+    f = jax.jit(lambda v, x: jpm.model.apply(
+        v, x, method=lambda m, x: m.extract_feat(x)))
+    mesh = jmake_mesh({"spatial": 8})
+    want = f(v, x)
+    with mesh:
+        got = f(v, jax.device_put(x, NamedSharding(
+            mesh, P(None, "spatial", None, None))))
+    return [float(jnp.abs(a - b).max() / jnp.abs(a).max())
+            for a, b in zip(want, got)]
 
 
 # PointRend's float32 near-ties: two cells whose uncertainties lie this
@@ -442,10 +646,4 @@ def check_point_rend_train(k: int) -> None:
     assert torch.equal(got_p["points"], want_p["points"])
     assert rel_err(got_p["point_logits"].detach().numpy(),
                    want_p["point_logits"].detach().numpy()) <= TOL
-    top = max(float(w.abs().max()) for w in want_g.values()
-              if w is not None)
-    for name, w in want_g.items():
-        assert (got_g[name] is None) == (w is None), name
-        if w is not None:
-            err = float((got_g[name] - w).abs().max())
-            assert err <= 1e-9 * float(w.abs().max()) + 1e-12 * top, name
+    assert_grads_close(got_g, want_g)

@@ -119,15 +119,17 @@ def family_config(family: str) -> dict:
     return cfg
 
 
-def jax_and_port(cfg, hw, seed=0):
-    """The JAX model of ``cfg``, its float64 variables (every one, the
-    auxiliary head's too), the port's model carrying them, and a seeded
-    float64 (1, H, W, C) input."""
+def jax_and_port(cfg, hw, seed=0, jax_cfg=None):
+    """The JAX model of ``cfg`` (or of ``jax_cfg``, where the JAX
+    package's config differs: a backbone whose input channels flax
+    infers), its float64 variables (every one, the auxiliary head's too),
+    the port's model carrying them, and a seeded float64 (1, H, W, C)
+    input."""
     from peanut_tpu.models import build_segmentor as jbuild
     from peanut_tpu_torch.models.builder import build_segmentor
     in_ch = cfg["backbone"].get("in_channels", 3)
     x = np.random.RandomState(seed).rand(1, *hw, in_ch)
-    jm = jbuild(cfg)
+    jm = jbuild(cfg if jax_cfg is None else jax_cfg)
     v = random_variables(lambda: jm.init(
         {"params": jax.random.PRNGKey(0)}, jax.numpy.zeros((1, *hw, in_ch)),
         train=False, with_aux=True))
