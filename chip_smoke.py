@@ -39,7 +39,7 @@ Phases (each prints one JSON line):
                past full ghost rows: 1x1608^2 at block 8, 16x1700^2 at
                block 16), and past the shared-memory kernels, through the
                long-line kernels (csrc/fmm_long.cu): B4 at 1x48x8192 and
-               1x16x40000, B1 with column scans at 2x8192x48 and rows at
+               1x16x40000, B1 with column scans at 2x4104x48 and rows at
                1x16x6000 (block 8), B2 at 1x16x20000 (block 16), with
                their plain versions' times, bounds and launches; all
                bit-equal; then fused_eikonal's time split into its scan
@@ -114,10 +114,11 @@ Phases (each prints one JSON line):
                their plain versions;
  11. train  — PSPNet-R50-v1c training at the recipe's full width (batch 8,
                crop 960, 14 channels, remat=1) on synthetic 960^2 maps
-               written from --seed: cli.train_prediction_model for 2
-               iterations (checkpoints every 2), then again to 3, which
-               must resume from iter 2; iter_3 loaded into PredictionModel
-               serves what the trained model computes (1e-5) and
+               written from --seed: cli.train_prediction_model for 1
+               iteration (checkpoints every 2 and at a run's end), then
+               again to 2, which must resume from iter 1; iter_2 loaded
+               into PredictionModel serves what the trained model
+               computes (1e-5) and
                cli.test evaluates it; five steps on one fixed batch lower
                the loss, timed (median step ms, forward + backward and
                Adam, maps/s, peak memory at remat=1; one step's peak at
@@ -134,7 +135,7 @@ Phases (each prints one JSON line):
                at the config's own widths from --seed with random batch
                statistics, non-zero attention gates, layer scales and
                seeded PReLU slopes: the card against the CPU in float64 on a
-               128x256 input (1e-8 of the largest |logit|), then one
+               64x128 input (1e-8 of the largest |logit|), then one
                512x1024 forward timed in float32 (TF32 off) and bfloat16
                (zoo_family; BEiT's tables and MAE's positional embedding
                bound by each model's first input, so at the size it runs);
@@ -161,11 +162,11 @@ Phases (each prints one JSON line):
                auxiliary head 256) with 6 classes in both heads and 14
                input channels, written out with dump_config, trained by
                cli.train_prediction_model --config at batch 8, crop 512
-               (the config's own) on synthetic 640^2 maps for 6
-               iterations (checkpoints every 3), then again to 9, which
-               must resume from iter 6 with the logged loss falling
+               (the config's own) on synthetic 640^2 maps for 4
+               iterations (checkpoints every 2), then again to 6, which
+               must resume from iter 4 with the logged loss falling
                (the last three iterations' mean below the first three's);
-               iter_9 loaded by apis.init_segmentor serves what the
+               iter_6 loaded by apis.init_segmentor serves what the
                trained model computes (1e-5 of the largest |logit|);
                one batch from the loader (host, one worker), then 5
                steps after 2 warm-up ones on it, float32 with TF32 off and
@@ -216,8 +217,9 @@ Phases (each prints one JSON line):
                --distributed 1 at the recipe's full width (global batch
                8, crop 960, 14 channels, remat=1, TF32 off) over two
                ranks of 4 on the card under gloo (NCCL refuses two ranks
-               on one card), spawned from here, for 1 iteration, then
-               resumed to 2: rank 0's log (one record an iteration) and
+               on one card), spawned from here once, for 1 iteration,
+               then resumed to 2 by a second call of the CLI in the
+               same ranks: rank 0's log (one record an iteration) and
                checkpoints (iter_1, 2), each step's
                ms, each rank's peak memory; step 1 against one process at
                the global batch on the ranks' first batches from the same
@@ -226,8 +228,8 @@ Phases (each prints one JSON line):
                1e-6 in at most 2 % of the elements), and with one card a
                one-rank NCCL step of the tiny PSPNet in float64 against
                the plain step (1e-10); ddp_eval, cli.test --distributed 1
-               over two ranks on iter_2: each rank's report equal to one
-               process's.
+               over the same two ranks on iter_2, after their training:
+               each rank's report equal to one process's.
  16. spatial — the mesh's spatial axis, PSPNet's map height over shards
                that one process drives (run last): spatial_pred,
                PredictionModel.get_prediction_sharded of PEANUT's
@@ -254,8 +256,8 @@ Phases (each prints one JSON line):
                whole-map prediction over {"spatial": 2}.  The spatial path
                launches no kernel of csrc/ (PSPNet has none); every gap is
                a gate with its bound printed beside it.
- 17. spatial_zoo — the spatial axis over the zoo's ResNet heads and
-               hierarchical transformers:
+ 17. spatial_zoo — the spatial axis over the zoo's ResNet heads,
+               hierarchical transformers and plain ViTs:
                spatial_zoo_pred, get_prediction_sharded of UPerNet-R50
                (k = 2, 4; float32 and bfloat16), DeepLabV3-R50 (k = 4:
                dilation-36 halos past the neighbouring shard),
@@ -271,7 +273,14 @@ Phases (each prints one JSON line):
                map reduced by a strided convolution), Twins-PCPVT-S (k = 4)
                and Twins-SVT (k = 3; both the Twins config with the
                backbone at its class defaults, PCPVT-S's and SVT's
-               published widths, where the config's own is narrow), from
+               published widths, where the config's own is narrow),
+               UPerNet-ViT-B/16 (k = 3, 4: global attention, each
+               shard's queries against every row's keys and values),
+               BEiT-B at 512^2 (k = 4: its relative-position bias over
+               the square grid), MAE-B (k = 3), DPT-ViT-B (k = 4) and
+               Segmenter-ViT-T (k = 4: the class tokens' attention once
+               over 8192 patch tokens; these four written over their
+               configs at published widths), from
                their 80k Cityscapes configs at published widths, random
                weights from --seed, batch 1 at 512x1024, float32 but
                UPerNet's bf16, over [cuda:0] * k against get_prediction,
@@ -280,8 +289,9 @@ Phases (each prints one JSON line):
                make_train_step(spatial_axis="spatial") at batch 2, crop
                512x1024, float32 (TF32 off) over 2 shards against three
                unsharded steps (step 1's loss gated); spatial_zoo_float64,
-               the twenty ResNet families at the CPU tests' widths and
-               the five transformers at their configs' at 128^2 in
+               the twenty ResNet families at the CPU tests' widths, the
+               five hierarchical transformers and the six plain-ViT
+               families at their configs' at 128^2 in
                float64 sharded over 2 and 3 shards against the card's
                unsharded forward and the CPU's sharded one (1e-10 of the
                largest |logit|).  No kernel of csrc/ on this path.
@@ -1461,7 +1471,7 @@ def b1_cases(rng, dev, barrier_us) -> dict:
 # the long-line kernels (csrc/fmm_long.cu) past the shared-memory
 # kernels' lines: wide_lines's cases of each, the first the kernels line's
 LONG_CASES = {"fused_eikonal_long": ("B1_rows_1x16x6000_b8",
-                                     "B1_vscan_2x8192x48"),
+                                     "B1_vscan_2x4104x48"),
               "block_sweep_long": ("B4_1x16x40000", "B4_1x48x8192"),
               "block_sweep2_long": ("B2_1x16x20000",)}
 
@@ -1487,8 +1497,9 @@ def wide_lines(args, dev) -> dict:
     rng = np.random.RandomState(args.seed + 3)
     wide = {}
     # B1 at the paths' settings but one round: the plain version steps
-    # each row block of a sweep from Python (~18 s a round at 2 x 8192 x
-    # 48, ~10.8 M ops over these cases at the paths' 2 and 4 rounds); the
+    # each row block of a sweep from Python, so its time grows with the
+    # lines' length (PERF.md §6): the long vscan case's columns of 4104
+    # cells are the fewest past the shared-memory kernel's 4096; the
     # kernel lines at the paths' shapes hold its rounds
     blanket, vscan_kw, rows_b8 = (
         {k: v for k, v in dict(B1_CASES[case], rounds=1).items()
@@ -1513,7 +1524,7 @@ def wide_lines(args, dev) -> dict:
                             blanket),
                            ("B4_1x48x8192", (1, 48, 8192), None),
                            ("B4_1x16x40000", (1, 16, 40000), None),
-                           ("B1_vscan_2x8192x48", (2, 8192, 48), vscan_kw),
+                           ("B1_vscan_2x4104x48", (2, 4104, 48), vscan_kw),
                            ("B1_rows_1x16x6000_b8", (1, 16, 6000), rows_b8),
                            ("B2_1x16x20000", (1, 16, 20000), "B2")):
         if shape[1] == shape[2]:
@@ -1590,7 +1601,7 @@ def wide_lines(args, dev) -> dict:
 # ---- the train phase: PSPNet-R50-v1c training and evaluation ----------
 TRAIN_MAP = 960          # the recipe's crop and the synthetic maps' size
 TRAIN_BATCH = 8
-TRAIN_ITERS = (2, 3)     # the first run, then the resumed one
+TRAIN_ITERS = (1, 2)     # the first run, then the resumed one
 OVERFIT_STEPS = 5
 TIMED_FROM = 2           # overfit steps before this one warm up
 PARITY_BASE = 8          # the CPU tests' tiny PSPNet (base width 8)
@@ -1990,9 +2001,10 @@ ZOO_SERVE_SWIN = "configs/swin/upernet_swin-t_512x512_160k_ade20k.py"
 ZOO_IMAGE_SWIN = (512, 683)
 ZOO_REQUESTS = 2              # each request ~0.6-0.85 s of the script
 ZOO_TIMED = (512, 1024)       # the families' training crop
-ZOO_CHECK = (128, 256)        # card against CPU in float64
-# UPerNet's slide windows at ZOO_IMAGE, and at ZOO_CHECK
+ZOO_CHECK = (64, 128)          # card against CPU in float64
+# UPerNet's slide windows at ZOO_IMAGE, and at ZOO_SLIDE_HW
 ZOO_SLIDE = dict(mode="slide", crop_size=(512, 1024), stride=(341, 683))
+ZOO_SLIDE_HW = (128, 256)
 ZOO_SLIDE_CHECK = dict(mode="slide", crop_size=(64, 128), stride=(43, 85))
 
 
@@ -2010,8 +2022,13 @@ def zoo_weights(model, seed: int):
     """Random batch statistics, non-zero attention gates (at flax's
     initial 0 a gate hides its attention branch), layer scales of order 1
     (ConvNeXt's start at 1e-6, BEiT's at 0.1) and PReLU slopes (CGNet's,
-    all 0.01 at init, so a dropped PReLU would hardly show) on a seeded
-    model."""
+    all 0.01 at init, so a dropped PReLU would hardly show) and
+    Segmenter's class tokens of order 1 on a seeded model.  At their
+    init's 0.02 the class tokens stay so alike that the masks' cosines
+    spread little over the classes, and mask_norm (a LayerNorm over
+    them) scales float32's rounding up by the inverse of that spread
+    (spatial_zoo_pred holds Segmenter's float32 forwards against
+    float64)."""
     import re
 
     from peanut_tpu_torch.models.layers import BatchNorm, PReLU
@@ -2029,6 +2046,9 @@ def zoo_weights(model, seed: int):
         if isinstance(m, PReLU):
             m.negative_slope.fill_(0.1 + 0.4 * float(torch.rand(
                 (), generator=g)))
+    for name, p in model.named_parameters():
+        if name.endswith("cls_emb"):
+            p.normal_(0.0, 1.0, generator=g)
     return model
 
 
@@ -2042,8 +2062,7 @@ def zoo_card_vs_cpu(cfg, model, dev, seed: int, hw) -> dict:
     model = copy.deepcopy(model).double()
     with torch.no_grad():
         want = model(x)
-        card = copy.deepcopy(model).to(dev)
-        got = card(x.to(dev)).cpu()
+        got = model.to(dev)(x.to(dev)).cpu()
     finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
     top = float(want.abs().max())
     return {"err_of_largest": float((got - want).abs().max()) / top,
@@ -2126,19 +2145,18 @@ def zoo_serve(args, dev, config: str, image_hw, phase: str) -> dict:
     return line
 
 
-def zoo_forward_ms(model, x, reps: int = 3) -> float:
+def zoo_forward_ms(model, x, reps: int = 3, warmup: int = 1) -> float:
     with torch.no_grad():
-        return cuda_ms(lambda: model(x), reps)
+        return cuda_ms(lambda: model(x), reps, warmup)
 
 
 def zoo_phase(args, dev, smi_line: str) -> dict:
     """Phase 12: every family the port builds at its config's widths
-    (card against CPU in float64 at 128x256; one 512x1024 forward timed
+    (card against CPU in float64 at ZOO_CHECK; one 512x1024 forward timed
     in float32, TF32 off, and in bfloat16), cli/serve.py answering
     ZOO_REQUESTS /probs requests for UPerNet-R50 and FCN-HRNet-W18 at
     1024x2048 and for UPerNet-Swin-T at 512x683, UPerNet's slide inference, and
     cli/benchmark.py at its defaults in both types."""
-    import copy
     import io
 
     from peanut_tpu_torch.cli import benchmark
@@ -2160,7 +2178,7 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             out = model(x)
-        ms32 = zoo_forward_ms(model, x)
+        ms32 = zoo_forward_ms(model, x, warmup=0)     # out warmed it up
         peak32 = torch.cuda.max_memory_allocated() / 2 ** 20
         model.to(torch.bfloat16)
         ms16 = zoo_forward_ms(model, x.to(torch.bfloat16))
@@ -2190,7 +2208,7 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
     zoo_serve(args, dev, ZOO_SERVE_SWIN, ZOO_IMAGE_SWIN, "zoo_serve_swin")
 
     # slide inference: UPerNet at 1024x2048 on the card, and the card
-    # against the CPU in float64 at 128x256
+    # against the CPU in float64 at ZOO_SLIDE_HW
     cfg = load_config(ZOO_SERVE)["model"]
     cfg["test_cfg"] = dict(ZOO_SLIDE)
     model = zoo_weights(build_segmentor(cfg, seed=args.seed),
@@ -2202,19 +2220,20 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
         slide_ms = cuda_ms(lambda: model.inference(x), 2)
     small = dict(cfg, test_cfg=dict(ZOO_SLIDE_CHECK))
     x64 = torch.as_tensor(np.random.RandomState(args.seed + 1).rand(
-        1, *ZOO_CHECK, 3))
+        1, *ZOO_SLIDE_HW, 3))
     m64 = zoo_weights(build_segmentor(small, seed=args.seed),
                       args.seed).double()
     with torch.no_grad():
         want = m64.inference(x64)
-        got = copy.deepcopy(m64).to(dev).inference(x64.to(dev)).cpu()
+        got = m64.to(dev).inference(x64.to(dev)).cpu()
     slide_err = float((got - want).abs().max() / want.abs().max())
     slide_line = {"phase": "zoo_slide", "config": ZOO_SERVE,
                   "test_cfg": cfg["test_cfg"], "image": list(ZOO_IMAGE),
                   "ms_float32": slide_ms, "out_shape": list(out.shape),
                   "out_finite": bool(torch.isfinite(out).all()),
                   "card_vs_cpu_float64": {
-                      "input": list(ZOO_CHECK), "test_cfg": ZOO_SLIDE_CHECK,
+                      "input": list(ZOO_SLIDE_HW),
+                      "test_cfg": ZOO_SLIDE_CHECK,
                       "err_of_largest": slide_err}}
     emit(slide_line)
     del model, x, out
@@ -2240,7 +2259,7 @@ def zoo_phase(args, dev, smi_line: str) -> dict:
 ZOO_TRAIN = "configs/convnext/upernet_convnext_512x512_160k_ade20k.py"
 ZOO_TRAIN_MAP = 640       # the synthetic maps' side: enough for the crop
 ZOO_TRAIN_CROP = 512      # the config's own training crop
-ZOO_TRAIN_ITERS = (6, 9)  # the first run, then the resumed one
+ZOO_TRAIN_ITERS = (4, 6)  # the first run, then the resumed one
 ZOO_TRAIN_CHECK = (64, 64)    # card against CPU, batch 2
 # the card-against-CPU configs: each family's config with 14 channels, 6
 # classes, dropout 0 and narrow heads over its published backbone
@@ -2391,9 +2410,9 @@ def zoo_train_phase(args, dev, smi_line: str) -> dict:
         argv = ["--config", cfg_file, "--data_root", tmp, "--img_dir",
                 "train_80", "--work_dir", work, "--batch_size",
                 str(TRAIN_BATCH), "--crop_size", str(ZOO_TRAIN_CROP),
-                "--checkpoint_interval", "3", "--num_workers", "1",
+                "--checkpoint_interval", "2", "--num_workers", "1",
                 "--log_interval", "1", "--seed", str(args.seed)]
-        # the CLI at full width, then resumed to 9
+        # the CLI at full width, then resumed
         runs = []
         for iters in ZOO_TRAIN_ITERS:
             t0 = time.perf_counter()
@@ -2408,12 +2427,14 @@ def zoo_train_phase(args, dev, smi_line: str) -> dict:
         reading["log_loss"] = [r["loss"] for r in log]
         reading["checkpoints"] = sorted(os.listdir(work))
         losses = reading["log_loss"]
-        if (state.step != ZOO_TRAIN_ITERS[1]
-                or reading["log_iters"] != list(range(1, 10))
+        first, last = ZOO_TRAIN_ITERS
+        if (state.step != last
+                or reading["log_iters"] != list(range(1, last + 1))
                 or not all(np.isfinite(losses))
-                or "iter_9" not in reading["checkpoints"]):
+                or f"iter_{last}" not in reading["checkpoints"]):
             emit(reading)
-            fail("zoo_train: the CLI did not resume from iter 6 to 9")
+            fail(f"zoo_train: the CLI did not resume from iter {first} to "
+                 f"{last}")
         if not np.mean(losses[-3:]) < np.mean(losses[:3]):
             emit(reading)
             fail("zoo_train: the logged loss did not fall")
@@ -2421,8 +2442,8 @@ def zoo_train_phase(args, dev, smi_line: str) -> dict:
         # the checkpoint served through apis against the trained model
         ds = SemMapDataset(tmp, "train_80")
         img = ds[7]["img"][:ZOO_TRAIN_CROP, :ZOO_TRAIN_CROP]
-        bundle = apis.init_segmentor(cfg_file, os.path.join(work, "iter_9"),
-                                     device=dev)
+        bundle = apis.init_segmentor(cfg_file, os.path.join(
+            work, f"iter_{last}"), device=dev)
         got = apis.inference_segmentor(bundle, img, logits=True)
         with torch.no_grad():
             want = state.model(torch.as_tensor(
@@ -2435,8 +2456,8 @@ def zoo_train_phase(args, dev, smi_line: str) -> dict:
         if (got.shape != (6, ZOO_TRAIN_CROP, ZOO_TRAIN_CROP)
                 or reading["serve_err_of_largest"] > SERVE_TOL):
             emit(reading)
-            fail("zoo_train: iter_9 through apis does not serve what was "
-                 "trained")
+            fail(f"zoo_train: iter_{last} through apis does not serve what "
+                 f"was trained")
 
         # timed: one batch through the loader (host, one worker), then
         # steps on it split into forward + backward and Adam
@@ -2845,10 +2866,10 @@ MESH_GT_TICKS = 6
 MESH_KERNELS = ("fused_eikonal", "block_sweep2", "roi_window_pool",
                 "nms_keep")
 DDP_WORLD = 2
-# --max_iters of the two runs (the second resumes); a third run would
-# cost ~30 s of the script's time limit, which the spatial phase uses,
-# and the second resumes for one step, not three: the spatial_zoo
-# phase's transformers take the ~6 s that saves
+# --max_iters of the two runs (the second resumes, for one step); both
+# and ddp_eval run in one spawn of the ranks: a spawn costs ~10 s of
+# processes reaching the card, which the spatial_zoo phase's
+# transformers take
 DDP_RUNS = (1, 2)
 DDP_LOSS_TOL = 1e-4      # step 1's losses, 2 ranks x 4 against 1 x 8
 # Adam's first step moves every parameter by +-lr (m / sqrt(v) = sign(g)):
@@ -3060,11 +3081,13 @@ def mesh_gt(args, dev, pspnet) -> dict:
     return reading
 
 
-def _ddp_rank(rank, world, init, entry, argv, out_dir):
-    """One rank of ddp_train / ddp_eval, in a process of its own: the gloo
-    group (two ranks share the card: NCCL refuses that), TF32 off, then
-    the CLI's main on the card; its step, peak memory and report go to
-    ``out_dir/rank{rank}.json``."""
+def _ddp_rank(rank, world, init, jobs, out_dir):
+    """One rank of ddp_train and ddp_eval, in a process of its own: the
+    gloo group (two ranks share the card: NCCL refuses that), TF32 off,
+    then each (entry, argv) of ``jobs`` in turn, the CLI's main on the card
+    (the CLIs keep a group joined before them), all ranks done with one
+    before any starts the next; each job's step or report, wall time and
+    peak memory go to ``out_dir/rank{rank}.json``."""
     import torch.distributed as dist
 
     from peanut_tpu_torch.cli import test as test_cli
@@ -3075,36 +3098,44 @@ def _ddp_rank(rank, world, init, entry, argv, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = init_distributed("gloo", device="cuda:0", init_method=init,
                            rank=rank, world_size=world)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    outs = []
     try:
-        if entry == "train":
-            out = {"step": train_prediction_model.main(argv, device=dev).step}
-        else:
-            out = {"report": test_cli.main(argv, device=dev)}
-        torch.cuda.synchronize()
+        for entry, argv in jobs:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if entry == "train":
+                out = {"step": train_prediction_model.main(
+                    argv, device=dev).step}
+            else:
+                out = {"report": test_cli.main(argv, device=dev)}
+            torch.cuda.synchronize()
+            out.update(wall_s=time.perf_counter() - t0,
+                       peak_memory_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30)
+            outs.append(out)
+            # rank 0's checkpoint written before any rank reads it
+            dist.barrier()
     finally:
         dist.destroy_process_group()
-    out.update(rank=rank, wall_s=time.perf_counter() - t0,
-               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(out, f)
+        json.dump(outs, f)
 
 
-def run_ddp(entry, argv, tmp) -> list:
-    """``entry`` ("train" or "test") over DDP_WORLD spawned ranks on the
-    card; their rank{r}.json records.  A rank that fails fails the phase."""
+def run_ddp(jobs, tmp) -> list:
+    """``jobs``, a list of ("train" or "test", argv), in turn over DDP_WORLD
+    ranks spawned once on the card; each rank's list of records, a job's
+    after another.  A rank that fails fails the phase."""
     import torch.multiprocessing as mp
 
-    out_dir = os.path.join(tmp, f"ranks_{entry}_{time.monotonic_ns()}")
+    out_dir = os.path.join(tmp, f"ranks_{time.monotonic_ns()}")
     os.makedirs(out_dir)
     try:
         mp.start_processes(_ddp_rank, args=(
-            DDP_WORLD, f"file://{os.path.join(out_dir, 'pg')}", entry,
-            argv + ["--distributed", "1"], out_dir), nprocs=DDP_WORLD,
-            join=True, start_method="spawn")
+            DDP_WORLD, f"file://{os.path.join(out_dir, 'pg')}",
+            [(entry, argv + ["--distributed", "1"]) for entry, argv in jobs],
+            out_dir), nprocs=DDP_WORLD, join=True, start_method="spawn")
     except Exception as e:          # mp.ProcessRaisedException, ...
-        fail(f"ddp {entry}: a rank failed: {e}")
+        fail(f"ddp {[entry for entry, _ in jobs]}: a rank failed: {e}")
     recs = []
     for r in range(DDP_WORLD):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -3188,15 +3219,21 @@ def ddp_phases(args, dev, smi_line: str) -> dict:
                 str(TRAIN_MAP), "--checkpoint_interval", "2",
                 "--log_interval", "1", "--num_workers", "1", "--seed",
                 str(args.seed)]
-        runs = []
-        for iters in DDP_RUNS:
-            t0 = time.perf_counter()
-            recs = run_ddp("train", argv + ["--max_iters", str(iters)], tmp)
-            runs.append({"max_iters": iters, "wall_s":
-                         time.perf_counter() - t0,
-                         "steps": [r["step"] for r in recs],
-                         "peak_memory_gib_by_rank":
-                         [r["peak_memory_gib"] for r in recs]})
+        # the training runs and ddp_eval (cli.test on the last checkpoint)
+        # in one spawn of the ranks
+        ev = ["--data_root", tmp, "--img_dir", "train_80", "--checkpoint",
+              os.path.join(work, f"iter_{DDP_RUNS[-1]}"), "--max_samples",
+              "4", "--argmax"]
+        t0 = time.perf_counter()
+        recs = run_ddp([("train", argv + ["--max_iters", str(iters)])
+                        for iters in DDP_RUNS] + [("test", ev)], tmp)
+        reading["spawn_wall_s"] = time.perf_counter() - t0
+        runs = [{"max_iters": iters,
+                 "wall_s_by_rank": [r[i]["wall_s"] for r in recs],
+                 "steps": [r[i]["step"] for r in recs],
+                 "peak_memory_gib_by_rank":
+                 [r[i]["peak_memory_gib"] for r in recs]}
+                for i, iters in enumerate(DDP_RUNS)]
         log = read_train_log(os.path.join(work, "train_log.jsonl"))
         reading["cli_runs"] = runs
         reading["log_iters"] = [r["iter"] for r in log]
@@ -3274,25 +3311,19 @@ def ddp_phases(args, dev, smi_line: str) -> dict:
             fail(f"ddp_train: the NCCL world-1 step differs from the "
                  f"plain one: {w1}")
 
-        # ddp_eval: cli.test over the ranks on the last checkpoint, against
-        # one process
-        ev = ["--data_root", tmp, "--img_dir", "train_80", "--checkpoint",
-              os.path.join(work, "iter_2"), "--max_samples", "4",
-              "--argmax"]
-        t0 = time.perf_counter()
-        recs = run_ddp("test", ev, tmp)
-        wall = time.perf_counter() - t0
+        # ddp_eval: cli.test over the ranks on the last checkpoint (run
+        # above, after the training), against one process
         want = test_cli.main(ev, device=dev)
         ev_reading = {"phase": "ddp_eval", "ranks": DDP_WORLD,
                       "backend": "gloo", "samples": want["samples"],
                       "report_one_process": want,
-                      "reports_equal_by_rank": [r["report"] == want
+                      "reports_equal_by_rank": [r[-1]["report"] == want
                                                 for r in recs],
-                      "wall_s": wall}
+                      "wall_s_by_rank": [r[-1]["wall_s"] for r in recs]}
         emit(ev_reading)
         if not all(ev_reading["reports_equal_by_rank"]):
             fail(f"ddp_eval: the gathered report differs from one "
-                 f"process's: {[r['report'] for r in recs]} vs {want}")
+                 f"process's: {[r[-1]['report'] for r in recs]} vs {want}")
     return reading
 
 
@@ -3651,22 +3682,70 @@ SPATIAL_ZOO_CASES = (
      "configs/segformer/segformer_mit-b0_512x1024_80k_cityscapes.py", (4,),
      ("float32",)),
     ("twins_pcpvt", "pcpvt", (4,), ("float32",)),
-    ("twins_svt", "svt", (3,), ("float32",)))
-# the Twins config with its backbone at the class defaults: PCPVT-S's
-# published widths (64, 128, 320, 512; depths 3, 4, 6, 3), where the
-# config's own are the repo's narrow ones, and SVT, which has no config
+    ("twins_svt", "svt", (3,), ("float32",)),
+    # the plain ViTs: global attention over a 32 x 64 patch grid, each
+    # shard's queries against every row's keys and values (ViT-B/16 over
+    # 3 shards: 11 / 11 / 10 token rows); BEiT at 512^2, whose square
+    # 32 x 32 grid makes its relative-position bias join every block;
+    # MAE's positional embedding bound by the whole grid; DPT's
+    # reassembled pyramid; Segmenter's class tokens over 8192 patch
+    # tokens at the 2x level
+    ("vit_b16", "configs/vit/upernet_vit-b16_512x1024_80k_cityscapes.py",
+     (3, 4), ("float32",)),
+    ("beit_b", "beit_b", (4,), ("float32",), (512, 512)),
+    ("mae_b", "mae_b", (3,), ("float32",)),
+    ("dpt_vit_b", "dpt_vit_b", (4,), ("float32",)),
+    ("segmenter_vit_t", "segmenter_vit_t", (4,), ("float32",)))
+# the cases whose float32 logits, unsharded and sharded, are also held
+# against a float64 forward of the same weights (Segmenter's mask_norm, a
+# LayerNorm over the classes, scales float32's rounding up by the inverse
+# of the classes' spread; zoo_weights): the sharded forward's gap to
+# float64 may be at most SPATIAL_ZOO_ROUNDING times the unsharded one's,
+# the shards' rounding of the same order as the model's own, where a
+# fault would stand orders of magnitude above it
+SPATIAL_ZOO_F64_REFERENCE = ("segmenter_vit_t",)
+SPATIAL_ZOO_ROUNDING = 4.0
+# configs written over a repo config, where its widths are the repo's
+# narrow ones: (config, backbone, the decode head's overrides). The Twins
+# config with its backbone at the class defaults: PCPVT-S's published
+# widths (64, 128, 320, 512; depths 3, 4, 6, 3), and SVT, which has no
+# config; BEiT-B and MAE-B (768 wide, 12 blocks, 12 heads, taps 3 / 5 /
+# 7 / 11) under mmseg's UPerHead for them (upernet_beit, upernet_mae:
+# 768 channels in and 768 wide); DPT's ViT-B/16 and
+# head at their class defaults (mmseg's DPT: taps 2 / 5 / 8 / 11, 256
+# channels, post-process 96 / 192 / 384 / 768); Segmenter's ViT-T (192
+# wide, 3 heads) at its 12 blocks, the config's two taps after the last
+# two, and mmseg's 2-layer mask transformer
 SPATIAL_ZOO_TWINS = ("configs/twins/"
                      "twins_pcpvt-s_fpn_512x1024_80k_cityscapes.py")
-SPATIAL_ZOO_WRITTEN = {"pcpvt": (SPATIAL_ZOO_TWINS, dict(type="PCPVT")),
-                       "svt": (SPATIAL_ZOO_TWINS, dict(type="SVT"))}
+SPATIAL_ZOO_UPER_768 = dict(in_channels=(768,) * 4, channels=768)
+SPATIAL_ZOO_WRITTEN = {
+    "pcpvt": (SPATIAL_ZOO_TWINS, dict(type="PCPVT"), {}),
+    "svt": (SPATIAL_ZOO_TWINS, dict(type="SVT"), {}),
+    "beit_b": ("configs/beit/beit_upernet_512x512_80k_ade20k.py",
+               dict(type="BEiT"), SPATIAL_ZOO_UPER_768),
+    "mae_b": ("configs/mae/mae_upernet_512x1024_80k_cityscapes.py",
+              dict(type="MAE"), SPATIAL_ZOO_UPER_768),
+    "dpt_vit_b": ("configs/dpt/dpt_vit_512x1024_80k_cityscapes.py",
+                  dict(type="VisionTransformer"),
+                  dict(in_channels=(768,) * 4, channels=256, embed_dims=768,
+                       post_process_channels=(96, 192, 384, 768))),
+    "segmenter_vit_t": (
+        "configs/segmenter/segmenter_vit-t_512x1024_80k_cityscapes.py",
+        dict(type="VisionTransformer", embed_dim=192, depth=12,
+             num_heads=3, out_indices=(10, 11)), dict(num_layers=2))}
 SPATIAL_ZOO_FAMILIES = ("upernet", "sem_fpn", "deeplabv3", "deeplabv3plus",
                         "fastfcn", "apcnet", "dmnet", "encnet", "ann",
                         "gcnet", "emanet", "danet", "nonlocal_net", "dnlnet",
                         "ccnet", "isanet", "psanet", "ocrnet", "knet",
                         "point_rend", "convnext", "swin", "segformer",
-                        "twins", "svt")
+                        "twins", "svt", "vit", "setr", "segmenter", "dpt",
+                        "beit", "mae")
 SPATIAL_ZOO_F64_SHARDS = (2, 3)
 SPATIAL_ZOO_F64_SIZE = 128
+# the float64 check's depth cuts of a published width (the CPU tests'
+# tests/torch_zoo_support.py CUTS): UPerNet-ViT-B/16 at four blocks
+SPATIAL_ZOO_F64_CUTS = {"vit": dict(depth=4, out_indices=(0, 1, 2, 3))}
 # |sharded - unsharded| of the probabilities (get_prediction_sharded
 # against get_prediction), set from the gaps measured on the H100
 # (PERF.md §6): float32 1.1e-6 to 1.2e-6, bf16 2.8e-3 (2 shards)
@@ -3684,12 +3763,16 @@ SPATIAL_ZOO_POINT_TIE = 1e-5
 
 def spatial_zoo_config(config: str) -> dict:
     """The model config of a SPATIAL_ZOO_CASES entry: a config file's, or
-    a SPATIAL_ZOO_WRITTEN one's (its file's with its backbone)."""
+    a SPATIAL_ZOO_WRITTEN one's (its file's with its backbone and its
+    decode head's overrides)."""
     from peanut_tpu_torch.core.config_file import load_config
-    path, backbone = SPATIAL_ZOO_WRITTEN.get(config, (config, None))
+    path, backbone, head = SPATIAL_ZOO_WRITTEN.get(config, (config, None,
+                                                            {}))
     cfg = load_config(path)["model"]
     if backbone is not None:
         cfg["backbone"] = dict(backbone)
+    if head:
+        cfg["decode_head"] = dict(cfg["decode_head"], **head)
     return cfg
 
 
@@ -3781,12 +3864,15 @@ def spatial_zoo_decisions(model, x, dev, k: int) -> dict:
 def spatial_zoo_forwards(args, dev) -> dict:
     """spatial_zoo_pred: PredictionModel.get_prediction_sharded of the
     zoo's SPATIAL_ZOO_CASES (their 80k Cityscapes configs at published
-    widths, random weights from --seed)
-    over make_mesh({"spatial": k}, [cuda:0] * k) against get_prediction
-    at 512x1024; each forward's ms (CUDA events, forward_rows against
+    widths, random weights from --seed) over make_mesh({"spatial": k},
+    [cuda:0] * k) against get_prediction at 512x1024 (or the case's
+    size); each forward's ms (CUDA events, forward_rows against
     model(x)), the host's enqueue of it, the peak memory above the
-    weights (all shards, then per shard), the logits' gap and the
-    seconds of the script from the case's model build (case_s)."""
+    weights (all shards, then per shard), the logits' gap, for the cases
+    of SPATIAL_ZOO_F64_REFERENCE the unsharded and the sharded float32
+    logits' gaps to a float64 forward (the sharded within
+    SPATIAL_ZOO_ROUNDING times the unsharded), and the seconds of the
+    script from the case's model build (case_s)."""
     import copy
 
     from peanut_tpu_torch.config import NavConfig
@@ -3796,16 +3882,20 @@ def spatial_zoo_forwards(args, dev) -> dict:
     from peanut_tpu_torch.models.sharded import forward_rows
     from peanut_tpu_torch.prediction import PredictionModel
 
-    full_map = np.random.RandomState(args.seed + 18).rand(
-        3, *SPATIAL_ZOO_HW).astype(np.float32)
     out = {}
-    for case, config, shards, dtypes in SPATIAL_ZOO_CASES:
+    for case, config, shards, dtypes, *size in SPATIAL_ZOO_CASES:
+        hw = size[0] if size else SPATIAL_ZOO_HW
+        full_map = np.random.RandomState(args.seed + 18).rand(
+            3, *hw).astype(np.float32)
         t_case = time.perf_counter()
         model = zoo_weights(build_segmentor(spatial_zoo_config(config),
                                             seed=args.seed), args.seed)
-        for dtype in dtypes:
+        for i, dtype in enumerate(dtypes):
+            # the case's last type takes the model itself, not a copy
             pm = PredictionModel(NavConfig(serve_bf16=dtype == "bfloat16"),
-                                 model=copy.deepcopy(model), device=dev)
+                                 model=copy.deepcopy(model)
+                                 if i < len(dtypes) - 1 else model,
+                                 device=dev)
             want = pm.get_prediction(full_map)
             x = torch.as_tensor(full_map[None], device=dev).to(pm.dtype)
             torch.cuda.synchronize()
@@ -3827,6 +3917,15 @@ def spatial_zoo_forwards(args, dev) -> dict:
                            "peak_mib_a_shard_est": peak / k}
 
             logits, res = reading(lambda: pm.model(x), 1)
+            wide = None
+            if case in SPATIAL_ZOO_F64_REFERENCE:
+                with torch.no_grad():
+                    wide = copy.deepcopy(pm.model).double()(x.double())
+
+                def vs_float64(y):
+                    return float((y.double() - wide).abs().max()
+                                 / wide.abs().max())
+                res["err_of_largest_vs_float64"] = vs_float64(logits)
             res = {"unsharded": res}
             for k in shards:
                 mesh = make_mesh({"spatial": k}, [dev] * k)
@@ -3836,6 +3935,11 @@ def spatial_zoo_forwards(args, dev) -> dict:
                                                          train=False), k)
                 gap = float((spatial.gather(y).float() - logits.float())
                             .abs().max() / logits.float().abs().max())
+                if wide is not None:
+                    timing["err_of_largest_vs_float64"] = vs_float64(
+                        spatial.gather(y))
+                    timing["float64_bound"] = SPATIAL_ZOO_ROUNDING * res[
+                        "unsharded"]["err_of_largest_vs_float64"]
                 del y
                 res[f"sharded_{k}"] = {
                     "max_abs_diff": float(np.abs(got - want).max()),
@@ -3848,18 +3952,19 @@ def spatial_zoo_forwards(args, dev) -> dict:
                     **spatial_zoo_decisions(pm.model, x, dev, k)}
             out[f"{case}_{dtype}"] = dict(
                 res, config=SPATIAL_ZOO_WRITTEN.get(config, config),
-                case_s=time.perf_counter() - t_case)
-            del pm, logits, x
+                input=[3, *hw], case_s=time.perf_counter() - t_case)
+            del pm, logits, x, wide
             torch.cuda.empty_cache()
-    emit({"phase": "spatial_zoo_pred", "input": [3, *SPATIAL_ZOO_HW],
-          "seed": args.seed, "cases": out})
+    emit({"phase": "spatial_zoo_pred", "seed": args.seed, "cases": out})
     for name, res in out.items():
         for key, r in res.items():
             if key.startswith("sharded") and not (
                     r["finite"] and r["shape_ok"]
                     and r["max_abs_diff"] <= r["bound"]
                     and r.get("point_tie_gap_of_largest", 0.0)
-                    <= SPATIAL_ZOO_POINT_TIE):
+                    <= SPATIAL_ZOO_POINT_TIE
+                    and r.get("err_of_largest_vs_float64", 0.0)
+                    <= r.get("float64_bound", 0.0)):
                 fail(f"spatial_zoo_pred {name} {key}: {r}")
     return out
 
@@ -3934,13 +4039,14 @@ def spatial_zoo_training(args, dev) -> dict:
 
 def spatial_zoo_float64(args, dev) -> dict:
     """spatial_zoo_float64: the twenty ResNet families (every sharded
-    module type of the zoo's ResNet heads) at the CPU tests' widths and
-    the five hierarchical transformers at their configs', batch 1 at
+    module type of the zoo's ResNet heads) at the CPU tests' widths, the
+    five hierarchical transformers and the six plain-ViT families
+    (square: BEiT's bias joins) at their configs' (UPerNet-ViT-B cut to
+    four blocks, SPATIAL_ZOO_F64_CUTS), batch 1 at
     SPATIAL_ZOO_F64_SIZE^2 in float64: forward_rows over [cuda:0] * k for
     k in SPATIAL_ZOO_F64_SHARDS against the card's unsharded forward, and
     over 2 shards against the CPU's sharded forward over ["cpu"] * 2;
     each within SPATIAL_F64_BOUND of the largest |logit|."""
-    import copy
 
     from peanut_tpu_torch.core import spatial
     from peanut_tpu_torch.models.builder import build_segmentor
@@ -3952,10 +4058,16 @@ def spatial_zoo_float64(args, dev) -> dict:
     for fam in SPATIAL_ZOO_FAMILIES:
         cfg = zoo_test_widths(spatial_zoo_config(
             fam if fam in SPATIAL_ZOO_WRITTEN else zoo_config_path(fam)))
-        cpu = zoo_weights(build_segmentor(cfg, seed=args.seed),
-                          args.seed).double()
-        card = copy.deepcopy(cpu).to(dev)
+        cfg["backbone"].update(SPATIAL_ZOO_F64_CUTS.get(fam, {}))
+        model = zoo_weights(build_segmentor(cfg, seed=args.seed),
+                            args.seed).double()
         with torch.no_grad():
+            # the CPU's sharded forward first (it binds an input-shaped
+            # parameter from the seed as the card's would), then the
+            # model itself moved to the card
+            on_cpu = spatial.gather(forward_rows(
+                model, spatial.shard(x, ["cpu"] * 2), train=False))
+            card = model.to(dev)
             want = card(x.to(dev), train=False).cpu()
             top = float(want.abs().max())
             res = {}
@@ -3966,12 +4078,10 @@ def spatial_zoo_float64(args, dev) -> dict:
                 res[f"sharded_{k}_vs_card"] = float(
                     (got - want).abs().max()) / top
                 if k == 2:
-                    on_cpu = spatial.gather(forward_rows(
-                        cpu, spatial.shard(x, ["cpu"] * 2), train=False))
                     res["sharded_2_vs_cpu_sharded_2"] = float(
                         (got - on_cpu).abs().max()) / top
         errors[fam] = res
-        del card
+        del card, model
     torch.cuda.empty_cache()
     emit({"phase": "spatial_zoo_float64", "size": s,
           "bound_of_largest": SPATIAL_F64_BOUND, "errors": errors})

@@ -208,22 +208,42 @@ class _BEiTBlock(InputShaped):
 
     def forward(self, x: torch.Tensor, grid: int) -> torch.Tensor:
         n = x.shape[1]
-        nh = self.num_heads
-        table = self.bind(
-            "rel_pos_bias", ((2 * grid - 1) ** 2, nh), x,
+        table = self.table(grid, x)
+        q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
+        bias = None
+        if n == grid * grid:
+            bias = self.bias(table, grid, upload(
+                _rel_pos_index(grid).reshape(-1), x.device))
+        x = x + self.gamma1 * self.proj(self.mix(q, k, v, bias))
+        y = self.fc2(gelu(self.fc1(self.norm2(x)), approximate=True))
+        return x + self.gamma2 * y
+
+    def table(self, grid: int, like: torch.Tensor) -> torch.Tensor:
+        """``rel_pos_bias``, bound (on ``like``'s device, in its type) by
+        the patch grid's height ``grid`` if unbound."""
+        return self.bind(
+            "rel_pos_bias", ((2 * grid - 1) ** 2, self.num_heads), like,
             lambda t, g: normal_(t, 0.02, g, truncated=True),
             f"BEiT's relative-position table spans a patch grid of another "
             f"height than {grid}")
-        q, k, v = (heads_split(t, nh)
-                   for t in self.qkv(self.norm1(x)).chunk(3, dim=-1))
-        bias = None
-        if n == grid * grid:
-            idx = upload(_rel_pos_index(grid).reshape(-1), x.device)
-            bias = table[idx].reshape(n, n, nh).permute(2, 0, 1)[None]
-        out = attend(q, k, v, divisor=math.sqrt(q.shape[-1]), bias=bias)
-        x = x + self.gamma1 * self.proj(heads_merge(out))
-        y = self.fc2(gelu(self.fc1(self.norm2(x)), approximate=True))
-        return x + self.gamma2 * y
+
+    def bias(self, table: torch.Tensor, grid: int,
+             index: torch.Tensor) -> torch.Tensor:
+        """The bias of the queries whose rows of ``_rel_pos_index(grid)``
+        ``index`` holds, flattened, against every patch of the g x g grid:
+        (1, heads, queries, g * g)."""
+        n = grid * grid
+        return table[index].reshape(index.shape[0] // n, n,
+                                    self.num_heads).permute(2, 0, 1)[None]
+
+    def mix(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias) -> torch.Tensor:
+        """Projected queries (B, N, C) against keys and values (B, M, C),
+        plus ``bias`` where it joins, the heads merged (before ``proj``)."""
+        nh = self.num_heads
+        q, k, v = (heads_split(t, nh) for t in (q, k, v))
+        return heads_merge(attend(q, k, v, divisor=math.sqrt(q.shape[-1]),
+                                  bias=bias))
 
 
 @BACKBONES.register()
@@ -289,17 +309,22 @@ class MAE(InputShaped):
         x = self.patch_embed(x)
         h, w = x.shape[-2:]
         t = tokens(x)
-        t = t + self.bind(
-            "pos_embed", (1,) + tuple(t.shape[1:]), t,
-            lambda p, g: normal_(p, 0.02, g, truncated=True),
-            "MAE's positional embedding was shaped for another number of "
-            "patches")
+        t = t + self.positions(h * w, t)
         taps = []
         for i in range(self.depth):
             t = getattr(self, f"block{i}")(t)
             if i in self.out_indices:
                 taps.append(untokens(getattr(self, f"tap_norm{i}")(t), h, w))
         return tap_pyramid(taps, h, w, floor=1)
+
+    def positions(self, n: int, like: torch.Tensor) -> torch.Tensor:
+        """``pos_embed``, (1, n, C) for a grid of n patches, bound (on
+        ``like``'s device, in its type) if unbound."""
+        return self.bind(
+            "pos_embed", (1, n, self.patch_embed.out_channels), like,
+            lambda p, g: normal_(p, 0.02, g, truncated=True),
+            "MAE's positional embedding was shaped for another number of "
+            "patches")
 
 
 # ---------------------------------------------------------------------------

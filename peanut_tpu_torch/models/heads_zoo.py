@@ -29,6 +29,7 @@ from .layers import (BatchNorm, ConvModule, InputShaped, LayerNorm,
                      MultiHeadAttention, gelu, lecun_normal_, ln_nchw,
                      normal_)
 from .ops import adaptive_avg_pool
+from .vit import pyramid_sizes
 
 
 class SepConvModule(nn.Module):
@@ -838,9 +839,9 @@ class DPTHead(DecodeHead):
         feats = [inputs[i] for i in self.in_index]
         h, w = feats[0].shape[-2:]
         pyramid = []
-        for i, (f, s) in enumerate(zip(feats, (4.0, 2.0, 1.0, 0.5))):
-            y = self.resize(getattr(self, f"reassemble{i}_proj")(f),
-                            (max(int(h * s), 1), max(int(w * s), 1)))
+        for i, (f, size) in enumerate(zip(feats,
+                                          pyramid_sizes(h, w, floor=1))):
+            y = self.resize(getattr(self, f"reassemble{i}_proj")(f), size)
             pyramid.append(getattr(self, f"reassemble{i}_out")(y))
         out = self._residual(pyramid[-1], 3)
         for i in range(len(pyramid) - 2, -1, -1):

@@ -424,12 +424,18 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        return self.out(self.mix(self.query(x), self.key(kv),
+                                 self.value(kv)))
+
+    def mix(self, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+        """The projected queries (B, N, C) against the projected keys and
+        values (B, M, C), the heads merged: the attention before ``out``
+        (a sharded forward projects each shard's tokens itself)."""
         h = self.num_heads
-        q = heads_split(self.query(x), h)
+        q = heads_split(q, h)
         q = q / math.sqrt(q.shape[-1])
-        out = attend(q, heads_split(self.key(kv), h),
-                     heads_split(self.value(kv), h))
-        return self.out(heads_merge(out))
+        return heads_merge(attend(q, heads_split(k, h), heads_split(v, h)))
 
 
 def same_pads(size: int, kernel: int, stride: int):

@@ -1,7 +1,8 @@
 """The forward of a segmentor with the map's height sharded over devices
 (``core.spatial``): the mesh's ``spatial`` axis for PEANUT's PSPNet, the
-dry run's and the model zoo's ResNet families and hierarchical
-transformers, whole-map inference and the train forward alike.
+dry run's and the model zoo's ResNet families, hierarchical transformers
+and plain-ViT families (``sharded_vit``), whole-map inference and the
+train forward alike.
 
 ``forward_rows(model, x)`` runs an ``EncoderDecoder`` (or a cascade) over
 a ``Rows`` map with the same parameters and buffers as ``model(x)``: each
@@ -35,7 +36,8 @@ pooling, OCR's soft regions), the keys and values of whole-map
 attention, which each shard reads for its own query rows only (PAM,
 NonLocal, DNL, CC's columns, ISA's row classes, PSA's collection; MiT's
 and Twins' keys and values of the map reduced by a strided convolution,
-each shard reducing and projecting its own rows), the rows of a window
+each shard reducing and projecting its own rows; the plain ViTs'
+global attention, each shard projecting its own tokens), the rows of a window
 band that straddles a shard's edge, which each shard that outputs rows
 of it computes (ISA's local stage, Twins-SVT's windows, Swin's windows,
 whose shifted blocks' last band wraps onto the map's first rows), and
@@ -65,10 +67,14 @@ shard's block), ``ANNHead``, ``GCHead``, ``EMAHead``, ``DAHead`` with
 K-Net's ``IterativeDecodeHead`` and ``PointHead`` (the subdivision and
 the training pass), and the segmentors ``EncoderDecoder`` and
 ``CascadeEncoderDecoder``: every family of the zoo over its ResNets, and
-ConvNeXt, Swin, SegFormer and Twins.  Any other module type raises
-NotImplementedError naming it: the plain-ViT and light-CNN families,
-``slide`` over a sharded map and ``nn.Conv2d`` with a string padding or
-another padding mode are ROADMAP A14 part 3 (``_LEFT``).  Nothing falls
+ConvNeXt, Swin, SegFormer and Twins; ``sharded_vit`` adds the plain-ViT
+families' types (``VisionTransformer``, ``MAE``, ``BEiT``, their blocks,
+the necks ``MLANeck``, ``MultiLevelNeck`` and ``Feature2Pyramid``, the
+heads ``SETRUPHead``, ``SETRMLAHead``, ``DPTHead`` and
+``SegmenterMaskTransformerHead``).  Any other module type raises
+NotImplementedError naming it: the light-CNN families (ROADMAP A14 part
+3c), ``slide`` over a sharded map and ``nn.Conv2d`` with a string padding
+or another padding mode (part 3d) are left (``_LEFT``).  Nothing falls
 back to the unsharded model.
 """
 
@@ -113,12 +119,10 @@ from .vit import (SwinBlock, SwinTransformer, _shift_attn_mask,
                   _window_partition, _window_reverse)
 
 # what the spatial axis still lacks, named by every refusal
-_LEFT = ("the spatial axis over the plain-ViT transformer families (ViT, "
-         "MAE, BEiT, SETR, Segmenter, DPT; the necks MLANeck, "
-         "MultiLevelNeck, Feature2Pyramid) and the light-CNN families "
-         "(their backbones, necks and heads), slide inference over a "
-         "sharded map and nn.Conv2d with a string padding or another "
-         "padding mode than zeros is ROADMAP A14 part 3")
+_LEFT = ("the spatial axis over the light-CNN families (their backbones, "
+         "necks and heads: 3c), slide inference over a sharded map and "
+         "nn.Conv2d with a string padding or another padding mode than "
+         "zeros (3d) is ROADMAP A14 part 3")
 
 
 @dataclasses.dataclass
@@ -1309,3 +1313,7 @@ def forward_rows(model: EncoderDecoder, x: Rows,
         return logits, spatial.resize(run(model.auxiliary_head, feats, ctx),
                                       hw, model.align_corners)
     return logits
+
+
+# the plain-ViT families' forms, registered through ``_sharded``
+from . import sharded_vit  # noqa: E402,F401

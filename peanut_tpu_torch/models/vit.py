@@ -83,10 +83,22 @@ class Attention(nn.Module):
         multiple of nW (the windows of each image in turn); ``param``
         gives the tensor read for each parameter and buffer (the sharded
         forward's copy where the tokens lie)."""
-        b, n, _ = x.shape
-        h = self.num_heads
+        return self.attend(*self.project(x, param), mask, param)
+
+    def project(self, x: torch.Tensor,
+                param: Callable = lambda p: p) -> tuple:
+        """``qkv`` of (B, N, C) tokens: (q, k, v), (B, N, C) each."""
         qkv = F.linear(x, param(self.qkv.weight), param(self.qkv.bias))
-        q, k, v = (heads_split(t, h) for t in qkv.chunk(3, dim=-1))
+        return qkv.chunk(3, dim=-1)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask=None, param: Callable = lambda p: p) -> torch.Tensor:
+        """``project``'s queries (B, N, C) against keys and values (B, M,
+        C), then ``proj``: M = N unsharded; a sharded forward gives a
+        shard's queries and every token's keys and values."""
+        b, n, _ = q.shape
+        h = self.num_heads
+        q, k, v = (heads_split(t, h) for t in (q, k, v))
         attn = torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(q.shape[-1])
         if self.window_size:
             rel = param(self.rel_pos_bias_table)[param(self.rel_index)]
@@ -113,13 +125,22 @@ class ViTBlock(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-def tap_pyramid(taps, gh: int, gw: int, scales=(4, 2, 1, 0.5), floor=0):
-    """(B, C, gh, gw) taps resized to ``int(g * s)`` (at least ``floor``)
-    cells a side, scale by scale: the 4x .. 0.5x pyramid the JAX package
-    makes of a plain transformer's grid (half-pixel centres)."""
-    return tuple(resize_like(t, (max(int(gh * s), floor),
-                                 max(int(gw * s), floor)))
-                 for t, s in zip(taps, scales))
+PYRAMID = (4, 2, 1, 0.5)
+
+
+def pyramid_sizes(gh: int, gw: int, scales=PYRAMID, floor=0) -> list:
+    """The (h, w) of each level of a gh x gw grid: ``int(g * s)`` (at
+    least ``floor``) cells a side, scale by scale."""
+    return [(max(int(gh * s), floor), max(int(gw * s), floor))
+            for s in scales]
+
+
+def tap_pyramid(taps, gh: int, gw: int, scales=PYRAMID, floor=0):
+    """(B, C, gh, gw) taps resized to ``pyramid_sizes``: the 4x .. 0.5x
+    pyramid the JAX package makes of a plain transformer's grid
+    (half-pixel centres)."""
+    return tuple(resize_like(t, size) for t, size in
+                 zip(taps, pyramid_sizes(gh, gw, scales, floor)))
 
 
 @BACKBONES.register()

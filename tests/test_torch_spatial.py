@@ -297,9 +297,9 @@ def test_a_module_without_a_sharded_form_raises(what):
                                   in_channels=512, in_index=3, channels=32,
                                   num_classes=6)
     elif what == "neck":
-        cfg["neck"] = dict(type="MultiLevelNeck",
-                           in_channels=[64, 128, 256, 512], out_channels=32)
-        what = "MultiLevelNeck"
+        cfg["neck"] = dict(type="ICNeck", in_channels=[128, 256, 512],
+                           out_channels=32)
+        what = "ICNeck"
     model = build_segmentor(cfg, seed=0)
     if what == "PReLU":
         from peanut_tpu_torch.models.layers import ConvModule, PReLU

@@ -13,8 +13,8 @@ on the CPU, the port against itself in float64:
   variables carried in (random batch statistics, non-zero gates), at
   128^2 and at 40 x 64 (shards of no rows), within 1e-12 of the largest
   |logit|;
-* the types still without a sharded form (the plain-ViT and light-CNN
-  backbones: ViT, BEiT, HRNet, MobileNetV3, CGNet) raise
+* the types still without a sharded form (the light-CNN backbones:
+  Fast-SCNN, ERFNet, HRNet, MobileNetV3, CGNet) raise
   NotImplementedError naming themselves and ROADMAP A14 part 3.
 """
 
@@ -57,7 +57,7 @@ def test_forward_rows_matches_the_model(family, shape):
 
 
 # each type still without a sharded form, in the config that builds it
-UNPORTED = {"VisionTransformer": "vit", "BEiT": "beit",
+UNPORTED = {"FastSCNN": "fastscnn", "ERFNet": "erfnet",
             "HRNet": "hrnet", "MobileNetV3": "mobilenet_v3",
             "CGNet": "cgnet"}
 
@@ -75,5 +75,6 @@ def test_a_type_without_a_sharded_form_raises(what):
 
 def test_the_refusal_names_what_is_left():
     from peanut_tpu_torch.models import sharded
-    for name in ("plain-ViT", "light-CNN", "slide", "padding mode"):
+    for name in ("3c", "light-CNN", "slide", "padding mode", "3d"):
         assert name in sharded._LEFT
+    assert "plain-ViT" not in sharded._LEFT

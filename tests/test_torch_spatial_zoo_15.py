@@ -20,9 +20,12 @@ module), and the types still without a sharded form:
   window (its windows ``min(window, h, w)`` of the whole map) over 1 ...
   8 shards;
 * every type of the port's registries still without a sharded form (the
-  plain-ViT families, their necks and heads, the light CNNs) raises
+  light CNNs, their necks and heads: ROADMAP A14 part 3c) raises
   NotImplementedError naming itself and ROADMAP A14 part 3, through
-  ``forward_rows`` and through ``sharded.run``.
+  ``sharded.run``; and a plain-ViT model (UPerNet-ViT, SETR) whose
+  convolution pads in another mode than zeros (part 3d) raises through
+  ``forward_rows``, though its unsharded forward runs: nothing falls
+  back to the unsharded model.
 """
 
 import pytest
@@ -135,17 +138,14 @@ def test_local_attention_below_its_window(hw):
                 want.abs().max()), k
 
 
-# the port's registered types without a sharded form: the plain-ViT
-# families (3b's second half), the light CNNs (3c) and their heads
-LEFT = {"backbones": ("BEiT", "BiSeNetV1", "BiSeNetV2", "CGNet", "ERFNet",
-                      "FastSCNN", "HRNet", "ICNet", "MAE", "MobileNetV2",
+# the port's registered types without a sharded form: the light CNNs
+# (3c), their neck and heads
+LEFT = {"backbones": ("BiSeNetV1", "BiSeNetV2", "CGNet", "ERFNet",
+                      "FastSCNN", "HRNet", "ICNet", "MobileNetV2",
                       "MobileNetV3", "ResNeSt", "STDCContextPathNet",
-                      "STDCNet", "TIMMBackbone", "UNet",
-                      "VisionTransformer"),
-        "necks": ("Feature2Pyramid", "ICNeck", "MLANeck", "MultiLevelNeck"),
-        "heads": ("DPTHead", "DepthwiseSeparableFCNHead", "LRASPPHead",
-                  "SETRMLAHead", "SETRUPHead", "STDCHead",
-                  "SegmenterMaskTransformerHead")}
+                      "STDCNet", "TIMMBackbone", "UNet"),
+        "necks": ("ICNeck",),
+        "heads": ("DepthwiseSeparableFCNHead", "LRASPPHead", "STDCHead")}
 
 
 def _registries():
@@ -178,12 +178,16 @@ def test_a_type_left_raises_naming_part_3(name):
 def test_a_plain_vit_model_raises(family):
     from peanut_tpu_torch.models.builder import build_segmentor
     model = build_segmentor(family_config(family), seed=0)
-    x = spatial.shard(torch.rand(1, 3, 64, 64), cpus(2))
-    with pytest.raises(NotImplementedError,
-                       match=r"VisionTransformer has no row-sharded.*"
-                             r"ROADMAP A14 part 3"):
-        with torch.no_grad():
-            forward_rows(model, x)
+    conv = next(m for m in model.decode_head.modules()
+                if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3))
+    conv.padding_mode = "reflect"
+    x = torch.rand(1, 3, 64, 64)
+    with torch.no_grad():
+        assert model(x).shape[-2:] == (64, 64)
+        with pytest.raises(NotImplementedError,
+                           match=r"Conv2d with padding .*reflect.* has no "
+                                 r"row-sharded.*ROADMAP A14 part 3"):
+            forward_rows(model, spatial.shard(x, cpus(2)))
 
 
 @pytest.mark.parametrize("rows", [(13, 16), (12, 12), (-5, -2), (-2, 3),

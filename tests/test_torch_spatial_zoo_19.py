@@ -28,7 +28,7 @@ import copy
 
 import pytest
 
-from torch_spatial_zoo_support import (TRANSFORMERS,
+from torch_spatial_zoo_support import (HIERARCHICAL,
                                        check_no_gathered_backbone,
                                        check_no_gathered_head,
                                        check_train_mode_grads, port_model)
@@ -49,11 +49,11 @@ def test_the_train_step_refuses_a_config_without_an_auxiliary_head(family):
         create_train_state(copy.deepcopy(model), TrainConfig(), device="cpu")
 
 
-@pytest.mark.parametrize("family", sorted(TRANSFORMERS))
+@pytest.mark.parametrize("family", sorted(HIERARCHICAL))
 def test_no_backbone_module_receives_a_gathered_map(family):
     check_no_gathered_backbone(family)
 
 
-@pytest.mark.parametrize("family", sorted(TRANSFORMERS))
+@pytest.mark.parametrize("family", sorted(HIERARCHICAL))
 def test_no_head_receives_a_gathered_map(family):
     check_no_gathered_head(family)

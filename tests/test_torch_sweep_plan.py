@@ -350,7 +350,8 @@ def test_plan_is_a_value():
 
 # (order, B, H, W, block, fused scan_chunk) -> the long plan's cluster:
 # the 4097-cell row and columns, B2's row past its shared memory at C = 16
-# (19,281 cells at block 16), and chip_smoke.py's wide_lines shapes
+# (19,281 cells at block 16), chip_smoke.py's wide_lines shapes and a
+# longer column scan (2 x 8192 x 48)
 LONG = {
     (1, 1, 16, 4097, 16, None): 16,
     (1, 1, 4097, 482, 8, 4): 16,
@@ -359,6 +360,7 @@ LONG = {
     (1, 1, 48, 8192, 16, None): 16,
     (1, 1, 16, 40000, 16, None): 16,
     (1, 2, 8192, 48, 8, 4): 16,
+    (1, 2, 4104, 48, 8, 4): 16,
     (1, 1, 16, 6000, 8, 4): 16,
     (2, 1, 16, 20000, 16, None): 16,
     (1, 16, 16, 5000, 8, None): 6,

@@ -42,11 +42,11 @@ LAST = {"ocrnet": ("OCRHead",), "knet": ("IterativeDecodeHead",),
         "isanet": ("ISAHead",), "psanet": ("PSAHead", "MaskConv"),
         "point_rend": ("CascadeEncoderDecoder", "FPN", "FPNHead",
                        "PointHead")}
-# the hierarchical transformers (ROADMAP A14 part 3b): the module types
-# each builds (its heads and necks beyond SegFormerHead had sharded forms
-# already); SVT and MiT-B2 have no config of their own and are written
-# over the Twins and SegFormer configs (``WRITTEN``)
-TRANSFORMERS = {
+# the hierarchical transformers (ROADMAP A14 part 3b, first half): the
+# module types each builds (its heads and necks beyond SegFormerHead had
+# sharded forms already); SVT and MiT-B2 have no config of their own and
+# are written over the Twins and SegFormer configs (``WRITTEN``)
+HIERARCHICAL = {
     "convnext": ("ConvNeXt", "ConvNeXtBlock", "UPerHead", "FCNHead"),
     "swin": ("SwinTransformer", "SwinBlock", "UPerHead"),
     "segformer": ("MixVisionTransformer", "MiTBlock", "EfficientAttention",
@@ -55,18 +55,64 @@ TRANSFORMERS = {
               "FPNHead"),
     "svt": ("SVT", "_TwinsBlock", "_LocalAttention", "_SRAttention",
             "SameConv2d", "FPN", "FPNHead")}
-# family: (the family whose config it is written over, its backbone, its
-# decode head's overrides); SVT at the Twins config's widths, two blocks
-# a stage (a local and a global one), its windows of 7
+# the plain-ViT families (part 3b, second half), each with the module
+# types it builds; SETRUPHead, MultiLevelNeck and Feature2Pyramid have no
+# config of their own and are written over the SETR config (``WRITTEN``),
+# SETRMLAHead too, over MultiLevelNeck's taps of equal size; MLANeck,
+# which takes taps of equal size and no backbone makes them, is held at
+# module level (tests/test_torch_spatial_zoo_22.py), SETRMLAHead there too
+PLAIN_VIT = {
+    "vit": ("VisionTransformer", "ViTBlock", "UPerHead", "FCNHead"),
+    "setr": ("VisionTransformer", "ViTBlock", "FCNHead"),
+    "segmenter": ("VisionTransformer", "ViTBlock",
+                  "SegmenterMaskTransformerHead"),
+    "dpt": ("VisionTransformer", "ViTBlock", "DPTHead"),
+    "beit": ("BEiT", "_BEiTBlock", "SameConv2d", "UPerHead"),
+    "mae": ("MAE", "ViTBlock", "SameConv2d", "UPerHead"),
+    "setr_up": ("VisionTransformer", "ViTBlock", "SETRUPHead"),
+    "vit_mln": ("VisionTransformer", "ViTBlock", "MultiLevelNeck",
+                "UPerHead"),
+    "vit_f2p": ("VisionTransformer", "ViTBlock", "Feature2Pyramid",
+                "UPerHead"),
+    "setr_mla": ("VisionTransformer", "ViTBlock", "MultiLevelNeck",
+                 "SETRMLAHead")}
+TRANSFORMERS = {**HIERARCHICAL, **PLAIN_VIT}
+# family: (the family whose config it is written over, its backbone (None:
+# the config's), its decode head (a whole one where it names its type,
+# else overrides of the config's), and its neck, if any); SVT at the
+# Twins config's widths, two blocks a stage (a local and a global one),
+# its windows of 7; over the SETR config's ViT (192 wide, 4 blocks, a
+# tap after each): SETR's naive head on the 1x level, two convs each up
+# 2x, UPerHead over MultiLevelNeck and over Feature2Pyramid, each
+# rescaling the 4x .. 0.5x taps to 2x (downsampling 4x, upsampling 1x
+# and 0.5x, the rounding where the grid is odd), and SETR's MLA head over
+# MultiLevelNeck's (where the grid is even, taps of equal size)
+_UPER_32 = dict(type="UPerHead", in_channels=(32, 32, 32, 32),
+                in_index=(0, 1, 2, 3), channels=32, num_classes=19,
+                dropout_ratio=0.1, align_corners=False)
 WRITTEN = {
     "svt": ("twins", dict(type="SVT", embed_dims=(16, 32, 64, 128),
                           num_heads=(1, 2, 4, 8), depths=(2, 2, 2, 2),
                           mlp_ratios=(2, 2, 2, 2)), {}),
     "mitb2": ("segformer", dict(type="MITB2"),
-              dict(in_channels=(64, 128, 320, 512)))}
-# the families whose variables are shaped by the input (PSAHead's masks):
-# their JAX variables are made at each input size
-SIZED = ("psanet",)
+              dict(in_channels=(64, 128, 320, 512))),
+    "setr_up": ("setr", None, dict(
+        type="SETRUPHead", in_channels=192, channels=32, num_convs=2,
+        up_scale=2, kernel_size=3, in_index=2, num_classes=19,
+        dropout_ratio=0.1, align_corners=False)),
+    "vit_mln": ("setr", None, _UPER_32, dict(
+        type="MultiLevelNeck", out_channels=32, scales=(0.5, 1, 2, 4))),
+    "vit_f2p": ("setr", None, dict(_UPER_32, in_channels=(192,) * 4), dict(
+        type="Feature2Pyramid", embed_dim=192, rescales=(0.5, 1, 2, 4))),
+    "setr_mla": ("setr", None, dict(
+        type="SETRMLAHead", in_channels=(32, 32, 32, 32), channels=32,
+        mla_channels=16, up_scale=2, in_index=(0, 1, 2, 3),
+        num_classes=19, dropout_ratio=0.1, align_corners=False), dict(
+        type="MultiLevelNeck", out_channels=32, scales=(0.5, 1, 2, 4)))}
+# the families whose variables are shaped by the input (PSAHead's masks,
+# BEiT's relative-position table, MAE's positional embedding): their JAX
+# variables are made at each input size
+SIZED = ("psanet", "beit", "mae")
 SHARDS = range(1, 9)
 TOL = 1e-12
 # (H, W) inputs: 128^2 leaves 16 rows at 1/8 (uneven over 3, 5, 6 and 7
@@ -93,10 +139,14 @@ def zoo_config(family: str) -> dict:
     is written over, with its backbone and decode head."""
     if family not in WRITTEN:
         return family_config(family)
-    base, backbone, head = WRITTEN[family]
+    base, backbone, head, *neck = WRITTEN[family]
     cfg = family_config(base)
-    cfg["backbone"] = dict(backbone)
-    cfg["decode_head"] = dict(cfg["decode_head"], **head)
+    if backbone is not None:
+        cfg["backbone"] = dict(backbone)
+    cfg["decode_head"] = (dict(head) if "type" in head
+                          else dict(cfg["decode_head"], **head))
+    if neck:
+        cfg["neck"] = dict(neck[0])
     return cfg
 
 
@@ -138,12 +188,18 @@ def train_variables(family: str):
     cfg = dict(cfg, backbone=dict(cfg["backbone"], in_channels=14))
     for head in ("decode_head", "auxiliary_head"):
         cfg[head] = dict(cfg[head], num_classes=6, dropout_ratio=0.0)
-    jax_cfg = cfg
-    if family in TRANSFORMERS:         # flax infers the input's channels
-        jax_cfg = dict(cfg, backbone={k: v for k, v in cfg["backbone"].items()
-                                      if k != "in_channels"})
-    _, variables, _, _ = jax_and_port(cfg, (64, 64), jax_cfg=jax_cfg)
+    _, variables, _, _ = jax_and_port(cfg, (64, 64),
+                                      jax_cfg=jax_config(family, cfg))
     return cfg, variables
+
+
+def jax_config(family: str, cfg: dict) -> dict:
+    """``cfg`` as the JAX package builds it: a transformer's backbone
+    without ``in_channels``, which flax infers from the input."""
+    if family not in TRANSFORMERS:
+        return cfg
+    return dict(cfg, backbone={k: v for k, v in cfg["backbone"].items()
+                               if k != "in_channels"})
 
 
 def train_model(family: str, dropout: float = 0.0) -> nn.Module:
@@ -269,7 +325,7 @@ def backbone_rows_seen(family: str, k: int, hw) -> tuple:
 
     from peanut_tpu_torch.models import sharded
     from peanut_tpu_torch.models.heads import SegFormerHead
-    _, _, model = port_model(family)
+    _, _, model = port_model(family, hw)
     whole = isinstance(model.decode_head, SegFormerHead)
     parts = {"backbone": model.backbone}
     if whole:
@@ -561,7 +617,7 @@ def check_train_step_against_jax(family: str, k: int) -> None:
     data = train_batch()
     mesh = jmake_mesh({"data": 1, "spatial": k}, devices=jax.devices()[:k])
     with jax.enable_x64(True):
-        jmodel = jbuild(cfg)
+        jmodel = jbuild(jax_config(family, cfg))
         state, tx = jcreate(jmodel, jax.tree.map(jnp.asarray, variables),
                             JTrainConfig(batch_size=2), tx=optax.sgd(1.0))
         with mesh:
