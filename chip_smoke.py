@@ -3646,21 +3646,23 @@ def spatial_phase(args, dev, smi_line: str, serve_map=None) -> dict:
 # The spatial axis over the zoo's ResNet heads (phase 17)
 
 SPATIAL_ZOO_HW = (512, 1024)      # the Cityscapes configs' training crop
-# (case, config, shards, types): each at its published widths, batch 1
+# (case, config, shards, types): each at its published widths, batch 1;
+# shards by type where they differ
 SPATIAL_ZOO_CASES = (
-    ("upernet_r50", ZOO_SERVE, (2, 4), ("float32", "bfloat16")),
+    ("upernet_r50", ZOO_SERVE, {"float32": (2, 4), "bfloat16": (4,)},
+     ("float32", "bfloat16")),
     ("deeplabv3_r50",
      "configs/deeplabv3/deeplabv3_r50_512x1024_80k_cityscapes.py", (4,),
      ("float32",)),
     ("nonlocal_r50",
      "configs/nonlocal_net/nonlocal_net_r50_512x1024_80k_cityscapes.py",
-     (2, 4), ("float32",)),
+     (4,), ("float32",)),
     # ISA's bands of 8 rows at 1/8 (64 rows) across the shards' edges at
     # 3, along them at 4
     ("isanet_r50", "configs/isanet/isanet_r50_512x1024_80k_cityscapes.py",
      (3, 4), ("float32",)),
     ("psanet_r50", "configs/psanet/psanet_r50_512x1024_80k_cityscapes.py",
-     (2, 4), ("float32",)),
+     (4,), ("float32",)),
     ("ocrnet_r50", "configs/ocrnet/ocrnet_r50_512x1024_80k_cityscapes.py",
      (4,), ("float32",)),
     ("knet_r50", "configs/knet/knet_r50_512x1024_80k_cityscapes.py", (4,),
@@ -3695,15 +3697,43 @@ SPATIAL_ZOO_CASES = (
     ("beit_b", "beit_b", (4,), ("float32",), (512, 512)),
     ("mae_b", "mae_b", (3,), ("float32",)),
     ("dpt_vit_b", "dpt_vit_b", (4,), ("float32",)),
-    ("segmenter_vit_t", "segmenter_vit_t", (4,), ("float32",)))
+    ("segmenter_vit_t", "segmenter_vit_t", (4,), ("float32",)),
+    # the light CNNs' first half: MobileNetV2-d8's depthwise convolutions
+    # dilated 2 and 4 at 1/8 (64 rows), MobileNetV3's SE gates and
+    # LR-ASPP's gate from global partial sums, ResNeSt-S101's average
+    # pools over 3 shards (1/4's 128 rows: 43 / 43 / 42, so the stride-2
+    # stage's windows straddle an odd start), HRNet-W18's four branches
+    # (128 / 64 / 32 / 16 rows) resized across, UNet-S5's 2x2 pools over
+    # 512 rows in 171 / 171 / 170 (every pool after the first starts a
+    # shard on an odd row), Fast-SCNN's pyramid pool at 1/32 (16 rows)
+    # and its fusion at 1/8
+    ("mobilenet_v2_d8",
+     "configs/mobilenet_v2/pspnet_m-v2-d8_512x1024_80k_cityscapes.py",
+     (4,), ("float32",)),
+    ("lraspp_mv3",
+     "configs/mobilenet_v3/lraspp_m-v3_512x1024_80k_cityscapes.py", (4,),
+     ("float32",)),
+    ("resnest_s101", "resnest_s101", (3,), ("float32",)),
+    ("hrnet_w18", "configs/hrnet/fcn_hr18_512x1024_80k_cityscapes.py",
+     (4,), ("float32",)),
+    ("unet_s5", "unet_s5", (3,), ("float32",)),
+    ("fast_scnn", "configs/fastscnn/fast_scnn_512x1024_80k_cityscapes.py",
+     (4,), ("float32",)))
 # the cases whose float32 logits, unsharded and sharded, are also held
 # against a float64 forward of the same weights (Segmenter's mask_norm, a
 # LayerNorm over the classes, scales float32's rounding up by the inverse
 # of the classes' spread; zoo_weights): the sharded forward's gap to
 # float64 may be at most SPATIAL_ZOO_ROUNDING times the unsharded one's,
 # the shards' rounding of the same order as the model's own, where a
-# fault would stand orders of magnitude above it
-SPATIAL_ZOO_F64_REFERENCE = ("segmenter_vit_t",)
+# fault would stand orders of magnitude above it.  Their probabilities'
+# gap to the unsharded prediction may be SPATIAL_ZOO_ROUNDING times the
+# unsharded prediction's own gap to float64's where that is above the
+# bound: HRNet-W18's seeded branches add up through its fusions to logits
+# of ~4e3 (a CPU reading at 128x256), where float32's own rounding moves
+# a probability near 0.5 by ~2e-3 (1.8e-3 on the H100); ResNeSt-S101's
+# sharded probabilities lie 5.8e-6 from its unsharded ones, nearer the
+# bound than any other case's
+SPATIAL_ZOO_F64_REFERENCE = ("segmenter_vit_t", "hrnet_w18", "resnest_s101")
 SPATIAL_ZOO_ROUNDING = 4.0
 # configs written over a repo config, where its widths are the repo's
 # narrow ones: (config, backbone, the decode head's overrides). The Twins
@@ -3715,7 +3745,10 @@ SPATIAL_ZOO_ROUNDING = 4.0
 # head at their class defaults (mmseg's DPT: taps 2 / 5 / 8 / 11, 256
 # channels, post-process 96 / 192 / 384 / 768); Segmenter's ViT-T (192
 # wide, 3 heads) at its 12 blocks, the config's two taps after the last
-# two, and mmseg's 2-layer mask transformer
+# two, and mmseg's 2-layer mask transformer; mmseg's ResNeSt-S101-D8
+# (resnest_s101-d8_512x1024_80k_cityscapes: the 128-wide deep stem,
+# radix 2) under its PSPHead of 2048 -> 512, and mmseg's Cityscapes
+# UNet-S5-D16 widths (base 64, five stages) under an FCNHead 64 wide
 SPATIAL_ZOO_TWINS = ("configs/twins/"
                      "twins_pcpvt-s_fpn_512x1024_80k_cityscapes.py")
 SPATIAL_ZOO_UPER_768 = dict(in_channels=(768,) * 4, channels=768)
@@ -3733,14 +3766,25 @@ SPATIAL_ZOO_WRITTEN = {
     "segmenter_vit_t": (
         "configs/segmenter/segmenter_vit-t_512x1024_80k_cityscapes.py",
         dict(type="VisionTransformer", embed_dim=192, depth=12,
-             num_heads=3, out_indices=(10, 11)), dict(num_layers=2))}
+             num_heads=3, out_indices=(10, 11)), dict(num_layers=2)),
+    "resnest_s101": (
+        "configs/resnest/resnest_s50_pspnet_512x1024_80k_cityscapes.py",
+        dict(type="ResNeSt", depth=101, stem_channels=128, base_channels=64,
+             radix=2, num_stages=4, out_indices=(0, 1, 2, 3),
+             dilations=(1, 1, 2, 4), strides=(1, 2, 1, 1),
+             contract_dilation=True),
+        dict(in_channels=2048, channels=512)),
+    "unet_s5": ("configs/unet/fcn_unet_512x1024_80k_cityscapes.py",
+                dict(type="UNet", base_channels=64, num_stages=5),
+                dict(in_channels=64, channels=64, num_classes=19))}
 SPATIAL_ZOO_FAMILIES = ("upernet", "sem_fpn", "deeplabv3", "deeplabv3plus",
                         "fastfcn", "apcnet", "dmnet", "encnet", "ann",
                         "gcnet", "emanet", "danet", "nonlocal_net", "dnlnet",
                         "ccnet", "isanet", "psanet", "ocrnet", "knet",
                         "point_rend", "convnext", "swin", "segformer",
                         "twins", "svt", "vit", "setr", "segmenter", "dpt",
-                        "beit", "mae")
+                        "beit", "mae", "mobilenet_v2", "mobilenet_v3",
+                        "resnest", "hrnet", "unet", "fastscnn")
 SPATIAL_ZOO_F64_SHARDS = (2, 3)
 SPATIAL_ZOO_F64_SIZE = 128
 # the float64 check's depth cuts of a published width (the CPU tests'
@@ -3871,8 +3915,10 @@ def spatial_zoo_forwards(args, dev) -> dict:
     weights (all shards, then per shard), the logits' gap, for the cases
     of SPATIAL_ZOO_F64_REFERENCE the unsharded and the sharded float32
     logits' gaps to a float64 forward (the sharded within
-    SPATIAL_ZOO_ROUNDING times the unsharded), and the seconds of the
-    script from the case's model build (case_s)."""
+    SPATIAL_ZOO_ROUNDING times the unsharded) and the unsharded
+    probabilities' gap to float64's (the probabilities' bound at least
+    SPATIAL_ZOO_ROUNDING times it), and the seconds of the script from
+    the case's model build (case_s)."""
     import copy
 
     from peanut_tpu_torch.config import NavConfig
@@ -3918,6 +3964,7 @@ def spatial_zoo_forwards(args, dev) -> dict:
 
             logits, res = reading(lambda: pm.model(x), 1)
             wide = None
+            bound = SPATIAL_ZOO_BOUND[dtype]
             if case in SPATIAL_ZOO_F64_REFERENCE:
                 with torch.no_grad():
                     wide = copy.deepcopy(pm.model).double()(x.double())
@@ -3926,8 +3973,12 @@ def spatial_zoo_forwards(args, dev) -> dict:
                     return float((y.double() - wide).abs().max()
                                  / wide.abs().max())
                 res["err_of_largest_vs_float64"] = vs_float64(logits)
+                res["prob_gap_vs_float64"] = float(np.abs(
+                    want - torch.sigmoid(wide)[0].cpu().numpy()).max())
+                bound = max(bound, SPATIAL_ZOO_ROUNDING
+                            * res["prob_gap_vs_float64"])
             res = {"unsharded": res}
-            for k in shards:
+            for k in (shards[dtype] if isinstance(shards, dict) else shards):
                 mesh = make_mesh({"spatial": k}, [dev] * k)
                 got = pm.get_prediction_sharded(full_map, mesh)
                 rows = spatial.shard(x, [dev] * k)
@@ -3943,7 +3994,7 @@ def spatial_zoo_forwards(args, dev) -> dict:
                 del y
                 res[f"sharded_{k}"] = {
                     "max_abs_diff": float(np.abs(got - want).max()),
-                    "bound": SPATIAL_ZOO_BOUND[dtype],
+                    "bound": bound,
                     "logits_err_of_largest": gap,
                     "finite": bool(np.isfinite(got).all()),
                     "shape_ok": got.shape == want.shape,
@@ -4040,9 +4091,10 @@ def spatial_zoo_training(args, dev) -> dict:
 def spatial_zoo_float64(args, dev) -> dict:
     """spatial_zoo_float64: the twenty ResNet families (every sharded
     module type of the zoo's ResNet heads) at the CPU tests' widths, the
-    five hierarchical transformers and the six plain-ViT families
-    (square: BEiT's bias joins) at their configs' (UPerNet-ViT-B cut to
-    four blocks, SPATIAL_ZOO_F64_CUTS), batch 1 at
+    five hierarchical transformers, the six plain-ViT families (square:
+    BEiT's bias joins) and the light CNNs' first six families at their
+    configs' (UPerNet-ViT-B cut to four blocks, SPATIAL_ZOO_F64_CUTS),
+    batch 1 at
     SPATIAL_ZOO_F64_SIZE^2 in float64: forward_rows over [cuda:0] * k for
     k in SPATIAL_ZOO_F64_SHARDS against the card's unsharded forward, and
     over 2 shards against the CPU's sharded forward over ["cpu"] * 2;

@@ -127,8 +127,8 @@ def row_ranges(h: int, shards: int) -> List[tuple]:
     if shards < 1:
         raise ValueError(f"{shards} shards")
     q, r = divmod(h, shards)
-    ends = np.cumsum([q + (i < r) for i in range(shards)])
-    return [(int(e - q - (i < r)), int(e)) for i, e in enumerate(ends)]
+    return [(i * q + min(i, r), (i + 1) * q + min(i + 1, r))
+            for i in range(shards)]
 
 
 def shard_slices(n: int, shards: int) -> List[slice]:

@@ -14,8 +14,9 @@ needed, so the shards may share a card (``["cuda:0"] * k``) or the CPU.
 
 The sharded ops, each built on ``fetch_rows``:
 
-* ``conv2d``, ``conv2d_same`` and ``max_pool2d``: each shard computes its
-  output rows from the input rows they reach; the padding (zeros, -inf)
+* ``conv2d``, ``conv2d_same``, ``max_pool2d`` and ``avg_pool2d``: each
+  shard computes its output rows from the input rows they reach; the
+  padding (zeros, -inf)
   applies only at the map's top and bottom, never at a shard's edge,
   though the op runs with the unsharded one's padding (``_rowwise``);
   flax's "SAME" padding is split from the whole map's height;
@@ -227,6 +228,19 @@ def max_pool2d(x: Rows, kernel_size: int, stride: int,
     return _rowwise(
         x, lambda win, dev: F.max_pool2d(win, kernel_size, stride, padding),
         kernel_size, stride, padding, 1, x.shape[1], w_out, float("-inf"))
+
+
+def avg_pool2d(x: Rows, kernel_size: int, stride: int,
+               padding: int = 0) -> Rows:
+    """``F.avg_pool2d(..., count_include_pad=True)`` (flax's
+    ``nn.avg_pool``) of a row-sharded map: zero rows above and below the
+    whole map count in the mean, a shard's interior edge reads its
+    neighbour's rows (a window may straddle two shards)."""
+    w_out = (x.shape[3] + 2 * padding - kernel_size) // stride + 1
+    return _rowwise(
+        x, lambda win, dev: F.avg_pool2d(win, kernel_size, stride, padding,
+                                         count_include_pad=True),
+        kernel_size, stride, padding, 1, x.shape[1], w_out, 0.0)
 
 
 def _host_matrix(kind: str, n_in: int, n_out: int,

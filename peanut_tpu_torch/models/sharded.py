@@ -1,8 +1,8 @@
 """The forward of a segmentor with the map's height sharded over devices
 (``core.spatial``): the mesh's ``spatial`` axis for PEANUT's PSPNet, the
-dry run's and the model zoo's ResNet families, hierarchical transformers
-and plain-ViT families (``sharded_vit``), whole-map inference and the
-train forward alike.
+dry run's and the model zoo's ResNet families, hierarchical transformers,
+plain-ViT families (``sharded_vit``) and the first half of its light CNNs
+(``sharded_light``), whole-map inference and the train forward alike.
 
 ``forward_rows(model, x)`` runs an ``EncoderDecoder`` (or a cascade) over
 a ``Rows`` map with the same parameters and buffers as ``model(x)``: each
@@ -71,11 +71,15 @@ ConvNeXt, Swin, SegFormer and Twins; ``sharded_vit`` adds the plain-ViT
 families' types (``VisionTransformer``, ``MAE``, ``BEiT``, their blocks,
 the necks ``MLANeck``, ``MultiLevelNeck`` and ``Feature2Pyramid``, the
 heads ``SETRUPHead``, ``SETRMLAHead``, ``DPTHead`` and
-``SegmenterMaskTransformerHead``).  Any other module type raises
-NotImplementedError naming it: the light-CNN families (ROADMAP A14 part
-3c), ``slide`` over a sharded map and ``nn.Conv2d`` with a string padding
-or another padding mode (part 3d) are left (``_LEFT``).  Nothing falls
-back to the unsharded model.
+``SegmenterMaskTransformerHead``); ``sharded_light`` adds the light
+CNNs' first half (``MobileNetV2``, ``MobileNetV3``, ``ResNeSt``,
+``HRNet``, ``UNet``, ``FastSCNN``, ``TIMMBackbone``, their blocks, the
+heads ``LRASPPHead`` and ``DepthwiseSeparableFCNHead``).  Any other
+module type raises NotImplementedError naming it: the two-path real-time
+nets (BiSeNetV1, BiSeNetV2, STDC with STDCHead, CGNet, ERFNet, ICNet with
+ICNeck: ROADMAP A14 part 3c's second half), ``slide`` over a sharded map
+and ``nn.Conv2d`` with a string padding or another padding mode (part
+3d) are left (``_LEFT``).  Nothing falls back to the unsharded model.
 """
 
 from __future__ import annotations
@@ -119,10 +123,11 @@ from .vit import (SwinBlock, SwinTransformer, _shift_attn_mask,
                   _window_partition, _window_reverse)
 
 # what the spatial axis still lacks, named by every refusal
-_LEFT = ("the spatial axis over the light-CNN families (their backbones, "
-         "necks and heads: 3c), slide inference over a sharded map and "
-         "nn.Conv2d with a string padding or another padding mode than "
-         "zeros (3d) is ROADMAP A14 part 3")
+_LEFT = ("the spatial axis over the light-CNN families' two-path real-time "
+         "nets (BiSeNetV1, BiSeNetV2, CGNet, ERFNet, ICNet with ICNeck, "
+         "STDC with STDCHead: 3c's second half), slide inference over a "
+         "sharded map and nn.Conv2d with a string padding or another "
+         "padding mode than zeros (3d) is ROADMAP A14 part 3")
 
 
 @dataclasses.dataclass
@@ -1315,5 +1320,6 @@ def forward_rows(model: EncoderDecoder, x: Rows,
     return logits
 
 
-# the plain-ViT families' forms, registered through ``_sharded``
-from . import sharded_vit  # noqa: E402,F401
+# the plain-ViT families' and the light CNNs' forms, registered through
+# ``_sharded``
+from . import sharded_light, sharded_vit  # noqa: E402,F401

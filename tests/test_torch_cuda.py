@@ -1068,6 +1068,43 @@ def test_spatial_zoo_plain_vit_on_the_card(cuda, family):
             assert float((got - want).abs().max()) <= 1e-10 * top, k
 
 
+@pytest.mark.parametrize("family", ["fastscnn", "hrnet", "mobilenet_v2",
+                                    "mobilenet_v3", "resnest", "unet"])
+def test_spatial_zoo_light_cnn_on_the_card(cuda, family):
+    """The spatial axis over the light CNNs' first half on the card: each
+    family's first config (the repo's widths), seeded, in float64 at
+    128^2, forward_rows over ``[cuda] * k`` for k = 2, 3 (ResNeSt's
+    average pools and UNet's 2x2 pools across an odd shard start at 3)
+    against the card's unsharded forward and the CPU's, within 1e-10 of
+    the largest |logit|."""
+    import copy
+    import glob
+    import os
+
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.sharded import forward_rows
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = sorted(glob.glob(os.path.join(root, "configs", family, "*.py")))[0]
+    model = build_segmentor(load_config(path)["model"], seed=0).double()
+    x = torch.as_tensor(np.random.RandomState(15).rand(1, 3, 128, 128))
+    with torch.no_grad():
+        want = model(x)
+        card = copy.deepcopy(model).to(cuda)
+        unsharded = card(x.to(cuda)).cpu()
+        top = float(want.abs().max())
+        assert float((unsharded - want).abs().max()) <= 1e-10 * top
+        for k in (2, 3):
+            got = spatial.gather(forward_rows(
+                card, spatial.shard(x.to(cuda), [cuda] * k),
+                train=False)).cpu()
+            assert got.shape == want.shape
+            assert float((got - unsharded).abs().max()) <= 1e-10 * top, k
+            assert float((got - want).abs().max()) <= 1e-10 * top, k
+
+
 def test_swin_on_the_card_matches_the_cpu(cuda):
     """UPerNet-Swin-T at its config's widths (150 classes), seeded, in
     float64 on the card and the CPU on a 96x160 input (its 24x40 patch

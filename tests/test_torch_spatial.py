@@ -288,14 +288,12 @@ def test_get_prediction_sharded_matches_unsharded(dryrun_model):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("what", ["DepthwiseSeparableFCNHead", "neck",
-                                  "PReLU"])
+@pytest.mark.parametrize("what", ["STDCHead", "neck", "PReLU"])
 def test_a_module_without_a_sharded_form_raises(what):
     cfg = copy.deepcopy(DRYRUN_MODEL)
-    if what == "DepthwiseSeparableFCNHead":
-        cfg["decode_head"] = dict(type="DepthwiseSeparableFCNHead",
-                                  in_channels=512, in_index=3, channels=32,
-                                  num_classes=6)
+    if what == "STDCHead":
+        cfg["decode_head"] = dict(type="STDCHead", in_channels=512,
+                                  in_index=3, channels=32, num_classes=6)
     elif what == "neck":
         cfg["neck"] = dict(type="ICNeck", in_channels=[128, 256, 512],
                            out_channels=32)

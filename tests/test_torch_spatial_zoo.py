@@ -13,9 +13,10 @@ on the CPU, the port against itself in float64:
   variables carried in (random batch statistics, non-zero gates), at
   128^2 and at 40 x 64 (shards of no rows), within 1e-12 of the largest
   |logit|;
-* the types still without a sharded form (the light-CNN backbones:
-  Fast-SCNN, ERFNet, HRNet, MobileNetV3, CGNet) raise
-  NotImplementedError naming themselves and ROADMAP A14 part 3.
+* the types still without a sharded form (the light-CNN backbones of
+  A14 part 3c's second half: BiSeNetV1, BiSeNetV2, STDC's context path,
+  ERFNet, CGNet) raise NotImplementedError naming themselves and ROADMAP
+  A14 part 3.
 """
 
 import pytest
@@ -57,8 +58,8 @@ def test_forward_rows_matches_the_model(family, shape):
 
 
 # each type still without a sharded form, in the config that builds it
-UNPORTED = {"FastSCNN": "fastscnn", "ERFNet": "erfnet",
-            "HRNet": "hrnet", "MobileNetV3": "mobilenet_v3",
+UNPORTED = {"BiSeNetV1": "bisenetv1", "ERFNet": "erfnet",
+            "BiSeNetV2": "bisenetv2", "STDCContextPathNet": "stdc",
             "CGNet": "cgnet"}
 
 

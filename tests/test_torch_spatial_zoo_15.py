@@ -20,12 +20,14 @@ module), and the types still without a sharded form:
   window (its windows ``min(window, h, w)`` of the whole map) over 1 ...
   8 shards;
 * every type of the port's registries still without a sharded form (the
-  light CNNs, their necks and heads: ROADMAP A14 part 3c) raises
-  NotImplementedError naming itself and ROADMAP A14 part 3, through
-  ``sharded.run``; and a plain-ViT model (UPerNet-ViT, SETR) whose
-  convolution pads in another mode than zeros (part 3d) raises through
-  ``forward_rows``, though its unsharded forward runs: nothing falls
-  back to the unsharded model.
+  light CNNs' two-path real-time nets, their neck and head: ROADMAP A14
+  part 3c's second half) raises NotImplementedError naming itself and
+  ROADMAP A14 part 3, through ``sharded.run``; each light-CNN type of
+  the first half has a registered form, which runs a small instance over
+  2 shards of a float64 map as its unsharded forward does; and a
+  plain-ViT model (UPerNet-ViT, SETR) whose convolution pads in another
+  mode than zeros (part 3d) raises through ``forward_rows``, though its
+  unsharded forward runs: nothing falls back to the unsharded model.
 """
 
 import pytest
@@ -138,14 +140,34 @@ def test_local_attention_below_its_window(hw):
                 want.abs().max()), k
 
 
-# the port's registered types without a sharded form: the light CNNs
-# (3c), their neck and heads
+# the port's registered types without a sharded form: the light CNNs'
+# two-path real-time nets (3c's second half), their neck and head
 LEFT = {"backbones": ("BiSeNetV1", "BiSeNetV2", "CGNet", "ERFNet",
-                      "FastSCNN", "HRNet", "ICNet", "MobileNetV2",
-                      "MobileNetV3", "ResNeSt", "STDCContextPathNet",
-                      "STDCNet", "TIMMBackbone", "UNet"),
+                      "ICNet", "STDCContextPathNet", "STDCNet"),
         "necks": ("ICNeck",),
-        "heads": ("DepthwiseSeparableFCNHead", "LRASPPHead", "STDCHead")}
+        "heads": ("STDCHead",)}
+# the light CNNs' first half, which got forms (models/sharded_light.py):
+# each a small instance, and the levels a head takes (channels, stride)
+GOT_A_FORM = {
+    "MobileNetV2": dict(widen_factor=0.25),
+    "MobileNetV3": dict(arch="small", out_indices=(0, 1, 12)),
+    "ResNeSt": dict(depth=50, stem_channels=8, base_channels=4,
+                    dilations=(1, 1, 2, 4), strides=(1, 2, 1, 1),
+                    contract_dilation=True),
+    "HRNet": dict(base_channels=4, stage_modules=(1, 1, 1, 1),
+                  stage_blocks=1),
+    "UNet": dict(base_channels=4, num_stages=4),
+    "FastSCNN": dict(downsample_dw_channels=(8, 8), global_in_channels=8,
+                     global_block_channels=(8, 8, 8), global_out_channels=8,
+                     fusion_out_channels=8),
+    "TIMMBackbone": dict(model_name="mobilenetv3_small_100",
+                         extra=dict(out_indices=(0, 1, 12))),
+    "LRASPPHead": dict(in_channels=(4, 6, 8), channels=8, num_classes=3,
+                       levels=((4, 2), (6, 4), (8, 8))),
+    "DepthwiseSeparableFCNHead": dict(in_channels=8, channels=8,
+                                      num_classes=3, in_index=0,
+                                      concat_input=True,
+                                      levels=((8, 8),))}
 
 
 def _registries():
@@ -172,6 +194,38 @@ def test_a_type_left_raises_naming_part_3(name):
                        match=rf"{cls.__name__} has no row-sharded.*"
                              r"ROADMAP A14 part 3"):
         sharded.run(cls.__new__(cls), x, _context())
+
+
+@pytest.mark.parametrize("name", list(GOT_A_FORM))
+def test_a_light_cnn_type_has_a_form_that_runs_sharded(name):
+    reg = next(r for r in _registries().values() if name in r._modules)
+    cls = reg.get(name)
+    assert cls in sharded._FORWARDS
+    kw = dict(GOT_A_FORM[name])
+    levels = kw.pop("levels", None)
+    torch.manual_seed(0)
+    module = cls(**kw).double().eval()
+    g = torch.Generator().manual_seed(1)
+    if levels is None:                         # a backbone, on an image
+        x = torch.rand(1, 3, 64, 48, generator=g, dtype=torch.float64)
+        with torch.no_grad():
+            want = list(module(x))
+            got = sharded.run(module, spatial.shard(x, cpus(2)), _context())
+    else:                                      # a head, on its levels
+        xs = [torch.rand(1, c, 64 // s, 48 // s, generator=g,
+                         dtype=torch.float64) for c, s in levels]
+        with torch.no_grad():
+            want = [module(xs)]
+            got = [sharded.run(module, [spatial.shard(t, cpus(2))
+                                        for t in xs], _context())]
+    assert len(got) == len(want) > 0
+    for r, w in zip(got, want):
+        assert [b.shape[2] for b in r.blocks] == [
+            e - s for s, e in row_ranges(w.shape[2], 2)]
+        got_w = spatial.gather(r)
+        assert got_w.shape == w.shape
+        assert float((got_w - w).abs().max()) <= 1e-12 * float(
+            w.abs().max())
 
 
 @pytest.mark.parametrize("family", ["vit", "setr"])
