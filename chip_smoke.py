@@ -257,7 +257,7 @@ Phases (each prints one JSON line):
                launches no kernel of csrc/ (PSPNet has none); every gap is
                a gate with its bound printed beside it.
  17. spatial_zoo — the spatial axis over the zoo's ResNet heads,
-               hierarchical transformers and plain ViTs:
+               hierarchical transformers, plain ViTs and light CNNs:
                spatial_zoo_pred, get_prediction_sharded of UPerNet-R50
                (k = 2, 4; float32 and bfloat16), DeepLabV3-R50 (k = 4:
                dilation-36 halos past the neighbouring shard),
@@ -280,18 +280,33 @@ Phases (each prints one JSON line):
                the square grid), MAE-B (k = 3), DPT-ViT-B (k = 4) and
                Segmenter-ViT-T (k = 4: the class tokens' attention once
                over 8192 patch tokens; these four written over their
-               configs at published widths), from
+               configs at published widths), the light CNNs
+               MobileNetV2-d8, LR-ASPP-MV3, HRNet-W18 and Fast-SCNN
+               (k = 4), ResNeSt-S101-D8 and UNet-S5 (k = 3), and the
+               two-path real-time nets BiSeNetV1-R18, BiSeNetV2, CGNet
+               and ICNet-R50 with ICNeck (k = 4), STDC1 with STDCHead and
+               ERFNet (k = 3: their stride-2 concatenations on shards that
+               start on odd rows; these six and ResNeSt, UNet written
+               over their configs at mmseg's widths), from
                their 80k Cityscapes configs at published widths, random
                weights from --seed, batch 1 at 512x1024, float32 but
                UPerNet's bf16, over [cuda:0] * k against get_prediction,
                with ms, the host's enqueue and the peak memory beside the
-               unsharded forward's; spatial_zoo_train, three steps of UPerNet-R50's
+               unsharded forward's; prediction_slide, fault C6's case:
+               the dry run's narrow PSPNet with a slide test_cfg
+               (crop 64, stride 48) on a 14 x 128^2 map,
+               PredictionModel.get_prediction on the card in float32
+               (TF32 off) against the CPU's float64 sliding windows
+               (1e-5), far from the whole forward, and
+               get_prediction_sharded refused naming part 3d;
+               spatial_zoo_train, three steps of UPerNet-R50's
                make_train_step(spatial_axis="spatial") at batch 2, crop
                512x1024, float32 (TF32 off) over 2 shards against three
                unsharded steps (step 1's loss gated); spatial_zoo_float64,
                the twenty ResNet families at the CPU tests' widths, the
-               five hierarchical transformers and the six plain-ViT
-               families at their configs' at 128^2 in
+               five hierarchical transformers, the six plain-ViT
+               families and the twelve light CNNs at their configs' at
+               128^2 in
                float64 sharded over 2 and 3 shards against the card's
                unsharded forward and the CPU's sharded one (1e-10 of the
                largest |logit|).  No kernel of csrc/ on this path.
@@ -3718,7 +3733,21 @@ SPATIAL_ZOO_CASES = (
      (4,), ("float32",)),
     ("unet_s5", "unet_s5", (3,), ("float32",)),
     ("fast_scnn", "configs/fastscnn/fast_scnn_512x1024_80k_cityscapes.py",
-     (4,), ("float32",)))
+     (4,), ("float32",)),
+    # the two-path real-time nets (the light CNNs' second half): the
+    # context paths' gates from global means and their maps resized onto
+    # the finer shards, BiSeNetV2's context embedding and guided
+    # aggregation, STDC's stride-2 modules over 3 shards (1/4's 128 rows:
+    # 43 / 43 / 42, a shard starting on an odd row), CGNet's 21 blocks
+    # at 1/8 each gated by a global mean, ERFNet's downsamplers over 3
+    # shards and its (3, 1) convs dilated 16 rows at 1/8 (64 rows),
+    # ICNet's half-size branch, pyramid pool at 1/32 and ICNeck's fusions
+    ("bisenetv1_r18", "bisenetv1_r18", (4,), ("float32",)),
+    ("bisenetv2", "bisenetv2_fcn", (4,), ("float32",)),
+    ("stdc1", "stdc1", (3,), ("float32",)),
+    ("cgnet", "cgnet_fcn", (4,), ("float32",)),
+    ("erfnet", "erfnet_fcn", (3,), ("float32",)),
+    ("icnet_r50", "icnet_r50", (4,), ("float32",)))
 # the cases whose float32 logits, unsharded and sharded, are also held
 # against a float64 forward of the same weights (Segmenter's mask_norm, a
 # LayerNorm over the classes, scales float32's rounding up by the inverse
@@ -3736,7 +3765,8 @@ SPATIAL_ZOO_CASES = (
 SPATIAL_ZOO_F64_REFERENCE = ("segmenter_vit_t", "hrnet_w18", "resnest_s101")
 SPATIAL_ZOO_ROUNDING = 4.0
 # configs written over a repo config, where its widths are the repo's
-# narrow ones: (config, backbone, the decode head's overrides). The Twins
+# narrow ones: (config, backbone, the decode head's overrides, and
+# optionally the other parts' overrides, a dict by part). The Twins
 # config with its backbone at the class defaults: PCPVT-S's published
 # widths (64, 128, 320, 512; depths 3, 4, 6, 3), and SVT, which has no
 # config; BEiT-B and MAE-B (768 wide, 12 blocks, 12 heads, taps 3 / 5 /
@@ -3748,7 +3778,18 @@ SPATIAL_ZOO_ROUNDING = 4.0
 # two, and mmseg's 2-layer mask transformer; mmseg's ResNeSt-S101-D8
 # (resnest_s101-d8_512x1024_80k_cityscapes: the 128-wide deep stem,
 # radix 2) under its PSPHead of 2048 -> 512, and mmseg's Cityscapes
-# UNet-S5-D16 widths (base 64, five stages) under an FCNHead 64 wide
+# UNet-S5-D16 widths (base 64, five stages) under an FCNHead 64 wide; the
+# two-path nets' backbones at their class defaults, which are mmseg's
+# Cityscapes widths (BiSeNetV1 over ResNet-18: spatial 64 / 64 / 64 /
+# 128, context 128, out 256; BiSeNetV2: detail 64 / 64 / 128, semantic
+# 16 / 32 / 64 / 128, aggregation 128; STDC1: 32 / 64 / 256 / 512 /
+# 1024, context 128, fusion 256; CGNet: 32 / 64 / 128 with 3 and 21
+# blocks; ERFNet: 16 / 64 / 128 with 5 and 8 blocks, decoder 64 / 16;
+# ICNet over ResNet-50's 3 / 4 / 6 / 3 blocks, pyramid 512, out 64 / 256
+# / 256, ICNeck 128) under their mmseg heads: FCNHead 256 -> 256 over
+# BiSeNetV1 and STDC1 (aux 128 -> 64, STDCHead 256 -> 64), 128 -> 1024
+# over BiSeNetV2, CGNet's 256 -> 256 without a conv, 16 -> 128 over
+# ERFNet and 128 -> 128 over ICNeck
 SPATIAL_ZOO_TWINS = ("configs/twins/"
                      "twins_pcpvt-s_fpn_512x1024_80k_cityscapes.py")
 SPATIAL_ZOO_UPER_768 = dict(in_channels=(768,) * 4, channels=768)
@@ -3776,7 +3817,27 @@ SPATIAL_ZOO_WRITTEN = {
         dict(in_channels=2048, channels=512)),
     "unet_s5": ("configs/unet/fcn_unet_512x1024_80k_cityscapes.py",
                 dict(type="UNet", base_channels=64, num_stages=5),
-                dict(in_channels=64, channels=64, num_classes=19))}
+                dict(in_channels=64, channels=64, num_classes=19)),
+    "bisenetv1_r18": (
+        "configs/bisenetv1/bisenetv1_r18_512x1024_80k_cityscapes.py",
+        dict(type="BiSeNetV1"), dict(in_channels=256, channels=256),
+        {"auxiliary_head": dict(in_channels=128, channels=64)}),
+    "bisenetv2_fcn": (
+        "configs/bisenetv2/bisenetv2_512x1024_80k_cityscapes.py",
+        dict(type="BiSeNetV2"), dict(in_channels=128, channels=1024)),
+    "stdc1": ("configs/stdc/stdc1_512x1024_80k_cityscapes.py",
+              dict(type="STDCContextPathNet"),
+              dict(in_channels=256, channels=256),
+              {"auxiliary_head": dict(in_channels=256, channels=64)}),
+    "cgnet_fcn": ("configs/cgnet/cgnet_fcn_512x1024_80k_cityscapes.py",
+                  dict(type="CGNet"),
+                  dict(in_channels=256, channels=256, num_convs=0)),
+    "erfnet_fcn": ("configs/erfnet/erfnet_fcn_512x1024_80k_cityscapes.py",
+                   dict(type="ERFNet"), dict(in_channels=16, channels=128)),
+    "icnet_r50": ("configs/icnet/icnet_r50_512x1024_80k_cityscapes.py",
+                  dict(type="ICNet"), dict(in_channels=128, channels=128),
+                  {"neck": dict(in_channels=(64, 256, 256),
+                                out_channels=128)})}
 SPATIAL_ZOO_FAMILIES = ("upernet", "sem_fpn", "deeplabv3", "deeplabv3plus",
                         "fastfcn", "apcnet", "dmnet", "encnet", "ann",
                         "gcnet", "emanet", "danet", "nonlocal_net", "dnlnet",
@@ -3784,7 +3845,9 @@ SPATIAL_ZOO_FAMILIES = ("upernet", "sem_fpn", "deeplabv3", "deeplabv3plus",
                         "point_rend", "convnext", "swin", "segformer",
                         "twins", "svt", "vit", "setr", "segmenter", "dpt",
                         "beit", "mae", "mobilenet_v2", "mobilenet_v3",
-                        "resnest", "hrnet", "unet", "fastscnn")
+                        "resnest", "hrnet", "unet", "fastscnn",
+                        "bisenetv1", "bisenetv2", "stdc", "cgnet", "erfnet",
+                        "icnet")
 SPATIAL_ZOO_F64_SHARDS = (2, 3)
 SPATIAL_ZOO_F64_SIZE = 128
 # the float64 check's depth cuts of a published width (the CPU tests'
@@ -3808,15 +3871,17 @@ SPATIAL_ZOO_POINT_TIE = 1e-5
 def spatial_zoo_config(config: str) -> dict:
     """The model config of a SPATIAL_ZOO_CASES entry: a config file's, or
     a SPATIAL_ZOO_WRITTEN one's (its file's with its backbone and its
-    decode head's overrides)."""
+    decode head's and other parts' overrides)."""
     from peanut_tpu_torch.core.config_file import load_config
-    path, backbone, head = SPATIAL_ZOO_WRITTEN.get(config, (config, None,
-                                                            {}))
+    path, backbone, head, *parts = SPATIAL_ZOO_WRITTEN.get(
+        config, (config, None, {}))
     cfg = load_config(path)["model"]
     if backbone is not None:
         cfg["backbone"] = dict(backbone)
-    if head:
-        cfg["decode_head"] = dict(cfg["decode_head"], **head)
+    for part, over in dict(parts[0] if parts else {},
+                           decode_head=head).items():
+        if over:
+            cfg[part] = dict(cfg[part], **over)
     return cfg
 
 
@@ -4092,7 +4157,7 @@ def spatial_zoo_float64(args, dev) -> dict:
     """spatial_zoo_float64: the twenty ResNet families (every sharded
     module type of the zoo's ResNet heads) at the CPU tests' widths, the
     five hierarchical transformers, the six plain-ViT families (square:
-    BEiT's bias joins) and the light CNNs' first six families at their
+    BEiT's bias joins) and the twelve light-CNN families at their
     configs' (UPerNet-ViT-B cut to four blocks, SPATIAL_ZOO_F64_CUTS),
     batch 1 at
     SPATIAL_ZOO_F64_SIZE^2 in float64: forward_rows over [cuda:0] * k for
@@ -4144,11 +4209,85 @@ def spatial_zoo_float64(args, dev) -> dict:
     return errors
 
 
+# fault C6's case (ROADMAP C6, tests/test_torch_slide.py): the dry run's
+# narrow PSPNet sliding 64^2 windows every 48 rows and columns over a
+# 14 x 128^2 map (nine windows); the card's float32 probabilities (TF32
+# off) against the CPU's float64 ones, and at least WHOLE_APART from the
+# whole forward's, so that a whole forward in its place would fail
+PREDICTION_SLIDE = dict(mode="slide", crop_size=(64, 64), stride=(48, 48))
+PREDICTION_SLIDE_BOUND = 1e-5
+PREDICTION_SLIDE_WHOLE_APART = 1e-2
+
+
+def prediction_slide(args, dev) -> dict:
+    """prediction_slide: PredictionModel.get_prediction of C6's case on
+    the card against the CPU's float64 slide inference of the same
+    weights; the ms of its inference (nine windows) and of the whole
+    forward; get_prediction_sharded over [cuda:0] * 2 refused, naming
+    ROADMAP A14 part 3d (slide over a sharded map is not written)."""
+    import copy
+
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.multichip import DRYRUN_MODEL
+    from peanut_tpu_torch.prediction import PredictionModel
+    cfg = dict(copy.deepcopy(DRYRUN_MODEL), test_cfg=dict(PREDICTION_SLIDE))
+    model = zoo_weights(build_segmentor(cfg, seed=args.seed), args.seed)
+    full_map = np.random.RandomState(args.seed + 21).rand(
+        14, 128, 128).astype(np.float32)
+    x = torch.as_tensor(full_map[None])
+    with torch.no_grad():
+        wide = copy.deepcopy(model).double()
+        want = torch.sigmoid(wide.slide_inference(x.double()))[0].numpy()
+        whole = torch.sigmoid(wide(x.double()))[0].numpy()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pm = PredictionModel(NavConfig(), model=model, device=dev)
+        got = pm.get_prediction(full_map)
+        xd = x.to(dev)
+        with torch.no_grad():
+            slide_ms = cuda_ms(lambda: pm.infer(xd), 3)
+            whole_ms = cuda_ms(lambda: pm.model(xd), 3)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    try:
+        pm.get_prediction_sharded(full_map, make_mesh({"spatial": 2},
+                                                      [dev] * 2))
+        refusal = None
+    except NotImplementedError as e:
+        refusal = str(e)
+    reading = {"phase": "prediction_slide", "test_cfg": PREDICTION_SLIDE,
+               "input": list(full_map.shape), "dtype": "float32, TF32 off",
+               "max_abs_diff_vs_cpu_float64": float(np.abs(got - want).max()),
+               "bound": PREDICTION_SLIDE_BOUND,
+               "whole_forward_apart": float(np.abs(whole - want).max()),
+               "whole_apart_at_least": PREDICTION_SLIDE_WHOLE_APART,
+               "finite": bool(np.isfinite(got).all()),
+               "slide_ms": slide_ms, "whole_ms": whole_ms,
+               "sharded_refusal": refusal}
+    emit(reading)
+    if not (reading["finite"] and got.shape == want.shape
+            and reading["max_abs_diff_vs_cpu_float64"]
+            <= PREDICTION_SLIDE_BOUND
+            and reading["whole_forward_apart"]
+            >= PREDICTION_SLIDE_WHOLE_APART
+            and refusal is not None and "part 3d" in refusal):
+        fail(f"prediction_slide: {reading}")
+    return reading
+
+
 def spatial_zoo_phase(args, dev, smi_line: str) -> None:
-    """Phase 17: spatial_zoo_pred, spatial_zoo_train, spatial_zoo_float64.
-    No kernel of csrc/ on this path (the zoo's heads are PyTorch ops)."""
+    """Phase 17: spatial_zoo_pred, prediction_slide, spatial_zoo_train,
+    spatial_zoo_float64.  No kernel of csrc/ on this path (the zoo's heads
+    are PyTorch ops)."""
     t0 = time.perf_counter()
     spatial_zoo_forwards(args, dev)
+    prediction_slide(args, dev)
     spatial_zoo_training(args, dev)
     spatial_zoo_float64(args, dev)
     emit({"phase": "spatial_zoo_done", "seconds": time.perf_counter() - t0,

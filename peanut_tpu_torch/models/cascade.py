@@ -30,10 +30,9 @@ from .heads_zoo import PointHead
 
 @SEGMENTORS.register()
 class CascadeEncoderDecoder(EncoderDecoder):
-    """EncoderDecoder's backbone, neck, auxiliary head, slide and whole
-    inference over a list of decode heads.  (The JAX package's cascade
-    runs whole inference whatever ``test_cfg`` says; no config of the zoo
-    asks it for slide.)"""
+    """EncoderDecoder's backbone, neck, auxiliary head and whole inference
+    over a list of decode heads.  Inference is whole whatever ``test_cfg``
+    says, as the JAX package's cascade runs it (``slides`` is False)."""
 
     def __init__(self, num_stages: int, backbone: Dict[str, Any],
                  decode_head: Sequence[Dict[str, Any]], **kw):
@@ -49,6 +48,10 @@ class CascadeEncoderDecoder(EncoderDecoder):
             if i and isinstance(head, OCRHead):
                 head.soft_regions = None      # it takes the prior logits
             self.add_module(f"decode_head{i}", head)
+
+    @property
+    def slides(self) -> bool:
+        return False
 
     def heads(self):
         return [getattr(self, f"decode_head{i}")

@@ -94,6 +94,12 @@ class EncoderDecoder(nn.Module):
     def num_classes(self) -> int:
         return int(self.head_cfg["num_classes"])
 
+    @property
+    def slides(self) -> bool:
+        """Whether inference slides (``test_cfg``'s mode "slide") rather
+        than runs one whole forward."""
+        return self.test_cfg.get("mode", "whole") == "slide"
+
     def extract_feat(self, img: torch.Tensor):
         feats = self.backbone(img)
         return self.neck(feats) if self.neck is not None else feats
@@ -158,8 +164,7 @@ class EncoderDecoder(nn.Module):
         size, by ``test_cfg``'s mode (slide, else whole); the JAX package's
         layout."""
         x = img.permute(0, 3, 1, 2)
-        out = (self.slide_inference(x)
-               if self.test_cfg.get("mode", "whole") == "slide"
+        out = (self.slide_inference(x) if self.slides
                else self.whole_inference(x))
         return out.permute(0, 2, 3, 1)
 

@@ -942,7 +942,9 @@ class STDCHead(DecodeHead):
                       threshold: float = 0.1) -> torch.Tensor:
         """(B, H, W) labels -> (B, H, W) int32 boundaries: |Laplacian|
         (3x3, zero padding) above ``threshold`` (stdc_head.py's fixed
-        Laplacian, one convolution as in the JAX package)."""
+        Laplacian, one convolution as in the JAX package).  No trainer
+        calls it, in either package, so it has no row-sharded form
+        (``models.sharded_light`` shards the head's forward)."""
         lap = torch.full((3, 3), -1.0, device=gt_sem.device)
         lap[1, 1] = 8.0
         y = F.conv2d(gt_sem[:, None].float(), lap[None, None], padding=1)

@@ -1,8 +1,8 @@
 """The forward of a segmentor with the map's height sharded over devices
 (``core.spatial``): the mesh's ``spatial`` axis for PEANUT's PSPNet, the
 dry run's and the model zoo's ResNet families, hierarchical transformers,
-plain-ViT families (``sharded_vit``) and the first half of its light CNNs
-(``sharded_light``), whole-map inference and the train forward alike.
+plain-ViT families (``sharded_vit``) and light CNNs (``sharded_light``),
+whole-map inference and the train forward alike.
 
 ``forward_rows(model, x)`` runs an ``EncoderDecoder`` (or a cascade) over
 a ``Rows`` map with the same parameters and buffers as ``model(x)``: each
@@ -72,14 +72,16 @@ families' types (``VisionTransformer``, ``MAE``, ``BEiT``, their blocks,
 the necks ``MLANeck``, ``MultiLevelNeck`` and ``Feature2Pyramid``, the
 heads ``SETRUPHead``, ``SETRMLAHead``, ``DPTHead`` and
 ``SegmenterMaskTransformerHead``); ``sharded_light`` adds the light
-CNNs' first half (``MobileNetV2``, ``MobileNetV3``, ``ResNeSt``,
-``HRNet``, ``UNet``, ``FastSCNN``, ``TIMMBackbone``, their blocks, the
-heads ``LRASPPHead`` and ``DepthwiseSeparableFCNHead``).  Any other
-module type raises NotImplementedError naming it: the two-path real-time
-nets (BiSeNetV1, BiSeNetV2, STDC with STDCHead, CGNet, ERFNet, ICNet with
-ICNeck: ROADMAP A14 part 3c's second half), ``slide`` over a sharded map
-and ``nn.Conv2d`` with a string padding or another padding mode (part
-3d) are left (``_LEFT``).  Nothing falls back to the unsharded model.
+CNNs (``MobileNetV2``, ``MobileNetV3``, ``ResNeSt``, ``HRNet``,
+``UNet``, ``FastSCNN``, ``TIMMBackbone``, the two-path real-time nets
+``BiSeNetV1``, ``BiSeNetV2``, ``STDCNet`` / ``STDCContextPathNet``,
+``CGNet``, ``ERFNet`` and ``ICNet``, their blocks and ``layers.PReLU``,
+the heads ``LRASPPHead``, ``DepthwiseSeparableFCNHead`` and
+``STDCHead``, the neck ``ICNeck``): every type of the port's registries.
+Any other module type raises NotImplementedError naming it; slide
+inference over a sharded map and ``nn.Conv2d`` with a string padding or
+another padding mode (ROADMAP A14 part 3d) are left (``_LEFT``).
+Nothing falls back to the unsharded model.
 """
 
 from __future__ import annotations
@@ -123,11 +125,9 @@ from .vit import (SwinBlock, SwinTransformer, _shift_attn_mask,
                   _window_partition, _window_reverse)
 
 # what the spatial axis still lacks, named by every refusal
-_LEFT = ("the spatial axis over the light-CNN families' two-path real-time "
-         "nets (BiSeNetV1, BiSeNetV2, CGNet, ERFNet, ICNet with ICNeck, "
-         "STDC with STDCHead: 3c's second half), slide inference over a "
-         "sharded map and nn.Conv2d with a string padding or another "
-         "padding mode than zeros (3d) is ROADMAP A14 part 3")
+_LEFT = ("what the spatial axis still lacks is ROADMAP A14 part 3d: slide "
+         "inference over a sharded map and nn.Conv2d with a string padding "
+         "or another padding mode than zeros")
 
 
 @dataclasses.dataclass

@@ -5,9 +5,12 @@ Twin of PEANUT's PEANUT_Prediction_Model (nav/agent/prediction.py:140-158):
 a PSPNet-R50-v1c over the partial 14-channel semantic map emitting 6
 per-category probability maps as sigmoid(raw logits).  PEANUT's mmcv test
 pipeline (MultiScaleFlipAug at ratio 1.0, identity normalisation) reduces
-to one whole-image forward, which is what runs here, on the model's device;
-``get_prediction_sharded`` runs it with the map's height sharded over a
-mesh axis (``models.sharded``).
+to the model's inference on the model's device: one whole-image forward
+(PEANUT's config), or sliding windows where the model's ``test_cfg`` says
+``mode="slide"``, as the JAX package's ``model.inference`` runs it.
+``get_prediction_sharded`` runs the whole forward with the map's height
+sharded over a mesh axis (``models.sharded``); a sliding model raises
+there (ROADMAP A14 part 3d).
 
 Weights: ``model`` (an EncoderDecoder, taken over), else ``state_dict``
 (mmseg keys), else the checkpoint at ``cfg.pred_model_wts``.  Unlike the
@@ -30,7 +33,7 @@ from ..core.mesh import axis_devices
 from ..models.pspnet import build_segmentor, peanut_prediction_config
 from ..models.encoder_decoder import EncoderDecoder
 from ..models.mmseg_import import load_mmseg_checkpoint, load_mmseg_state
-from ..models.sharded import forward_rows
+from ..models.sharded import _LEFT, forward_rows
 
 
 class PredictionModel:
@@ -59,9 +62,13 @@ class PredictionModel:
     def infer(self, maps: torch.Tensor) -> torch.Tensor:
         """(K, C, H, W) tensor on the model's device -> (K, 6, H, W) float32
         probabilities on it, without a host round trip (the batched
-        runtime's trigger ticks): the forward in the serving type, the
-        logits into the sigmoid in float32."""
-        return torch.sigmoid(self.model(maps.to(self.dtype)).float())
+        runtime's trigger ticks): the model's inference in the serving
+        type (its sliding windows where ``test_cfg`` says so, else the
+        whole forward), the logits into the sigmoid in float32."""
+        x = maps.to(self.dtype)
+        logits = (self.model.slide_inference(x) if self.model.slides
+                  else self.model(x))
+        return torch.sigmoid(logits.float())
 
     def get_prediction_batch(self, full_maps) -> np.ndarray:
         """(B, C, H, W) host maps -> (B, 6, H, W), one forward for all
@@ -79,7 +86,14 @@ class PredictionModel:
         divide) and computes them in the model's type, taking the halo
         rows each convolution reaches from the shards that hold them
         (``models.sharded.forward_rows``); the model's parameters are read
-        where they lie, copied to a shard on another device."""
+        where they lie, copied to a shard on another device.  A model whose
+        ``test_cfg`` slides raises NotImplementedError: slide inference
+        over a sharded map is not written yet, and a whole forward would
+        not be the prediction ``get_prediction`` gives."""
+        if self.model.slides:
+            raise NotImplementedError(
+                f"{type(self.model).__name__} with test_cfg mode 'slide' has "
+                f"no row-sharded prediction: {_LEFT}")
         devices = axis_devices(mesh, axis)
         x = torch.as_tensor(np.asarray(full_map, np.float32)[None])
         rows = spatial.shard(x.to(self.dtype), devices)

@@ -1069,14 +1069,17 @@ def test_spatial_zoo_plain_vit_on_the_card(cuda, family):
 
 
 @pytest.mark.parametrize("family", ["fastscnn", "hrnet", "mobilenet_v2",
-                                    "mobilenet_v3", "resnest", "unet"])
+                                    "mobilenet_v3", "resnest", "unet",
+                                    "bisenetv1", "bisenetv2", "cgnet",
+                                    "erfnet", "icnet", "stdc"])
 def test_spatial_zoo_light_cnn_on_the_card(cuda, family):
-    """The spatial axis over the light CNNs' first half on the card: each
-    family's first config (the repo's widths), seeded, in float64 at
-    128^2, forward_rows over ``[cuda] * k`` for k = 2, 3 (ResNeSt's
-    average pools and UNet's 2x2 pools across an odd shard start at 3)
-    against the card's unsharded forward and the CPU's, within 1e-10 of
-    the largest |logit|."""
+    """The spatial axis over the light CNNs on the card: each family's
+    first config (the repo's widths), seeded, in float64 at 128^2,
+    forward_rows over ``[cuda] * k`` for k = 2, 3 (ResNeSt's average
+    pools, UNet's 2x2 pools and the two-path nets' stride-2
+    concatenations across an odd shard start at 3) against the card's
+    unsharded forward and the CPU's, within 1e-10 of the largest
+    |logit|."""
     import copy
     import glob
     import os

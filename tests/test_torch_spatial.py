@@ -14,8 +14,10 @@
   eval mode with random batch statistics, sharded against unsharded
   within 1e-12; ``PredictionModel.get_prediction_sharded`` against
   ``get_prediction`` within 1e-9 in float64 and 1e-6 in float32.
-* A module type without a sharded form raises NotImplementedError naming
-  it and ROADMAP A14 part 3.
+* A module without a sharded form (torch's own ``nn.PReLU``, a
+  convolution padded by a string or in another mode than zeros) raises
+  NotImplementedError naming it and ROADMAP A14 part 3d, though the
+  unsharded forward runs.
 """
 
 import copy
@@ -297,14 +299,28 @@ def test_a_module_without_a_sharded_form_raises(what):
     elif what == "neck":
         cfg["neck"] = dict(type="ICNeck", in_channels=[128, 256, 512],
                            out_channels=32)
-        what = "ICNeck"
+        cfg["decode_head"].update(in_channels=32, in_index=2)
+        cfg["auxiliary_head"].update(in_channels=32, in_index=1)
     model = build_segmentor(cfg, seed=0)
-    if what == "PReLU":
-        from peanut_tpu_torch.models.layers import ConvModule, PReLU
-        model.auxiliary_head.convs[0] = ConvModule(256, 64, 3, padding=1,
-                                                   act=PReLU())
-    x = spatial.shard(torch.rand(1, 14, 32, 32), cpus(2))
-    with pytest.raises(NotImplementedError,
-                       match=rf"{what} has no row-sharded.*A14 part 3"):
-        with torch.no_grad():
-            forward_rows(model, x, with_aux=True)
+    # STDCHead, ICNeck and the port's PReLU have forms: what still has
+    # none is a reflect-padded conv (part 3d) in the head, a conv padded
+    # "same" in the neck, and torch's own nn.PReLU in a ConvModule
+    if what == "STDCHead":
+        model.decode_head.conv0.conv.padding_mode = "reflect"
+        match = r"Conv2d with padding .*reflect.* has no row-sharded"
+    elif what == "neck":
+        fusion = model.neck.cff42.conv_low
+        fusion.conv = torch.nn.Conv2d(512, 32, 3, padding="same",
+                                      dilation=2, bias=False)
+        match = r"Conv2d with padding 'same' .*has no row-sharded"
+    else:
+        from peanut_tpu_torch.models.layers import ConvModule
+        model.auxiliary_head.convs[0] = ConvModule(
+            256, 64, 3, padding=1, act=torch.nn.PReLU())
+        match = r"PReLU has no row-sharded"
+    x = torch.rand(1, 14, 32, 32)
+    with torch.no_grad():
+        model(x, with_aux=True)
+        with pytest.raises(NotImplementedError,
+                           match=match + r".*A14 part 3d"):
+            forward_rows(model, spatial.shard(x, cpus(2)), with_aux=True)

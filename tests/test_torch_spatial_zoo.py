@@ -13,10 +13,13 @@ on the CPU, the port against itself in float64:
   variables carried in (random batch statistics, non-zero gates), at
   128^2 and at 40 x 64 (shards of no rows), within 1e-12 of the largest
   |logit|;
-* the types still without a sharded form (the light-CNN backbones of
-  A14 part 3c's second half: BiSeNetV1, BiSeNetV2, STDC's context path,
-  ERFNet, CGNet) raise NotImplementedError naming themselves and ROADMAP
-  A14 part 3.
+* the configs of BiSeNetV1, BiSeNetV2, STDC's context path, ERFNet and
+  CGNet (whose types got their sharded forms in A14 part 3c's second
+  half) given a ``test_cfg`` of ``mode="slide"``: ``PredictionModel.
+  get_prediction_sharded`` raises NotImplementedError naming ROADMAP A14
+  part 3d (slide over a sharded map), where a whole forward would not be
+  the prediction the unsharded path gives; and the refusal names only
+  what part 3d leaves.
 """
 
 import pytest
@@ -24,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from peanut_tpu_torch.core import spatial
-from peanut_tpu_torch.models.sharded import forward_rows
 
 from torch_spatial_zoo_support import (CONVOLUTIONAL, SHAPES, SHARDS,
                                        check_forward_rows, cpus)
@@ -57,25 +59,35 @@ def test_forward_rows_matches_the_model(family, shape):
     check_forward_rows(family, SHAPES[shape])
 
 
-# each type still without a sharded form, in the config that builds it
-UNPORTED = {"BiSeNetV1": "bisenetv1", "ERFNet": "erfnet",
-            "BiSeNetV2": "bisenetv2", "STDCContextPathNet": "stdc",
-            "CGNet": "cgnet"}
+# the configs of the types that part 3c's second half gave a form
+SLIDING = {"BiSeNetV1": "bisenetv1", "ERFNet": "erfnet",
+           "BiSeNetV2": "bisenetv2", "STDCContextPathNet": "stdc",
+           "CGNet": "cgnet"}
 
 
-@pytest.mark.parametrize("what", list(UNPORTED))
-def test_a_type_without_a_sharded_form_raises(what):
+@pytest.mark.parametrize("what", list(SLIDING))
+def test_a_sliding_config_raises_naming_3d(what):
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core.mesh import make_mesh
     from peanut_tpu_torch.models.builder import build_segmentor
-    model = build_segmentor(family_config(UNPORTED[what]), seed=0)
-    x = spatial.shard(torch.rand(1, 3, 64, 64), cpus(2))
+    from peanut_tpu_torch.prediction import PredictionModel
+    cfg = dict(family_config(SLIDING[what]), test_cfg=dict(
+        mode="slide", crop_size=(32, 32), stride=(24, 24)))
+    model = build_segmentor(cfg, seed=0)
+    assert type(model.backbone).__name__ == what
+    pm = PredictionModel(NavConfig(), model=model, device="cpu")
+    full_map = torch.rand(3, 64, 64).numpy()
+    assert pm.get_prediction(full_map).shape == (19, 64, 64)
     with pytest.raises(NotImplementedError,
-                       match=rf"{what}\b.*has no row-sharded.*A14 part 3"):
-        with torch.no_grad():
-            forward_rows(model, x)
+                       match=r"EncoderDecoder with test_cfg mode 'slide' has "
+                             r"no row-sharded.*ROADMAP A14 part 3d"):
+        pm.get_prediction_sharded(full_map, make_mesh({"spatial": 2},
+                                                      cpus(2)))
 
 
 def test_the_refusal_names_what_is_left():
     from peanut_tpu_torch.models import sharded
-    for name in ("3c", "light-CNN", "slide", "padding mode", "3d"):
+    for name in ("slide", "padding mode", "3d"):
         assert name in sharded._LEFT
-    assert "plain-ViT" not in sharded._LEFT
+    for name in ("3c", "light-CNN", "plain-ViT"):
+        assert name not in sharded._LEFT

@@ -19,15 +19,15 @@ module), and the types still without a sharded form:
 * Twins-SVT's ``_LocalAttention`` on maps lower or narrower than its
   window (its windows ``min(window, h, w)`` of the whole map) over 1 ...
   8 shards;
-* every type of the port's registries still without a sharded form (the
-  light CNNs' two-path real-time nets, their neck and head: ROADMAP A14
-  part 3c's second half) raises NotImplementedError naming itself and
-  ROADMAP A14 part 3, through ``sharded.run``; each light-CNN type of
-  the first half has a registered form, which runs a small instance over
-  2 shards of a float64 map as its unsharded forward does; and a
-  plain-ViT model (UPerNet-ViT, SETR) whose convolution pads in another
-  mode than zeros (part 3d) raises through ``forward_rows``, though its
-  unsharded forward runs: nothing falls back to the unsharded model.
+* every type of the port's registries has a sharded form (none is
+  left); each light-CNN type, of both halves of ROADMAP A14 part 3c
+  (the two-path real-time nets, their neck and head among them), runs a
+  small instance over 2 shards of a float64 map as its unsharded forward
+  does; and a plain-ViT model (UPerNet-ViT, SETR) whose convolution pads
+  in another mode than zeros, or a PSPNet's convolution padded by a
+  string or in another mode (part 3d), raises NotImplementedError naming
+  part 3d through ``forward_rows``, though its unsharded forward runs:
+  nothing falls back to the unsharded model.
 """
 
 import pytest
@@ -140,14 +140,12 @@ def test_local_attention_below_its_window(hw):
                 want.abs().max()), k
 
 
-# the port's registered types without a sharded form: the light CNNs'
-# two-path real-time nets (3c's second half), their neck and head
-LEFT = {"backbones": ("BiSeNetV1", "BiSeNetV2", "CGNet", "ERFNet",
-                      "ICNet", "STDCContextPathNet", "STDCNet"),
-        "necks": ("ICNeck",),
-        "heads": ("STDCHead",)}
-# the light CNNs' first half, which got forms (models/sharded_light.py):
-# each a small instance, and the levels a head takes (channels, stride)
+# the port's registered types without a sharded form: none since the
+# light CNNs' two-path real-time nets, their neck and head got theirs
+LEFT = {"backbones": (), "necks": (), "heads": ()}
+# the light CNNs' types, which got forms (models/sharded_light.py): each a
+# small instance, and the levels a head or a neck takes (channels,
+# stride)
 GOT_A_FORM = {
     "MobileNetV2": dict(widen_factor=0.25),
     "MobileNetV3": dict(arch="small", out_indices=(0, 1, 12)),
@@ -167,7 +165,31 @@ GOT_A_FORM = {
     "DepthwiseSeparableFCNHead": dict(in_channels=8, channels=8,
                                       num_classes=3, in_index=0,
                                       concat_input=True,
-                                      levels=((8, 8),))}
+                                      levels=((8, 8),)),
+    "BiSeNetV1": dict(backbone_cfg=dict(type="ResNet", depth=18,
+                                        base_channels=4, stem_channels=4),
+                      spatial_channels=(4, 4, 4, 8),
+                      context_channels=(8, 16, 32), out_channels=8),
+    "BiSeNetV2": dict(detail_channels=(4, 4, 8),
+                      semantic_channels=(4, 8, 8, 16), bga_channels=8,
+                      semantic_expansion=2),
+    "CGNet": dict(num_channels=(8, 16, 32), num_blocks=(2, 2),
+                  reductions=(4, 8)),
+    "ERFNet": dict(enc_downsample_channels=(4, 8, 16),
+                   enc_stage_non_bottlenecks=(1, 4),
+                   dec_upsample_channels=(8, 4),
+                   dec_stages_non_bottleneck=(1, 1)),
+    "ICNet": dict(layer_channels=(8, 16), light_branch_mid_channels=4,
+                  psp_out_channels=16, out_channels=(4, 8, 8),
+                  depth_blocks=(1, 1, 1, 1)),
+    "STDCNet": dict(channels=(4, 4, 16, 32, 64)),
+    "STDCContextPathNet": dict(backbone_cfg=dict(
+        type="STDCNet", channels=(4, 4, 16, 32, 64)), out_channels=8,
+        ffm_channels=16),
+    "ICNeck": dict(in_channels=(4, 8, 8), out_channels=8,
+                   levels=((4, 8), (8, 16), (8, 32))),
+    "STDCHead": dict(in_channels=8, channels=4, num_classes=2, in_index=0,
+                     levels=((8, 8),))}
 
 
 def _registries():
@@ -182,18 +204,6 @@ def test_the_types_left_are_those_without_a_form():
         left = {n for n, c in reg._modules.items()
                 if c not in sharded._FORWARDS and c is not PointHead}
         assert left == set(LEFT[kind]), kind
-
-
-@pytest.mark.parametrize("name", [n for names in LEFT.values()
-                                  for n in names])
-def test_a_type_left_raises_naming_part_3(name):
-    reg = next(r for kind, r in _registries().items() if name in LEFT[kind])
-    cls = reg.get(name)
-    x = spatial.shard(torch.rand(1, 3, 8, 8), cpus(2))
-    with pytest.raises(NotImplementedError,
-                       match=rf"{cls.__name__} has no row-sharded.*"
-                             r"ROADMAP A14 part 3"):
-        sharded.run(cls.__new__(cls), x, _context())
 
 
 @pytest.mark.parametrize("name", list(GOT_A_FORM))
@@ -211,13 +221,15 @@ def test_a_light_cnn_type_has_a_form_that_runs_sharded(name):
         with torch.no_grad():
             want = list(module(x))
             got = sharded.run(module, spatial.shard(x, cpus(2)), _context())
-    else:                                      # a head, on its levels
+    else:                              # a head or a neck, on its levels
         xs = [torch.rand(1, c, 64 // s, 48 // s, generator=g,
                          dtype=torch.float64) for c, s in levels]
         with torch.no_grad():
-            want = [module(xs)]
-            got = [sharded.run(module, [spatial.shard(t, cpus(2))
-                                        for t in xs], _context())]
+            want = module(xs)
+            got = sharded.run(module, [spatial.shard(t, cpus(2))
+                                       for t in xs], _context())
+        if isinstance(want, torch.Tensor):
+            want, got = [want], [got]
     assert len(got) == len(want) > 0
     for r, w in zip(got, want):
         assert [b.shape[2] for b in r.blocks] == [
@@ -241,6 +253,28 @@ def test_a_plain_vit_model_raises(family):
         with pytest.raises(NotImplementedError,
                            match=r"Conv2d with padding .*reflect.* has no "
                                  r"row-sharded.*ROADMAP A14 part 3"):
+            forward_rows(model, spatial.shard(x, cpus(2)))
+
+
+@pytest.mark.parametrize("padding", ["reflect", "replicate", "circular",
+                                     "same"])
+def test_a_conv_padded_otherwise_raises_naming_3d(padding):
+    from peanut_tpu_torch.models.builder import build_segmentor
+    model = build_segmentor(family_config("erfnet"), seed=0)
+    block = model.backbone.enc1_0
+    if padding == "same":
+        conv = block.conv3x1_1
+        block.conv3x1_1 = torch.nn.Conv2d(conv.in_channels,
+                                          conv.out_channels, (3, 1),
+                                          padding="same")
+    else:
+        block.conv3x1_1.padding_mode = padding
+    x = torch.rand(1, 3, 64, 64)
+    with torch.no_grad():
+        assert model(x).shape[-2:] == (64, 64)
+        with pytest.raises(NotImplementedError,
+                           match=r"Conv2d with padding .* has no row-sharded"
+                                 r".*ROADMAP A14 part 3d: slide"):
             forward_rows(model, spatial.shard(x, cpus(2)))
 
 

@@ -22,12 +22,12 @@ within the bounds of the others.
 
 import pytest
 
-from torch_spatial_zoo_support import LIGHT, check_train_mode_grads
+from torch_spatial_zoo_support import LIGHT_FIRST, check_train_mode_grads
 from torch_zoo_support import one_thread  # noqa: F401
 
 CONDITIONED = {"resnest": dict(batch=4, tol=1e-11)}
 
 
-@pytest.mark.parametrize("family", sorted(LIGHT))
+@pytest.mark.parametrize("family", sorted(LIGHT_FIRST))
 def test_train_mode_gradients_over_3_shards_equal_unsharded(family):
     check_train_mode_grads(family, 3, **CONDITIONED.get(family, {}))

@@ -17,11 +17,12 @@ on the CPU (tests/test_torch_spatial_zoo_19.py's checks):
 
 import pytest
 
-from torch_spatial_zoo_support import (LIGHT, check_no_gathered_backbone,
+from torch_spatial_zoo_support import (LIGHT_FIRST,
+                                       check_no_gathered_backbone,
                                        check_no_gathered_head)
 from torch_zoo_support import one_thread  # noqa: F401
 
-FAMILIES = sorted(set(LIGHT) - {"hrnet"}) + ["hrnet_cut"]
+FAMILIES = sorted(set(LIGHT_FIRST) - {"hrnet"}) + ["hrnet_cut"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -210,8 +210,35 @@ def maps_dir(tmp_path_factory):
     return str(d)
 
 
+@pytest.fixture
+def jax_native(tmp_path, monkeypatch):
+    """The JAX package's native library compiled by this test, with its
+    loader's own flags, into a private path (published by ``os.replace``)
+    and the loader pointed there: its ``native/libmap_pipeline.so``, which
+    every process that imports it may be compiling in place at the same
+    time, is never loaded half-written.  The loader must find the
+    library: a fallback to the cv2 chain fails here, not as bytes
+    apart."""
+    import subprocess
+
+    from peanut_tpu.prediction import native as jnative
+    lib = str(tmp_path / "libmap_pipeline.so")
+    part = lib + ".part"
+    subprocess.run(["cc", "-O3", "-fopenmp", "-shared", "-fPIC", "-lstdc++",
+                    jnative._SRC, "-o", part], check=True,
+                   capture_output=True)
+    os.replace(part, lib)
+    monkeypatch.setattr(jnative, "_LIB", lib)
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    assert jnative.available()
+    return jnative
+
+
 @pytest.mark.parametrize("native", [True, False])
-def test_load_map_sample_byte_equal_to_jax(maps_dir, native):
+def test_load_map_sample_byte_equal_to_jax(maps_dir, native, request):
+    if native:
+        request.getfixturevalue("jax_native")
     path = os.path.join(maps_dir, "train", "f00001.npz")
     for t in (0, 3, 9):
         want = jdataset.load_map_sample(path, t)
@@ -222,11 +249,13 @@ def test_load_map_sample_byte_equal_to_jax(maps_dir, native):
 
 
 @pytest.mark.parametrize("native", [True, False])
-def test_pipeline_samples_byte_equal_to_jax(maps_dir, native):
+def test_pipeline_samples_byte_equal_to_jax(maps_dir, native, request):
     """The fused native augment and the python cv2 chain, each against the
     JAX package's own, on one RandomState seed: the same draws in the same
     order give the same bytes."""
-    if not native:
+    if native:
+        request.getfixturevalue("jax_native")
+    else:
         pytest.importorskip("cv2")
     jds = jdataset.SemMapDataset(maps_dir, "train",
                                  pipeline=jdataset.training_pipeline(

@@ -77,12 +77,12 @@ PLAIN_VIT = {
     "setr_mla": ("VisionTransformer", "ViTBlock", "MultiLevelNeck",
                  "SETRMLAHead")}
 TRANSFORMERS = {**HIERARCHICAL, **PLAIN_VIT}
-# the light CNNs' first half (part 3c), each with the module types of
-# models/sharded_light.py its config builds; the timm adapter, which has
-# no config of its own, is written over the MobileNetV2 config
-# (``WRITTEN``: ``timm_mv2``)
-LIGHT = {"mobilenet_v2": ("MobileNetV2", "InvertedResidual", "PSPHead",
-                          "FCNHead"),
+# the light CNNs (part 3c), each with the module types of
+# models/sharded_light.py its config builds; in the first half, the timm
+# adapter, which has no config of its own, is written over the
+# MobileNetV2 config (``WRITTEN``: ``timm_mv2``)
+LIGHT_FIRST = {"mobilenet_v2": ("MobileNetV2", "InvertedResidual",
+                                "PSPHead", "FCNHead"),
          "mobilenet_v3": ("MobileNetV3", "MBV3Block", "SELayer",
                           "LRASPPHead"),
          "resnest": ("ResNeSt", "ResNeStBottleneck", "SplitAttentionConv",
@@ -92,6 +92,16 @@ LIGHT = {"mobilenet_v2": ("MobileNetV2", "InvertedResidual", "PSPHead",
          "fastscnn": ("FastSCNN", "_DSConv", "InvertedResidual",
                       "DepthwiseSeparableFCNHead", "SepConvModule",
                       "FCNHead")}
+# the light CNNs' second half (part 3c), the two-path real-time nets
+TWO_PATH = {"bisenetv1": ("BiSeNetV1", "_ARM", "ZooResNet", "FCNHead"),
+            "bisenetv2": ("BiSeNetV2", "_GELayer", "FCNHead"),
+            "stdc": ("STDCContextPathNet", "STDCNet", "STDCModule", "_ARM",
+                     "FCNHead", "STDCHead"),
+            "cgnet": ("CGNet", "ContextGuidedBlock", "PReLU", "FCNHead"),
+            "erfnet": ("ERFNet", "_Downsampler", "_NonBottleneck1d",
+                       "FCNHead"),
+            "icnet": ("ICNet", "ZooBottleneck", "ICNeck", "FCNHead")}
+LIGHT = {**LIGHT_FIRST, **TWO_PATH}
 # family: (the family whose config it is written over, its backbone (None:
 # the config's), its decode head (a whole one where it names its type,
 # else overrides of the config's), and its neck, if any); SVT at the
@@ -404,23 +414,33 @@ def backbone_rows_seen(family: str, k: int, hw) -> tuple:
 
 def global_modules(backbone: nn.Module) -> set:
     """The names (as ``backbone_rows_seen`` gives them) of the backbone's
-    convolutions that take a global pooled map: the squeeze-excitation
-    gates' and split attention's ``fc1`` / ``fc2`` (the global mean) and
-    Fast-SCNN's pyramid pool (``ppm{i}``)."""
-    from peanut_tpu_torch.models.backbones_zoo import (FastSCNN, SELayer,
-                                                       SplitAttentionConv)
+    convolutions and dense layers that take a global pooled map: the
+    squeeze-excitation gates' and split attention's ``fc1`` / ``fc2``
+    (the global mean), Fast-SCNN's pyramid pool (``ppm{i}``), the
+    attention refinement's ``gate`` and the context fusion's ``gap_conv``,
+    ``ffm_fc1`` and ``ffm_fc2`` (BiSeNetV1, STDC), BiSeNetV2's context
+    embedding ``ce_conv`` and CGNet's global-context ``fc1`` / ``fc2``."""
+    from peanut_tpu_torch.models.backbones_zoo import (
+        BiSeNetV2, ContextGuidedBlock, FastSCNN, SELayer, SplitAttentionConv,
+        _ARM, _ContextFusion)
     names = set()
     for prefix, m in backbone.named_modules():
-        if isinstance(m, (SELayer, SplitAttentionConv)):
+        if isinstance(m, (SELayer, SplitAttentionConv, ContextGuidedBlock)):
             subs = ("fc1", "fc2")
         elif isinstance(m, FastSCNN):
             subs = tuple(f"ppm{i}" for i in range(len(m.pool_scales)))
+        elif isinstance(m, _ARM):
+            subs = ("gate",)
+        elif isinstance(m, _ContextFusion):
+            subs = ("gap_conv", "ffm_fc1", "ffm_fc2")
+        elif isinstance(m, BiSeNetV2):
+            subs = ("ce_conv",)
         else:
             continue
         for sub in subs:
             names |= {".".join(p for p in ("backbone", prefix, sub, n) if p)
                       for n, c in getattr(m, sub).named_modules()
-                      if isinstance(c, nn.Conv2d)}
+                      if isinstance(c, (nn.Conv2d, nn.Linear))}
     return names
 
 
