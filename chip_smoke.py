@@ -297,8 +297,13 @@ Phases (each prints one JSON line):
                (crop 64, stride 48) on a 14 x 128^2 map,
                PredictionModel.get_prediction on the card in float32
                (TF32 off) against the CPU's float64 sliding windows
-               (1e-5), far from the whole forward, and
-               get_prediction_sharded refused naming part 3d;
+               (1e-5), far from the whole forward, and its
+               get_prediction_sharded over 2 and 4 shards of the card
+               (1e-5); spatial_slide, UPerNet-R50 at published widths
+               sliding mmseg's Cityscapes windows (crop 512x1024, stride
+               341x683: nine) over a 1024x2048 map, get_prediction_sharded
+               over 4 shards against get_prediction in float32 (1e-5)
+               and bf16 (1e-2), with both slides' ms;
                spatial_zoo_train, three steps of UPerNet-R50's
                make_train_step(spatial_axis="spatial") at batch 2, crop
                512x1024, float32 (TF32 off) over 2 shards against three
@@ -308,8 +313,12 @@ Phases (each prints one JSON line):
                families and the twelve light CNNs at their configs' at
                128^2 in
                float64 sharded over 2 and 3 shards against the card's
-               unsharded forward and the CPU's sharded one (1e-10 of the
-               largest |logit|).  No kernel of csrc/ on this path.
+               unsharded forward and the CPU's sharded one, UPerNet's
+               sharded slide over 2 and 3 shards against the CPU's
+               slide, and convolutions padded "same", "valid" and in
+               reflect, replicate and circular mode over 3 shards
+               against the CPU's (1e-10 of the largest |value|).  No
+               kernel of csrc/ on this path.
 Phase 3 also holds B4 (the first-order block sweep) bit-equal to its plain
 version at the single-env agent's shapes.  Phase 2's nvcc runs in the
 background from the start, while the phases that launch no kernel of
@@ -4153,6 +4162,19 @@ def spatial_zoo_training(args, dev) -> dict:
     return reading
 
 
+# nn.Conv2d's paddings past an int with zeros (the sharded form pads the
+# whole map: torch's "same" and "valid", its reflect, replicate and
+# circular modes)
+SPATIAL_PADDED_CONVS = {
+    "same_k3": dict(kernel_size=3, padding="same"),
+    "same_k4_d2": dict(kernel_size=4, padding="same", dilation=2),
+    "valid_s2": dict(kernel_size=3, padding="valid", stride=2),
+    **{f"{mode}_p{p}_s{st}": dict(kernel_size=3, padding=p, stride=st,
+                                  padding_mode=mode)
+       for mode in ("reflect", "replicate", "circular")
+       for p, st in ((1, 1), (2, 2), (3, 1))}}
+
+
 def spatial_zoo_float64(args, dev) -> dict:
     """spatial_zoo_float64: the twenty ResNet families (every sharded
     module type of the zoo's ResNet heads) at the CPU tests' widths, the
@@ -4163,11 +4185,16 @@ def spatial_zoo_float64(args, dev) -> dict:
     SPATIAL_ZOO_F64_SIZE^2 in float64: forward_rows over [cuda:0] * k for
     k in SPATIAL_ZOO_F64_SHARDS against the card's unsharded forward, and
     over 2 shards against the CPU's sharded forward over ["cpu"] * 2;
-    each within SPATIAL_F64_BOUND of the largest |logit|."""
+    UPerNet's sharded slide (the CPU tests' widths, ZOO_SLIDE_CHECK at
+    ZOO_SLIDE_HW) over [cuda:0] * k against the CPU's unsharded slide;
+    nn.Conv2d padded as SPATIAL_PADDED_CONVS over 3 shards of the card
+    against the CPU's module; each within SPATIAL_F64_BOUND of the
+    largest |value|."""
 
     from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.config_file import load_config
     from peanut_tpu_torch.models.builder import build_segmentor
-    from peanut_tpu_torch.models.sharded import forward_rows
+    from peanut_tpu_torch.models.sharded import forward_rows, slide_rows
     s = SPATIAL_ZOO_F64_SIZE
     x = torch.as_tensor(np.random.RandomState(args.seed + 20).rand(
         1, 3, s, s))
@@ -4199,6 +4226,37 @@ def spatial_zoo_float64(args, dev) -> dict:
                         (got - on_cpu).abs().max()) / top
         errors[fam] = res
         del card, model
+    cfg = zoo_test_widths(load_config(ZOO_SERVE)["model"])
+    cfg["test_cfg"] = dict(ZOO_SLIDE_CHECK)
+    model = zoo_weights(build_segmentor(cfg, seed=args.seed),
+                        args.seed).double().eval()
+    xs = torch.as_tensor(np.random.RandomState(args.seed + 23).rand(
+        1, 3, *ZOO_SLIDE_HW))
+    gen = torch.Generator().manual_seed(args.seed + 24)
+    xc = torch.rand(1, 8, 37, 29, generator=gen, dtype=torch.float64)
+    with torch.no_grad():
+        want = model.slide_inference(xs)
+        card = model.to(dev)
+        errors["upernet_slide"] = {
+            f"sharded_{k}_vs_cpu": float((spatial.gather(slide_rows(
+                card, spatial.shard(xs.to(dev), [dev] * k))).cpu()
+                - want).abs().max()) / float(want.abs().max())
+            for k in SPATIAL_ZOO_F64_SHARDS}
+        errors["padded_conv_sharded_3_vs_cpu"] = {}
+        for name, kw in SPATIAL_PADDED_CONVS.items():
+            conv = torch.nn.Conv2d(8, 8, **kw).double()
+            for t in (conv.weight, conv.bias):
+                t.copy_(torch.randn(t.shape, generator=gen,
+                                    dtype=torch.float64))
+            want = conv(xc)
+            conv = conv.to(dev)
+            got = spatial.gather(spatial.conv2d(
+                spatial.shard(xc.to(dev), [dev] * 3), conv.weight, conv.bias,
+                conv.stride, conv.padding, conv.dilation, conv.groups,
+                conv.padding_mode)).cpu()
+            errors["padded_conv_sharded_3_vs_cpu"][name] = float(
+                (got - want).abs().max()) / float(want.abs().max())
+    del card, model
     torch.cuda.empty_cache()
     emit({"phase": "spatial_zoo_float64", "size": s,
           "bound_of_largest": SPATIAL_F64_BOUND, "errors": errors})
@@ -4217,19 +4275,26 @@ def spatial_zoo_float64(args, dev) -> dict:
 PREDICTION_SLIDE = dict(mode="slide", crop_size=(64, 64), stride=(48, 48))
 PREDICTION_SLIDE_BOUND = 1e-5
 PREDICTION_SLIDE_WHOLE_APART = 1e-2
+PREDICTION_SLIDE_SHARDS = (2, 4)
+# spatial_slide: UPerNet-R50's Cityscapes windows at ZOO_IMAGE over
+# [cuda:0] * 4
+SPATIAL_SLIDE_SHARDS = 4
 
 
 def prediction_slide(args, dev) -> dict:
     """prediction_slide: PredictionModel.get_prediction of C6's case on
-    the card against the CPU's float64 slide inference of the same
-    weights; the ms of its inference (nine windows) and of the whole
-    forward; get_prediction_sharded over [cuda:0] * 2 refused, naming
-    ROADMAP A14 part 3d (slide over a sharded map is not written)."""
+    the card, and get_prediction_sharded over [cuda:0] * k for k in
+    PREDICTION_SLIDE_SHARDS, against the CPU's float64 slide inference of
+    the same weights; the ms of its inference (nine windows), of the
+    whole forward and of each sharded slide (slide_rows), with the
+    sharded slide's host enqueue."""
     import copy
 
     from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core import spatial
     from peanut_tpu_torch.core.mesh import make_mesh
     from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.sharded import slide_rows
     from peanut_tpu_torch.multichip import DRYRUN_MODEL
     from peanut_tpu_torch.prediction import PredictionModel
     cfg = dict(copy.deepcopy(DRYRUN_MODEL), test_cfg=dict(PREDICTION_SLIDE))
@@ -4252,15 +4317,26 @@ def prediction_slide(args, dev) -> dict:
         with torch.no_grad():
             slide_ms = cuda_ms(lambda: pm.infer(xd), 3)
             whole_ms = cuda_ms(lambda: pm.model(xd), 3)
+        sharded = {}
+        for k in PREDICTION_SLIDE_SHARDS:
+            on_k = pm.get_prediction_sharded(
+                full_map, make_mesh({"spatial": k}, [dev] * k))
+            rows = spatial.shard(xd, [dev] * k)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slide_rows(pm.model, rows)
+                host = (time.perf_counter() - t0) * 1e3
+                ms = cuda_ms(lambda: slide_rows(pm.model, rows), 2)
+            sharded[f"sharded_{k}"] = {
+                "max_abs_diff_vs_cpu_float64": float(
+                    np.abs(on_k - want).max()),
+                "finite": bool(np.isfinite(on_k).all()),
+                "shape_ok": on_k.shape == want.shape,
+                "ms": ms, "host_enqueue_ms": host}
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
-    try:
-        pm.get_prediction_sharded(full_map, make_mesh({"spatial": 2},
-                                                      [dev] * 2))
-        refusal = None
-    except NotImplementedError as e:
-        refusal = str(e)
     reading = {"phase": "prediction_slide", "test_cfg": PREDICTION_SLIDE,
                "input": list(full_map.shape), "dtype": "float32, TF32 off",
                "max_abs_diff_vs_cpu_float64": float(np.abs(got - want).max()),
@@ -4268,26 +4344,109 @@ def prediction_slide(args, dev) -> dict:
                "whole_forward_apart": float(np.abs(whole - want).max()),
                "whole_apart_at_least": PREDICTION_SLIDE_WHOLE_APART,
                "finite": bool(np.isfinite(got).all()),
-               "slide_ms": slide_ms, "whole_ms": whole_ms,
-               "sharded_refusal": refusal}
+               "slide_ms": slide_ms, "whole_ms": whole_ms, **sharded}
     emit(reading)
     if not (reading["finite"] and got.shape == want.shape
             and reading["max_abs_diff_vs_cpu_float64"]
             <= PREDICTION_SLIDE_BOUND
             and reading["whole_forward_apart"]
             >= PREDICTION_SLIDE_WHOLE_APART
-            and refusal is not None and "part 3d" in refusal):
+            and all(r["finite"] and r["shape_ok"]
+                    and r["max_abs_diff_vs_cpu_float64"]
+                    <= PREDICTION_SLIDE_BOUND for r in sharded.values())):
         fail(f"prediction_slide: {reading}")
     return reading
 
 
+def spatial_slide(args, dev) -> dict:
+    """spatial_slide: UPerNet-R50 (ZOO_SERVE at its published widths,
+    random weights from --seed) with test_cfg ZOO_SLIDE on a ZOO_IMAGE
+    map (nine 512x1024 windows): PredictionModel.get_prediction_sharded
+    over [cuda:0] * SPATIAL_SLIDE_SHARDS against get_prediction (the
+    card's unsharded slide) in float32 (TF32 off) and bfloat16, within
+    SPATIAL_ZOO_BOUND; the ms of one unsharded slide_inference and one
+    slide_rows (CUDA events, after the warm calls above), the host's
+    enqueue of each and its peak memory above the weights and input."""
+    import copy
+
+    from peanut_tpu_torch.config import NavConfig
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.core.config_file import load_config
+    from peanut_tpu_torch.core.mesh import make_mesh
+    from peanut_tpu_torch.models.builder import build_segmentor
+    from peanut_tpu_torch.models.sharded import slide_rows
+    from peanut_tpu_torch.prediction import PredictionModel
+    k = SPATIAL_SLIDE_SHARDS
+    cfg = load_config(ZOO_SERVE)["model"]
+    cfg["test_cfg"] = dict(ZOO_SLIDE)
+    model = zoo_weights(build_segmentor(cfg, seed=args.seed), args.seed)
+    full_map = np.random.RandomState(args.seed + 22).rand(
+        3, *ZOO_IMAGE).astype(np.float32)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            e0.record()
+            y = fn()
+            e1.record()
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        del y
+        return {"ms": e0.elapsed_time(e1), "host_enqueue_ms": host,
+                "peak_mib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 20}
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for i, dtype in enumerate(("float32", "bfloat16")):
+            pm = PredictionModel(NavConfig(serve_bf16=dtype == "bfloat16"),
+                                 model=copy.deepcopy(model) if i == 0
+                                 else model, device=dev)
+            want = pm.get_prediction(full_map)
+            got = pm.get_prediction_sharded(
+                full_map, make_mesh({"spatial": k}, [dev] * k))
+            x = torch.as_tensor(full_map[None], device=dev).to(pm.dtype)
+            rows = spatial.shard(x, [dev] * k)
+            out[dtype] = {
+                "max_abs_diff": float(np.abs(got - want).max()),
+                "bound": SPATIAL_ZOO_BOUND[dtype],
+                "finite": bool(np.isfinite(got).all()),
+                "shape_ok": got.shape == want.shape,
+                "unsharded": timed(lambda: pm.model.slide_inference(x)),
+                f"sharded_{k}": timed(lambda: slide_rows(pm.model, rows))}
+            del pm, x, rows, want, got
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    reading = {"phase": "spatial_slide", "config": ZOO_SERVE,
+               "test_cfg": ZOO_SLIDE, "input": [3, *ZOO_IMAGE],
+               "windows": len(model.slide_windows(*ZOO_IMAGE)),
+               "shards": k, "tf32": False, **out}
+    emit(reading)
+    if not all(r["finite"] and r["shape_ok"] and r["max_abs_diff"]
+               <= r["bound"] for r in out.values()):
+        fail(f"spatial_slide: {reading}")
+    return reading
+
+
 def spatial_zoo_phase(args, dev, smi_line: str) -> None:
-    """Phase 17: spatial_zoo_pred, prediction_slide, spatial_zoo_train,
-    spatial_zoo_float64.  No kernel of csrc/ on this path (the zoo's heads
-    are PyTorch ops)."""
+    """Phase 17: spatial_zoo_pred, prediction_slide, spatial_slide,
+    spatial_zoo_train, spatial_zoo_float64.  No kernel of csrc/ on this
+    path (the zoo's heads are PyTorch ops)."""
     t0 = time.perf_counter()
     spatial_zoo_forwards(args, dev)
     prediction_slide(args, dev)
+    spatial_slide(args, dev)
     spatial_zoo_training(args, dev)
     spatial_zoo_float64(args, dev)
     emit({"phase": "spatial_zoo_done", "seconds": time.perf_counter() - t0,

@@ -19,7 +19,11 @@ The sharded ops, each built on ``fetch_rows``:
   padding (zeros, -inf)
   applies only at the map's top and bottom, never at a shard's edge,
   though the op runs with the unsharded one's padding (``_rowwise``);
-  flax's "SAME" padding is split from the whole map's height;
+  flax's "SAME" padding is split from the whole map's height, and so
+  are torch's "same" and the rows a reflect, replicate or circular
+  padding takes from the whole map (``fetch_padded``);
+* ``window``: a sliding window's rows and columns, split again over the
+  map's devices;
 * ``adaptive_avg_pool``: each shard's columns of the bin matrix times its
   rows, the contributions summed on one device (a global map);
 * ``resize``: each shard's output rows of the bilinear matrix times the
@@ -137,34 +141,79 @@ def fetch_rows(x: Rows, a: int, b: int, device) -> torch.Tensor:
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=2)
 
 
-def fetch_padded(x: Rows, a: int, b: int, device,
-                 value: float = 0.0) -> torch.Tensor:
+def window(x: Rows, y1: int, y2: int, x1: int, x2: int) -> Rows:
+    """Rows [y1, y2) and columns [x1, x2) of ``x``, split again over x's
+    devices by ``row_ranges(y2 - y1, k)``: block j from whichever blocks
+    hold its rows, each block's columns sliced before any copy (empty
+    blocks where the window has fewer rows than shards).  The copies'
+    gradients flow back to x's blocks."""
+    if not (0 <= y1 <= y2 <= x.height and 0 <= x1 <= x2 <= x.shape[3]):
+        raise ValueError(f"window rows [{y1}, {y2}), columns [{x1}, {x2}) "
+                         f"of {x.height} x {x.shape[3]}")
+    cols = Rows([b[:, :, :, x1:x2] for b in x.blocks], x.height)
+    return Rows([fetch_rows(cols, y1 + s, y1 + e, dev) for (s, e), dev in
+                 zip(row_ranges(y2 - y1, len(x.blocks)), x.devices)],
+                y2 - y1)
+
+
+def _beyond(x: Rows, a: int, b: int, device, mode: str):
+    """Rows [a, b) of the whole map padded in ``mode``, all above row 0 or
+    all below row H - 1, within the padding torch allows: None where
+    a == b."""
+    if a == b:
+        return None
+    h = x.height
+    if mode == "replicate":
+        edge = 0 if b <= 0 else h - 1
+        return fetch_rows(x, edge, edge + 1, device).expand(
+            -1, -1, b - a, -1)
+    if mode == "circular":
+        return fetch_rows(x, a % h, a % h + b - a, device)
+    if mode != "reflect":
+        raise ValueError(f"padding mode {mode!r}")
+    # row r is row -r above the map and row 2 (H - 1) - r below it
+    last = -(b - 1) if b <= 0 else 2 * (h - 1) - (b - 1)
+    return fetch_rows(x, last, last + b - a, device).flip(2)
+
+
+def fetch_padded(x: Rows, a: int, b: int, device, value: float = 0.0,
+                 mode: str = "constant") -> torch.Tensor:
     """Global rows [a, b) of ``x`` on ``device``, the rows above row 0 and
-    below row H filled with ``value``: the padding of the whole map."""
+    below row H - 1 those of the whole map padded as ``F.pad`` pads it in
+    ``mode``: ``value`` ("constant"), the map mirrored about its first
+    and last rows ("reflect": row -i is row i, row H - 1 + i is row
+    H - 1 - i), its edge rows repeated ("replicate") or the map wrapped
+    ("circular": row i mod H), from whichever shards hold those rows."""
     lo, hi = min(max(a, 0), x.height), max(min(b, x.height), 0)
     got = fetch_rows(x, lo, max(hi, lo), device)
     top = max(min(b, 0) - a, 0)
     bottom = max(b - max(a, x.height), 0)
-    if top or bottom:
-        got = F.pad(got, (0, 0, top, bottom), value=value)
-    return got
+    if not (top or bottom):
+        return got
+    if mode == "constant":
+        return F.pad(got, (0, 0, top, bottom), value=value)
+    pieces = [_beyond(x, a, a + top, device, mode), got,
+              _beyond(x, b - bottom, b, device, mode)]
+    return torch.cat([p for p in pieces if p is not None], dim=2)
 
 
 def _rowwise(x: Rows, op, kernel: int, stride: int, padding, dilation: int,
              channels: int, w_out: int, fill: float,
-             op_padding: Optional[int] = None) -> Rows:
+             op_padding: Optional[int] = None,
+             mode: str = "constant") -> Rows:
     """``op(window, device)``, a convolution or a pool that pads
     ``op_padding`` rows itself on each side (``padding``'s by default),
     over each shard's output rows.  ``padding``: the rows of ``fill`` the
     whole map has above and below, an int or a (top, bottom) pair, the top
     ones reached only from shard 0 and the bottom ones only from the last
-    shard.  The window is the input rows the shard's outputs reach, from
-    whichever shards hold them, begun ``lead`` output rows early so that
-    the op's own padding falls only on rows it computes and drops: the op
-    runs with the unsharded one's padding, as cuDNN chooses its algorithm
-    by it (a 3x3 convolution of 64 channels at 122 x 240 rows, float32,
-    padded (0, 1), takes ~28x the time and 2 GiB of workspace that the
-    same padded (1, 1) takes on the H100)."""
+    shard, or rows of the whole map padded in ``mode``
+    (``fetch_padded``).  The window is the input rows the shard's outputs
+    reach, from whichever shards hold them, begun ``lead`` output rows
+    early so that the op's own padding falls only on rows it computes and
+    drops: the op runs with the unsharded one's padding, as cuDNN chooses
+    its algorithm by it (a 3x3 convolution of 64 channels at 122 x 240
+    rows, float32, padded (0, 1), takes ~28x the time and 2 GiB of
+    workspace that the same padded (1, 1) takes on the H100)."""
     top, bottom = _pair(padding)
     op_padding = top if op_padding is None else op_padding
     reach = dilation * (kernel - 1) + 1
@@ -179,16 +228,23 @@ def _rowwise(x: Rows, op, kernel: int, stride: int, padding, dilation: int,
             continue
         a = (o0 - lead) * stride - top + op_padding
         b = (o1 - 1) * stride - top + reach
-        y = op(fetch_padded(x, a, b, dev, fill), dev)
+        y = op(fetch_padded(x, a, b, dev, fill, mode), dev)
         blocks.append(y[:, :, lead:lead + o1 - o0])
     return Rows(blocks, h_out)
 
 
 def conv2d(x: Rows, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-           stride=1, padding=0, dilation=1, groups: int = 1) -> Rows:
-    """``F.conv2d`` of a row-sharded map with zero padding: each shard's
-    output rows from the input rows they reach, however many shards
-    those span."""
+           stride=1, padding=0, dilation=1, groups: int = 1,
+           padding_mode: str = "zeros") -> Rows:
+    """``nn.Conv2d``'s convolution of a row-sharded map, ``padding`` an
+    int, a pair, "same" or "valid" and ``padding_mode`` one of "zeros",
+    "reflect", "replicate" or "circular": each shard's output rows from
+    the input rows they reach, however many shards those span.  Zeros
+    with an int or a pair: the op padded as the unsharded one
+    (``_rowwise``)."""
+    if isinstance(padding, str) or padding_mode != "zeros":
+        return _conv2d_padded(x, weight, bias, stride, padding, dilation,
+                              groups, padding_mode)
     (sh, sw), (ph, pw), (dh, dw) = (_pair(stride), _pair(padding),
                                     _pair(dilation))
     kh, kw = weight.shape[2:]
@@ -197,6 +253,50 @@ def conv2d(x: Rows, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
         x, lambda win, dev: F.conv2d(win, to(weight, dev), to(bias, dev),
                                      (sh, sw), (ph, pw), (dh, dw), groups),
         kh, sh, ph, dh, weight.shape[0], w_out, 0.0)
+
+
+def _torch_pads(padding, kernel, dilation) -> tuple:
+    """The (left, right, top, bottom) padding ``nn.Conv2d`` gives ``F.pad``
+    (``_reversed_padding_repeated_twice``): "same" puts dilation (k - 1)
+    // 2 before and the rest after, as ATen's "same" convolution does."""
+    if padding == "valid":
+        return (0, 0, 0, 0)
+    if padding == "same":
+        (th, tw) = (d * (k - 1) for k, d in zip(kernel, dilation))
+        return (tw // 2, tw - tw // 2, th // 2, th - th // 2)
+    ph, pw = _pair(padding)
+    return (pw, pw, ph, ph)
+
+
+def _conv2d_padded(x: Rows, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor], stride, padding, dilation,
+                   groups: int, padding_mode: str) -> Rows:
+    """``conv2d`` padded by a string or in a mode other than zeros, as
+    ``nn.Conv2d`` runs a mode: the whole map padded (``F.pad``: the rows
+    by ``fetch_padded``, the columns by each shard, which holds the whole
+    width), then a convolution padded 0.  torch's checks run first on the
+    whole map's shape (the meta device), so the sharded form raises what
+    the unsharded one raises, and from the whole map's height."""
+    kh, kw = weight.shape[2:]
+    mode = "constant" if padding_mode == "zeros" else padding_mode
+    left, right, top, bottom = _torch_pads(padding, (kh, kw),
+                                           _pair(dilation))
+    meta = torch.empty(x.shape, dtype=x.dtype, device="meta")
+    meta_w = torch.empty(weight.shape, dtype=weight.dtype, device="meta")
+    if isinstance(padding, str):
+        F.conv2d(meta, meta_w, None, stride, padding, dilation, groups)
+    meta = F.pad(meta, (left, right, top, bottom), mode=mode)
+    w_out = F.conv2d(meta, meta_w, None, stride, 0, dilation,
+                     groups).shape[3]
+
+    def op(win, dev):
+        if left or right:
+            win = F.pad(win, (left, right, 0, 0), mode=mode)
+        return F.conv2d(win, to(weight, dev), to(bias, dev), stride, 0,
+                        dilation, groups)
+    return _rowwise(x, op, kh, _pair(stride)[0], (top, bottom),
+                    _pair(dilation)[0], weight.shape[0], w_out, 0.0,
+                    op_padding=0, mode=mode)
 
 
 def conv2d_same(x: Rows, weight: torch.Tensor,

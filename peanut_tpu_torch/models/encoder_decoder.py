@@ -136,27 +136,34 @@ class EncoderDecoder(nn.Module):
     def whole_inference(self, img: torch.Tensor) -> torch.Tensor:
         return self.encode_decode(img)
 
-    def slide_inference(self, img: torch.Tensor) -> torch.Tensor:
-        """Sliding-window inference over (B, C, H, W): windows of
-        ``crop_size`` every ``stride`` (the last one of a row or column
-        clamped to end at the border), logits summed and divided by the
-        number of windows over each pixel; the JAX package's arithmetic
-        and defaults."""
+    def slide_windows(self, h: int, w: int) -> list:
+        """The (y1, y2, x1, x2) windows ``slide_inference`` visits over an
+        h x w map, rows outer, columns inner: ``crop_size`` every
+        ``stride``, the last one of a row or column clamped to end at the
+        border; the JAX package's arithmetic and defaults."""
         h_stride, w_stride = self.test_cfg.get("stride", (512, 512))
         h_crop, w_crop = self.test_cfg.get("crop_size", (768, 768))
-        b, _, h, w = img.shape
         h_grids = max(h - h_crop + h_stride - 1, 0) // h_stride + 1
         w_grids = max(w - w_crop + w_stride - 1, 0) // w_stride + 1
-        preds = img.new_zeros((b, self.num_classes, h, w))
-        count = img.new_zeros((b, 1, h, w))
+        out = []
         for hi in range(h_grids):
             for wi in range(w_grids):
                 y1 = min(hi * h_stride, max(h - h_crop, 0))
                 x1 = min(wi * w_stride, max(w - w_crop, 0))
-                y2, x2 = min(y1 + h_crop, h), min(x1 + w_crop, w)
-                preds[:, :, y1:y2, x1:x2] += self.encode_decode(
-                    img[:, :, y1:y2, x1:x2])
-                count[:, :, y1:y2, x1:x2] += 1.0
+                out.append((y1, min(y1 + h_crop, h), x1, min(x1 + w_crop, w)))
+        return out
+
+    def slide_inference(self, img: torch.Tensor) -> torch.Tensor:
+        """Sliding-window inference over (B, C, H, W): the logits of each
+        of ``slide_windows`` summed and divided by the number of windows
+        over each pixel, in the input's type."""
+        b, _, h, w = img.shape
+        preds = img.new_zeros((b, self.num_classes, h, w))
+        count = img.new_zeros((b, 1, h, w))
+        for y1, y2, x1, x2 in self.slide_windows(h, w):
+            preds[:, :, y1:y2, x1:x2] += self.encode_decode(
+                img[:, :, y1:y2, x1:x2])
+            count[:, :, y1:y2, x1:x2] += 1.0
         return preds / count
 
     def inference(self, img: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,9 @@ unsharded forward in exact arithmetic:
   included, under one checkpoint (a block's batch norms need every
   shard's statistics);
 * the logits are resized to the input's rows shard by shard
-  (``spatial.resize``).
+  (``spatial.resize``);
+* slide inference (``slide_rows``) sums each window's logits into the
+  rows each shard holds, in the unsharded loop's order.
 
 Only what GSPMD would also exchange crosses the shards: halo rows, global
 pools and what is computed from them (a pooled branch, region tokens,
@@ -78,10 +80,14 @@ CNNs (``MobileNetV2``, ``MobileNetV3``, ``ResNeSt``, ``HRNet``,
 ``CGNet``, ``ERFNet`` and ``ICNet``, their blocks and ``layers.PReLU``,
 the heads ``LRASPPHead``, ``DepthwiseSeparableFCNHead`` and
 ``STDCHead``, the neck ``ICNeck``): every type of the port's registries.
-Any other module type raises NotImplementedError naming it; slide
-inference over a sharded map and ``nn.Conv2d`` with a string padding or
-another padding mode (ROADMAP A14 part 3d) are left (``_LEFT``).
-Nothing falls back to the unsharded model.
+``nn.Conv2d`` takes every padding torch accepts: an int or a pair with
+zeros, "same" and "valid", and the reflect, replicate and circular modes,
+whose rows above and below the map come from the whole map's rows
+(``spatial.conv2d``).  ``slide_rows`` is ``slide_inference`` over a
+row-sharded map: each window fetched from the shards that hold its rows
+and run through ``forward_rows``.  Any other module type, and an FPN
+with a bottom-up backbone (Mask R-CNN's), raise NotImplementedError
+naming it.  Nothing falls back to the unsharded model.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,12 +130,6 @@ from .resnet import BasicBlock, ResNetV1c, ResNeXt, ZooBottleneck, ZooResNet
 from .vit import (SwinBlock, SwinTransformer, _shift_attn_mask,
                   _window_partition, _window_reverse)
 
-# what the spatial axis still lacks, named by every refusal
-_LEFT = ("what the spatial axis still lacks is ROADMAP A14 part 3d: slide "
-         "inference over a sharded map and nn.Conv2d with a string padding "
-         "or another padding mode than zeros")
-
-
 @dataclasses.dataclass
 class _Context:
     home: torch.device              # the model's device: global maps
@@ -156,7 +156,8 @@ def run(m: nn.Module, x, ctx: _Context):
     fn = _FORWARDS.get(type(m))
     if fn is None:
         raise NotImplementedError(
-            f"{type(m).__name__} has no row-sharded forward: {_LEFT}")
+            f"{type(m).__name__} has no row-sharded forward (every module "
+            "type of the port's registries has one)")
     return fn(m, x, ctx)
 
 
@@ -181,12 +182,8 @@ def _hw(x: Rows):
 
 @_sharded(nn.Conv2d)
 def _conv(m: nn.Conv2d, x: Rows, ctx) -> Rows:
-    if m.padding_mode != "zeros" or isinstance(m.padding, str):
-        raise NotImplementedError(
-            f"Conv2d with padding {m.padding!r} ({m.padding_mode}) has no "
-            f"row-sharded forward: {_LEFT}")
     return spatial.conv2d(x, m.weight, m.bias, m.stride, m.padding,
-                          m.dilation, m.groups)
+                          m.dilation, m.groups, m.padding_mode)
 
 
 @_sharded(SameConv2d)
@@ -340,8 +337,8 @@ def _fcn_head(m: FCNHead, inputs, ctx) -> Rows:
 def _fpn(m: FPN, feats, ctx) -> List[Rows]:
     if m.bottom_up is not None:
         raise NotImplementedError(
-            f"FPN with a bottom_up (Mask R-CNN's) has no row-sharded "
-            f"forward: {_LEFT}")
+            "FPN with a bottom_up (Mask R-CNN's) has no row-sharded "
+            "forward: the JAX package shards no detector's map")
     lat = [run(getattr(m, f"{m.prefix}lateral{lvl}"), f, ctx)
            for lvl, f in zip(m.levels, feats)]
     for i in range(len(lat) - 2, -1, -1):
@@ -1302,7 +1299,8 @@ def forward_rows(model: EncoderDecoder, x: Rows,
     chose (``point_cells``, (B, P) global flat indices)."""
     if type(model) not in (EncoderDecoder, CascadeEncoderDecoder):
         raise NotImplementedError(
-            f"{type(model).__name__} has no row-sharded forward: {_LEFT}")
+            f"{type(model).__name__} has no row-sharded forward (every "
+            "segmentor type of the port's registries has one)")
     if train is not None:
         model.train(train)
     ctx = _Context(next(model.parameters()).device, generator, trace)
@@ -1318,6 +1316,40 @@ def forward_rows(model: EncoderDecoder, x: Rows,
         return logits, spatial.resize(run(model.auxiliary_head, feats, ctx),
                                       hw, model.align_corners)
     return logits
+
+
+def _slide_sums(model: EncoderDecoder, x: Rows) -> Tuple[Rows, Rows]:
+    """``slide_rows``' sums of the windows' logits and their counts,
+    row-sharded as ``x``."""
+    b, _, h, w = x.shape
+    preds = [blk.new_zeros((b, model.num_classes, e - s, w))
+             for blk, (s, e) in zip(x.blocks, x.ranges)]
+    count = [blk.new_zeros((b, 1, e - s, w))
+             for blk, (s, e) in zip(x.blocks, x.ranges)]
+    for y1, y2, x1, x2 in model.slide_windows(h, w):
+        logits = forward_rows(model, spatial.window(x, y1, y2, x1, x2),
+                              train=False)
+        for p, c, (s, e) in zip(preds, count, x.ranges):
+            a, z = max(s, y1), min(e, y2)
+            if a < z:
+                p[:, :, a - s:z - s, x1:x2] += spatial.fetch_rows(
+                    logits, a - y1, z - y1, p.device)
+                c[:, :, a - s:z - s, x1:x2] += 1.0
+    return Rows(preds, h), Rows(count, h)
+
+
+def slide_rows(model: EncoderDecoder, x: Rows) -> Rows:
+    """``model.slide_inference`` over a row-sharded (B, C, H, W) map, in
+    eval mode: each window of ``model.slide_windows`` taken from the
+    shards that hold its rows (``spatial.window``, split again over the
+    same devices) and run through ``forward_rows``; each shard adds the
+    window's logits over its own rows into its sums and counts, held on
+    its device in the input's type, window by window as the unsharded
+    loop adds them, so each element rounds as there.  The sums over the
+    counts, row-sharded as the input is."""
+    preds, count = _slide_sums(model, x)
+    return Rows([p / c for p, c in zip(preds.blocks, count.blocks)],
+                x.height)
 
 
 # the plain-ViT families' and the light CNNs' forms, registered through

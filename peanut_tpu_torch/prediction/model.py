@@ -8,9 +8,9 @@ pipeline (MultiScaleFlipAug at ratio 1.0, identity normalisation) reduces
 to the model's inference on the model's device: one whole-image forward
 (PEANUT's config), or sliding windows where the model's ``test_cfg`` says
 ``mode="slide"``, as the JAX package's ``model.inference`` runs it.
-``get_prediction_sharded`` runs the whole forward with the map's height
-sharded over a mesh axis (``models.sharded``); a sliding model raises
-there (ROADMAP A14 part 3d).
+``get_prediction_sharded`` runs the same inference with the map's height
+sharded over a mesh axis (``models.sharded``): the whole forward, or the
+sliding windows over the sharded map.
 
 Weights: ``model`` (an EncoderDecoder, taken over), else ``state_dict``
 (mmseg keys), else the checkpoint at ``cfg.pred_model_wts``.  Unlike the
@@ -33,7 +33,7 @@ from ..core.mesh import axis_devices
 from ..models.pspnet import build_segmentor, peanut_prediction_config
 from ..models.encoder_decoder import EncoderDecoder
 from ..models.mmseg_import import load_mmseg_checkpoint, load_mmseg_state
-from ..models.sharded import _LEFT, forward_rows
+from ..models.sharded import forward_rows, slide_rows
 
 
 class PredictionModel:
@@ -79,24 +79,22 @@ class PredictionModel:
     @torch.no_grad()
     def get_prediction_sharded(self, full_map: np.ndarray, mesh,
                                axis: str = "spatial") -> np.ndarray:
-        """Whole-map inference with the map's height sharded over the mesh
+        """``get_prediction`` with the map's height sharded over the mesh
         axis ``axis`` (the other axes at index 0): (C, H, W) -> (6, H, W)
-        float32 probabilities on the host, as ``get_prediction``.  Each
-        device of the axis holds a block of rows (uneven where they do not
-        divide) and computes them in the model's type, taking the halo
-        rows each convolution reaches from the shards that hold them
-        (``models.sharded.forward_rows``); the model's parameters are read
-        where they lie, copied to a shard on another device.  A model whose
-        ``test_cfg`` slides raises NotImplementedError: slide inference
-        over a sharded map is not written yet, and a whole forward would
-        not be the prediction ``get_prediction`` gives."""
-        if self.model.slides:
-            raise NotImplementedError(
-                f"{type(self.model).__name__} with test_cfg mode 'slide' has "
-                f"no row-sharded prediction: {_LEFT}")
+        float32 probabilities on the host.  Each device of the axis holds
+        a block of rows (uneven where they do not divide) and computes
+        them in the model's type, taking the halo rows each convolution
+        reaches from the shards that hold them (``models.sharded.
+        forward_rows``); the model's parameters are read where they lie,
+        copied to a shard on another device.  A model whose ``test_cfg``
+        slides runs its windows over the sharded map
+        (``models.sharded.slide_rows``), each shard summing the logits
+        over its own rows; the logits meet the sigmoid in float32 on each
+        shard."""
         devices = axis_devices(mesh, axis)
         x = torch.as_tensor(np.asarray(full_map, np.float32)[None])
         rows = spatial.shard(x.to(self.dtype), devices)
-        logits = forward_rows(self.model, rows, train=False)
+        logits = (slide_rows(self.model, rows) if self.model.slides
+                  else forward_rows(self.model, rows, train=False))
         return np.concatenate([torch.sigmoid(b.float())[0].cpu().numpy()
                                for b in logits.blocks], axis=1)

@@ -1108,6 +1108,45 @@ def test_spatial_zoo_light_cnn_on_the_card(cuda, family):
             assert float((got - want).abs().max()) <= 1e-10 * top, k
 
 
+
+def test_spatial_slide_and_padded_conv_on_the_card(cuda):
+    """Slide inference over a row-sharded map on the card: the dry run's
+    narrow PSPNet with 64^2 windows every 48 rows and columns, float64,
+    at 120 x 96 (clamped windows), ``slide_rows`` over ``[cuda] * k``
+    for k = 2, 3 against the CPU's unsharded ``slide_inference``; and a
+    reflect-padded strided convolution over 3 shards of the card against
+    the CPU's ``nn.Conv2d``: within 1e-10 of the largest |value|."""
+    import copy
+
+    from peanut_tpu_torch.core import spatial
+    from peanut_tpu_torch.models.pspnet import build_segmentor
+    from peanut_tpu_torch.models.sharded import slide_rows
+    from peanut_tpu_torch.multichip import DRYRUN_MODEL
+    cfg = dict(copy.deepcopy(DRYRUN_MODEL), test_cfg=dict(
+        mode="slide", crop_size=(64, 64), stride=(48, 48)))
+    model = build_segmentor(cfg, seed=0).double().eval()
+    x = torch.as_tensor(np.random.RandomState(16).rand(1, 14, 120, 96))
+    conv = torch.nn.Conv2d(14, 8, 3, stride=2, padding=2,
+                           padding_mode="reflect").double()
+    with torch.no_grad():
+        want = model.slide_inference(x)
+        want_conv = conv(x)
+        card = copy.deepcopy(model).to(cuda)
+        top = float(want.abs().max())
+        for k in (2, 3):
+            got = spatial.gather(slide_rows(
+                card, spatial.shard(x.to(cuda), [cuda] * k))).cpu()
+            assert got.shape == want.shape
+            assert float((got - want).abs().max()) <= 1e-10 * top, k
+        conv = conv.to(cuda)
+        got = spatial.gather(spatial.conv2d(
+            spatial.shard(x.to(cuda), [cuda] * 3), conv.weight, conv.bias,
+            conv.stride, conv.padding, conv.dilation, conv.groups,
+            conv.padding_mode)).cpu()
+    assert got.shape == want_conv.shape
+    assert float((got - want_conv).abs().max()) <= 1e-10 * float(
+        want_conv.abs().max())
+
 def test_swin_on_the_card_matches_the_cpu(cuda):
     """UPerNet-Swin-T at its config's widths (150 classes), seeded, in
     float64 on the card and the CPU on a 96x160 input (its 24x40 patch

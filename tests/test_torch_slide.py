@@ -7,9 +7,11 @@ against the JAX package in float32:
   14 x 128^2 map slides as JAX's ``PredictionModel`` does (nine windows,
   the overlaps averaged), within 1e-5; its whole forward lies far from
   that (0.231 before the repair);
-* its ``get_prediction_sharded`` over 2 and 8 shards raises
-  NotImplementedError naming ROADMAP A14 part 3d (slide over a sharded
-  map), never a whole forward in its place;
+* its ``get_prediction_sharded`` slides over the sharded map: over 8
+  shards of ``["cpu"] * 8`` within 1e-5 of JAX's
+  ``get_prediction_sharded`` on the 8 virtual devices (GSPMD's slide,
+  compiled once for the module), over 2 within 1e-6 of the port's
+  unsharded slide;
 * a cascade (mmseg's FCN -> OCR ``CascadeEncoderDecoder``) given the same
   slide ``test_cfg`` runs whole inference, as the JAX package's cascade
   does: within 1e-5 of JAX's prediction, and far from its own windows;
@@ -70,14 +72,27 @@ def test_slide_prediction_matches_jax(slide_models):
     assert float(np.abs(whole[0].numpy() - want).max()) > 1e-2
 
 
+@pytest.fixture(scope="module")
+def jax_sharded_slide(slide_models):
+    from peanut_tpu.core.mesh import make_mesh as jmake_mesh
+    jpm, _ = slide_models
+    return jpm.get_prediction_sharded(_map(14), jmake_mesh({"spatial": 8}))
+
+
 @pytest.mark.parametrize("k", [2, 8])
-def test_sharded_slide_prediction_raises_naming_3d(slide_models, k):
+def test_sharded_slide_prediction(slide_models, jax_sharded_slide, k):
+    """k = 8: against JAX's GSPMD slide on 8 devices; k = 2: against the
+    port's unsharded slide."""
     _, pm = slide_models
-    with pytest.raises(NotImplementedError,
-                       match=r"EncoderDecoder with test_cfg mode 'slide' has "
-                             r"no row-sharded.*ROADMAP A14 part 3d"):
-        pm.get_prediction_sharded(_map(14), make_mesh({"spatial": k},
-                                                      ["cpu"] * k))
+    got = pm.get_prediction_sharded(_map(14), make_mesh({"spatial": k},
+                                                        ["cpu"] * k))
+    assert got.shape == (6,) + HW and got.dtype == np.float32
+    if k == 8:
+        np.testing.assert_allclose(got, jax_sharded_slide, rtol=0,
+                                   atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, pm.get_prediction(_map(14)),
+                                   rtol=0, atol=1e-6)
 
 
 def test_a_cascade_runs_whole_whatever_test_cfg_says():

@@ -14,10 +14,11 @@
   eval mode with random batch statistics, sharded against unsharded
   within 1e-12; ``PredictionModel.get_prediction_sharded`` against
   ``get_prediction`` within 1e-9 in float64 and 1e-6 in float32.
-* A module without a sharded form (torch's own ``nn.PReLU``, a
-  convolution padded by a string or in another mode than zeros) raises
-  NotImplementedError naming it and ROADMAP A14 part 3d, though the
-  unsharded forward runs.
+* A module without a sharded form (torch's own ``nn.PReLU``) raises
+  NotImplementedError naming it, though the unsharded forward runs; a
+  convolution padded in reflect mode in STDCHead, or "same" and dilated
+  in ICNeck's fusion, runs sharded as unsharded within 1e-12 in
+  float64.
 """
 
 import copy
@@ -290,8 +291,10 @@ def test_get_prediction_sharded_matches_unsharded(dryrun_model):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("what", ["STDCHead", "neck", "PReLU"])
-def test_a_module_without_a_sharded_form_raises(what):
+def _small_model(what: str):
+    """The dry run's PSPNet with STDCHead for its decode head, or ICNeck
+    for its neck, or its auxiliary head's first convolution followed by
+    torch's own ``nn.PReLU``."""
     cfg = copy.deepcopy(DRYRUN_MODEL)
     if what == "STDCHead":
         cfg["decode_head"] = dict(type="STDCHead", in_channels=512,
@@ -301,26 +304,39 @@ def test_a_module_without_a_sharded_form_raises(what):
                            out_channels=32)
         cfg["decode_head"].update(in_channels=32, in_index=2)
         cfg["auxiliary_head"].update(in_channels=32, in_index=1)
-    model = build_segmentor(cfg, seed=0)
-    # STDCHead, ICNeck and the port's PReLU have forms: what still has
-    # none is a reflect-padded conv (part 3d) in the head, a conv padded
-    # "same" in the neck, and torch's own nn.PReLU in a ConvModule
+    return build_segmentor(cfg, seed=0)
+
+
+@pytest.mark.parametrize("what", ["STDCHead", "neck"])
+def test_a_conv_padded_otherwise_runs_sharded(what):
+    """A reflect-padded conv in STDCHead, a conv padded "same" and
+    dilated in ICNeck's fusion: sharded as unsharded, both heads."""
+    model = _small_model(what)
     if what == "STDCHead":
         model.decode_head.conv0.conv.padding_mode = "reflect"
-        match = r"Conv2d with padding .*reflect.* has no row-sharded"
-    elif what == "neck":
-        fusion = model.neck.cff42.conv_low
-        fusion.conv = torch.nn.Conv2d(512, 32, 3, padding="same",
-                                      dilation=2, bias=False)
-        match = r"Conv2d with padding 'same' .*has no row-sharded"
     else:
-        from peanut_tpu_torch.models.layers import ConvModule
-        model.auxiliary_head.convs[0] = ConvModule(
-            256, 64, 3, padding=1, act=torch.nn.PReLU())
-        match = r"PReLU has no row-sharded"
+        model.neck.cff42.conv_low.conv = torch.nn.Conv2d(
+            512, 32, 3, padding="same", dilation=2, bias=False)
+    model = _random_stats(model).double()
+    x = rand(1, 14, 32, 32, seed=4)
+    with torch.no_grad():
+        want = model(x, train=False, with_aux=True)
+        for k in (2, 3):
+            got = forward_rows(model, spatial.shard(x, cpus(k)),
+                               train=False, with_aux=True)
+            for g, w in zip(got, want):
+                close(spatial.gather(g), w)
+
+
+@pytest.mark.parametrize("what", ["PReLU"])
+def test_a_module_without_a_sharded_form_raises(what):
+    model = _small_model(what)
+    from peanut_tpu_torch.models.layers import ConvModule
+    model.auxiliary_head.convs[0] = ConvModule(
+        256, 64, 3, padding=1, act=torch.nn.PReLU())
     x = torch.rand(1, 14, 32, 32)
     with torch.no_grad():
         model(x, with_aux=True)
         with pytest.raises(NotImplementedError,
-                           match=match + r".*A14 part 3d"):
+                           match=r"^PReLU has no row-sharded forward"):
             forward_rows(model, spatial.shard(x, cpus(2)), with_aux=True)

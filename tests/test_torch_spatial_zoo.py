@@ -14,12 +14,12 @@ on the CPU, the port against itself in float64:
   128^2 and at 40 x 64 (shards of no rows), within 1e-12 of the largest
   |logit|;
 * the configs of BiSeNetV1, BiSeNetV2, STDC's context path, ERFNet and
-  CGNet (whose types got their sharded forms in A14 part 3c's second
-  half) given a ``test_cfg`` of ``mode="slide"``: ``PredictionModel.
-  get_prediction_sharded`` raises NotImplementedError naming ROADMAP A14
-  part 3d (slide over a sharded map), where a whole forward would not be
-  the prediction the unsharded path gives; and the refusal names only
-  what part 3d leaves.
+  CGNet given a ``test_cfg`` of ``mode="slide"`` (32^2 windows every 24
+  rows and columns of a 64^2 map): ``PredictionModel.
+  get_prediction_sharded`` over 2 shards slides as the unsharded
+  ``get_prediction`` does, within 1e-5 in float32;
+* no source file of the port names a ROADMAP part still to do, and a
+  module type outside the port's registries is refused by name.
 """
 
 import pytest
@@ -59,14 +59,16 @@ def test_forward_rows_matches_the_model(family, shape):
     check_forward_rows(family, SHAPES[shape])
 
 
-# the configs of the types that part 3c's second half gave a form
+# light-CNN configs that mmseg's users may slide
 SLIDING = {"BiSeNetV1": "bisenetv1", "ERFNet": "erfnet",
            "BiSeNetV2": "bisenetv2", "STDCContextPathNet": "stdc",
            "CGNet": "cgnet"}
 
 
 @pytest.mark.parametrize("what", list(SLIDING))
-def test_a_sliding_config_raises_naming_3d(what):
+def test_a_sliding_config_slides_over_shards(what):
+    import numpy as np
+
     from peanut_tpu_torch.config import NavConfig
     from peanut_tpu_torch.core.mesh import make_mesh
     from peanut_tpu_torch.models.builder import build_segmentor
@@ -76,18 +78,32 @@ def test_a_sliding_config_raises_naming_3d(what):
     model = build_segmentor(cfg, seed=0)
     assert type(model.backbone).__name__ == what
     pm = PredictionModel(NavConfig(), model=model, device="cpu")
-    full_map = torch.rand(3, 64, 64).numpy()
-    assert pm.get_prediction(full_map).shape == (19, 64, 64)
-    with pytest.raises(NotImplementedError,
-                       match=r"EncoderDecoder with test_cfg mode 'slide' has "
-                             r"no row-sharded.*ROADMAP A14 part 3d"):
-        pm.get_prediction_sharded(full_map, make_mesh({"spatial": 2},
-                                                      cpus(2)))
+    full_map = torch.rand(3, 64, 64,
+                          generator=torch.Generator().manual_seed(4)).numpy()
+    want = pm.get_prediction(full_map)
+    assert want.shape == (19, 64, 64)
+    got = pm.get_prediction_sharded(full_map, make_mesh({"spatial": 2},
+                                                        cpus(2)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_the_refusal_names_what_is_left():
+def test_no_refusal_names_a_roadmap_part():
+    import pathlib
+
+    import peanut_tpu_torch
     from peanut_tpu_torch.models import sharded
-    for name in ("slide", "padding mode", "3d"):
-        assert name in sharded._LEFT
-    for name in ("3c", "light-CNN", "plain-ViT"):
-        assert name not in sharded._LEFT
+    root = pathlib.Path(peanut_tpu_torch.__file__).parent
+    sources = sorted(root.rglob("*.py"))
+    assert len(sources) > 50
+    for path in sources:
+        assert "part 3d" not in path.read_text(), path
+
+    class Unregistered(torch.nn.Module):
+        def forward(self, x):
+            return x
+
+    x = spatial.shard(torch.rand(1, 2, 6, 4), cpus(2))
+    with pytest.raises(NotImplementedError,
+                       match=r"^Unregistered has no row-sharded forward"):
+        sharded.run(Unregistered(), x, sharded._Context(
+            torch.device("cpu"), None))

@@ -23,11 +23,11 @@ module), and the types still without a sharded form:
   left); each light-CNN type, of both halves of ROADMAP A14 part 3c
   (the two-path real-time nets, their neck and head among them), runs a
   small instance over 2 shards of a float64 map as its unsharded forward
-  does; and a plain-ViT model (UPerNet-ViT, SETR) whose convolution pads
-  in another mode than zeros, or a PSPNet's convolution padded by a
-  string or in another mode (part 3d), raises NotImplementedError naming
-  part 3d through ``forward_rows``, though its unsharded forward runs:
-  nothing falls back to the unsharded model.
+  does; and a plain-ViT model (UPerNet-ViT, SETR) whose head's
+  convolution pads in reflect mode, or ERFNet with a convolution padded
+  "same" or in reflect, replicate or circular mode, runs through
+  ``forward_rows`` over 2 shards as its unsharded forward does, within
+  1e-12 in float64.
 """
 
 import pytest
@@ -240,42 +240,45 @@ def test_a_light_cnn_type_has_a_form_that_runs_sharded(name):
             w.abs().max())
 
 
+def _check_model_rows(model, x):
+    with torch.no_grad():
+        want = model(x, train=False)
+        got = spatial.gather(forward_rows(model, spatial.shard(x, cpus(2)),
+                                          train=False))
+    assert got.shape == want.shape == x.shape[:1] + want.shape[1:2] + \
+        x.shape[2:]
+    assert float((got - want).abs().max()) <= 1e-12 * float(
+        want.abs().max())
+
+
 @pytest.mark.parametrize("family", ["vit", "setr"])
-def test_a_plain_vit_model_raises(family):
+def test_a_plain_vit_model_with_a_reflect_conv_runs_sharded(family):
     from peanut_tpu_torch.models.builder import build_segmentor
-    model = build_segmentor(family_config(family), seed=0)
+    model = build_segmentor(family_config(family), seed=0).double()
     conv = next(m for m in model.decode_head.modules()
                 if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3))
     conv.padding_mode = "reflect"
-    x = torch.rand(1, 3, 64, 64)
-    with torch.no_grad():
-        assert model(x).shape[-2:] == (64, 64)
-        with pytest.raises(NotImplementedError,
-                           match=r"Conv2d with padding .*reflect.* has no "
-                                 r"row-sharded.*ROADMAP A14 part 3"):
-            forward_rows(model, spatial.shard(x, cpus(2)))
+    _check_model_rows(model, torch.rand(
+        1, 3, 64, 64, dtype=torch.float64,
+        generator=torch.Generator().manual_seed(3)))
 
 
 @pytest.mark.parametrize("padding", ["reflect", "replicate", "circular",
                                      "same"])
-def test_a_conv_padded_otherwise_raises_naming_3d(padding):
+def test_a_conv_padded_otherwise_runs_sharded(padding):
     from peanut_tpu_torch.models.builder import build_segmentor
-    model = build_segmentor(family_config("erfnet"), seed=0)
+    model = build_segmentor(family_config("erfnet"), seed=0).double()
     block = model.backbone.enc1_0
     if padding == "same":
         conv = block.conv3x1_1
         block.conv3x1_1 = torch.nn.Conv2d(conv.in_channels,
                                           conv.out_channels, (3, 1),
-                                          padding="same")
+                                          padding="same").double()
     else:
         block.conv3x1_1.padding_mode = padding
-    x = torch.rand(1, 3, 64, 64)
-    with torch.no_grad():
-        assert model(x).shape[-2:] == (64, 64)
-        with pytest.raises(NotImplementedError,
-                           match=r"Conv2d with padding .* has no row-sharded"
-                                 r".*ROADMAP A14 part 3d: slide"):
-            forward_rows(model, spatial.shard(x, cpus(2)))
+    _check_model_rows(model, torch.rand(
+        1, 3, 64, 64, dtype=torch.float64,
+        generator=torch.Generator().manual_seed(3)))
 
 
 @pytest.mark.parametrize("rows", [(13, 16), (12, 12), (-5, -2), (-2, 3),
